@@ -7,17 +7,27 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 
 1. device and environment: card name and power limit, torch and CUDA
    versions, which optional packages (PIL, yaml, regex) are present;
-2. build the three CUDA kernels from ``cmh_torch/csrc`` (``ops/_build.py``);
-3. each kernel against its plain PyTorch version at the serving path's
-   shapes (batch 256), with its time beside the plain version's, one
-   PyTorch library call's and the card's bound;
+2. build the four CUDA sources from ``cmh_torch/csrc`` (``ops/_build.py``),
+   one ``nvcc`` each, all at once;
+3. each kernel against its plain PyTorch version, with its time beside the
+   plain version's, one PyTorch library call's and the card's bound: the
+   forward kernels and K4 at the serving path's shapes (batch 256), the
+   backward kernels at the training step's (batch 100), and the mAP
+   kernels at coco scale (4 directions of 1,024-query chunks against
+   110,000 items, 80 classes, 16 and 64 bits, and 1,024 bits at 20,000);
 4. the full-width ViT-B/32 DCMHT model in fp32 on the card (kernels) and on
    the CPU (plain versions) from one seed: head outputs and codes must agree;
-5. serving at full width in bf16: encode a gallery of synthetic images, fill
+5. one full-width fp32 train step's gradients on 8 pairs, card against CPU;
+6. serving at full width in bf16: encode a gallery of synthetic images, fill
    a 16-bit index past 2^20 items, start ``cmh_torch.server`` on a local
    port and answer requests over HTTP; every answer must equal the top-k
    of the same query from a CPU copy of the index (plain Hamming), and the
-   kernels' launch counters must show the path went through them.
+   kernels' launch counters must show the path went through them;
+7. training through the CLI entry point (``cmh_torch.main``) on
+   ``configs/DCMHT/synthetic_tpu.yaml`` for 2 epochs at full width in bf16
+   (12 steps and 2 ``valid``s): finite losses, the model and ``.mat``
+   files, the last mAPs equal to the plain counting rank and the numpy
+   oracle on ``last.mat``, and the launch counts worked out from the code.
 
 The last lines are the card's name and power limit, one JSON object with a
 ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -43,7 +53,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12,      # dense tensor-core bf16
             "fp32": 67e12}       # fp32 (and 32-bit integer) outside the tensor cores
 B = 256                          # serving batch
+TRAIN_B = 100                    # configs/DCMHT/synthetic_tpu.yaml batch
 MAX_WORDS, CODE_BITS = 32, 16    # configs/DCMHT/config.yaml
+COCO_N, COCO_Q, COCO_CLASSES = 110_000, 5_000, 80   # bench.py's coco-scale eval
 GALLERY_IMAGES = 2048
 INDEX_ITEMS = (1 << 20) + 4096   # two gallery blocks of the blocked search
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
@@ -65,6 +77,11 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     launch rate (tens of microseconds a call through Python)."""
     import torch
 
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    # the spin's length comes from a second, warm pass: the first calls pay
+    # one-time set-up (library handles, kernel selection) that would inflate it
     t = time.perf_counter()
     for _ in range(warmup):
         fn()
@@ -78,6 +95,30 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bf16_steps_checked(got, want, what: str) -> str:
+    """Hold a bf16 kernel result to its plain version: at most 1% of the
+    elements (at least one) may differ, each by one bf16 step or by 1e-6.
+    Two fp32 results a last bit apart round to neighbouring bf16 values, and
+    near 0, where bf16 steps are tiny, fp32 summation noise spans several. A
+    kernel that rounds W to bf16 before dV moves about 40% of dV."""
+    import torch
+
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise AssertionError(f"{what}: expected bf16, got {got.dtype} and {want.dtype}")
+
+    def ordinal(t):   # bf16 bit patterns in value order, +0 and -0 alike
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -32768 - i, i)
+
+    steps = (ordinal(got) - ordinal(want)).abs()
+    far = int(((steps > 1) & ((got.float() - want.float()).abs() > 1e-6)).sum())
+    differ = int((steps > 0).sum())
+    if far or differ > max(1, steps.numel() // 100):
+        raise AssertionError(f"{what}: {differ} of {steps.numel()} bf16 elements differ "
+                             f"from plain, {far} by more than one step and 1e-6")
+    return f"{differ} of {steps.numel()} bf16 elements differ from plain"
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -182,6 +223,308 @@ def check_hamming(torch, gen):
             None,   # no single PyTorch call computes a packed popcount distance
             (nq + ng) * w * 4 + nq * ng, 3 * nq * ng * w, "fp32"))
     return rows
+
+
+def check_layernorm_bwd(torch, gen):
+    import torch.nn.functional as F
+
+    from cmh_torch.ops.layernorm import layernorm_bwd, layernorm_bwd_plain
+
+    rows = []
+    for n, d in ((TRAIN_B * 50, 768), (TRAIN_B * MAX_WORDS, 512)):
+        x = torch.randn(n, d, generator=gen, device="cuda").mul_(3).add_(1).bfloat16()
+        do = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+        g = torch.randn(d, generator=gen, device="cuda")
+        got, want = layernorm_bwd(x, g, do), layernorm_bwd_plain(x, g, do)
+        torch.cuda.synchronize()
+        # dx: fp32 in both, rounded once to bf16; dγ/dβ: fp32 sums over n
+        # rows in another order
+        steps = bf16_steps_checked(got[0], want[0], "layernorm_bwd dx")
+        print(f"[kernel] layernorm_bwd ({n},{d}) dx: {steps}", flush=True)
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        xl = x.clone().requires_grad_()
+        gl = g.bfloat16().requires_grad_()
+        bl = torch.zeros_like(gl).requires_grad_()
+        y = F.layer_norm(xl, (d,), gl, bl, 1e-5)
+        rows.append(entry(
+            "layernorm_bwd", "cmh_torch/csrc/layernorm.cu",
+            "cmh_tpu/ops/layernorm_pallas.py:44", f"({n},{d}) bf16", err,
+            cuda_ms(lambda: layernorm_bwd(x, g, do)),
+            cuda_ms(lambda: layernorm_bwd_plain(x, g, do)),
+            cuda_ms(lambda: torch.autograd.grad(y, (xl, gl, bl), do, retain_graph=True)),
+            3 * n * d * 2 + 3 * d * 4, 12 * n * d, "fp32"))
+    return rows
+
+
+def check_attention_bwd(torch, gen):
+    import torch.nn.functional as F
+
+    from cmh_torch.ops.attention import attention_bwd, attention_bwd_plain, kpm_bias
+
+    rows = []
+    for tower, h, s in (("vision", 12, 50), ("text", 8, MAX_WORDS)):
+        q, k, v, do = (torch.randn(TRAIN_B, h, s, 64, generator=gen, device="cuda").bfloat16()
+                       for _ in range(4))
+        mask = bias = sdpa_mask = None
+        if tower == "text":
+            mask = torch.full((s, s), float("-inf"), device="cuda").triu(1)
+            lengths = torch.randint(2, s + 1, (TRAIN_B,), generator=gen, device="cuda")
+            kpm = torch.arange(s, device="cuda")[None, :] >= lengths[:, None]
+            bias = kpm_bias(kpm)
+            causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+            sdpa_mask = causal[None, None] & ~kpm[:, None, None, :]
+        scale = 64**-0.5
+        got = attention_bwd(q, k, v, scale, mask, bias, do)
+        want = attention_bwd_plain(q, k, v, scale, mask, bias, do)
+        torch.cuda.synchronize()
+        # fp32 arithmetic on the same bf16 inputs (W never rounded), then one
+        # bf16 rounding
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            steps = bf16_steps_checked(a, b, f"attention_bwd {name}")
+            print(f"[kernel] attention_bwd {tower} {name}: {steps}", flush=True)
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask, scale=scale)
+        nbytes = 7 * TRAIN_B * h * s * 64 * 2 + (s * s * 4 + TRAIN_B * s * 4 if mask is not None else 0)
+        rows.append(entry(
+            "attention_bwd", "cmh_torch/csrc/attention.cu",
+            "cmh_tpu/ops/attention_pallas.py:84",
+            f"{tower} ({TRAIN_B},{h},{s},64) bf16" + (" causal+kpm" if mask is not None else ""),
+            err,
+            cuda_ms(lambda: attention_bwd(q, k, v, scale, mask, bias, do)),
+            cuda_ms(lambda: attention_bwd_plain(q, k, v, scale, mask, bias, do)),
+            cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)),
+            nbytes, 10 * TRAIN_B * h * s * s * 64, "bf16"))
+    return rows
+
+
+def coco_codes(torch, gen, nq, n, bits):
+    """Random ±1 codes for queries and gallery of both modalities and
+    multi-hot labels over 80 classes (about 3 a item, at least one)."""
+    def codes(m):
+        return torch.randint(0, 2, (m, bits), generator=gen, device="cuda").float() * 2 - 1
+
+    def labels(m):
+        lab = (torch.rand(m, COCO_CLASSES, generator=gen, device="cuda") < 2.0 / COCO_CLASSES)
+        lab[torch.arange(m, device="cuda"),
+            torch.randint(0, COCO_CLASSES, (m,), generator=gen, device="cuda")] = True
+        return lab.float()
+
+    return codes(nq), codes(nq), codes(n), codes(n), labels(nq), labels(n)
+
+
+def check_map(torch, gen):
+    from cmh_torch.ops.map_bucketed import calc_map_k_4dir
+    from cmh_torch.ops.map_kernel import (map_ap, map_ap_plain, map_hist, map_hist_plain,
+                                          pack_words, query_chunk, rank_counts)
+    from cmh_torch.ops.metrics import calc_label_sim
+
+    rows, runs = [], []
+    for bits, n in ((16, COCO_N), (64, COCO_N), (1024, 20_000)):
+        chunk = query_chunk(bits)
+        qi, qt, ri, rt, ql, rl = coco_codes(torch, gen, chunk, n, bits)
+        gnd = calc_label_sim(ql, rl)
+        words = torch.cat([pack_words(a, b, gnd, bits)
+                           for a, b in ((qi, rt), (qt, ri), (qi, ri), (qt, rt))])
+        sl = words[:1024].contiguous()          # the comparison slice, Q = 1,024
+        q, wsize, v = sl.shape[0], sl.element_size(), bits + 1
+        hist, rhist = map_hist(sl, bits)
+        ph, prh = map_hist_plain(sl, bits)
+        torch.cuda.synchronize()
+        if not (torch.equal(hist, ph) and torch.equal(rhist, prh)):
+            raise AssertionError(f"K3-hist histograms differ from plain at {bits} bits")
+        less, less_r, total = rank_counts(hist, rhist, None)
+        ap, pap = map_ap(sl, less, less_r, total), map_ap_plain(sl, less, less_r, total)
+        torch.cuda.synchronize()
+        t = torch.clamp(total.double(), min=1.0)
+        err = ((ap - pap) / t).abs().max().item()
+        # identical fp32 quotients, fp64 sums in another order
+        if not err <= 1e-12:
+            raise AssertionError(f"K3-ap per-query AP differs by {err} at {bits} bits")
+        shape = f"Q={q} N={n} {bits}-bit " + ("uint8" if wsize == 1 else "int16")
+        rows.append(entry(
+            "map_hist", "cmh_torch/csrc/map.cu", "cmh_tpu/ops/map_pallas.py:110", shape,
+            0.0, cuda_ms(lambda: map_hist(sl, bits), iters=10, warmup=2),
+            cuda_ms(lambda: map_hist_plain(sl, bits), iters=3, warmup=1),
+            None,   # no single PyTorch call computes it
+            q * n * wsize + 2 * q * v * 4, 2 * q * n, "fp32"))
+        rows.append(entry(
+            "map_ap", "cmh_torch/csrc/map.cu", "cmh_tpu/ops/map_pallas.py:129", shape,
+            err, cuda_ms(lambda: map_ap(sl, less, less_r, total), iters=10, warmup=2),
+            cuda_ms(lambda: map_ap_plain(sl, less, less_r, total), iters=2, warmup=1),
+            None, q * n * wsize + 2 * q * v * 4 + q * 12, 4 * q * n, "fp32"))
+        counts = rank_counts(*map_hist(words, bits), None)
+        full = (cuda_ms(lambda: map_hist(words, bits), iters=5, warmup=1),
+                cuda_ms(lambda: map_ap(words, *counts), iters=5, warmup=1))
+        del words, sl, gnd, counts
+        # the whole 4-direction eval of 5,000 queries (host clock, packing included)
+        nq = COCO_Q if n == COCO_N else 1_000
+        data = coco_codes(torch, gen, nq, n, bits)
+        calc_map_k_4dir(*data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps = calc_map_k_4dir(*data)
+        torch.cuda.synchronize()
+        runs.append({"bits": bits, "queries": nq, "items": n,
+                     "chunk_words": [4 * chunk, n], "chunk_hist_ms": full[0],
+                     "chunk_ap_ms": full[1],
+                     "eval_4dir_s": time.perf_counter() - t0,
+                     "maps": [round(m, 6) for m in maps]})
+        print(f"[map] {runs[-1]}", flush=True)
+        del data
+    return rows, runs
+
+
+def grad_parity(torch):
+    """One fp32 train step's loss and gradients at full width on 8 pairs:
+    the card (kernels) against the CPU (plain versions), TF32 off."""
+    import numpy as np
+
+    from cmh_torch.models.clip.model import CLIPConfig
+    from cmh_torch.models.clip.tokenizer import SimpleTokenizer, tokenize_caption
+    from cmh_torch.models.dcmht import DCMHTModel, dcmht_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = DCMHTModel(CLIPConfig(dtype=torch.float32), CODE_BITS)
+    model.init_weights(torch.Generator().manual_seed(0)).train()
+    cpu_model = copy.deepcopy(model)
+    gpu_model = model.to("cuda")
+    rng = np.random.RandomState(2)
+    img = torch.from_numpy(rng.randn(8, 224, 224, 3).astype(np.float32))
+    tok = SimpleTokenizer()
+    ids, kpm = (torch.from_numpy(np.stack(a)) for a in
+                zip(*(tokenize_caption(tok, c, MAX_WORDS) for c in CAPTIONS[:8])))
+    labels = torch.from_numpy(np.eye(4, dtype=np.float32)[[0, 1, 2, 3, 0, 1, 2, 3]])
+    loss_fn = dcmht_loss_fn(output_dim=CODE_BITS)
+    losses = {}
+    for name, m, dev in (("cuda", gpu_model, "cuda"), ("cpu", cpu_model, "cpu")):
+        loss, _ = loss_fn(m(img.to(dev), ids.to(dev), kpm.to(dev)), labels.to(dev))
+        loss.backward()
+        losses[name] = float(loss.detach())
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    # biases that only shift the image BatchNorm's input: true gradient 0,
+    # both sides see rounding noise (tests/test_torch_train_fused.py)
+    absorbed = {"backbone.visual.ln_post.bias", "hash.img_hash.atten.in_proj_bias",
+                "hash.img_hash.atten.out_proj.bias"}
+    worst, noise = (0.0, ""), {}
+    for (name, pg), pc in zip(gpu_model.named_parameters(), cpu_model.parameters()):
+        if pc.grad is None:
+            if pg.grad is not None:
+                raise AssertionError(f"{name}: gradient on the card only")
+            continue
+        g = pg.grad.cpu()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: non-finite gradient on the card")
+        rel = ((g - pc.grad).abs().max() / pc.grad.abs().max()).item()
+        if name in absorbed:
+            noise[name] = pc.grad.abs().max().item()
+        elif rel > worst[0]:
+            worst = (rel, name)
+    print(f"[grad] loss card {losses['cuda']:.7f} cpu {losses['cpu']:.7f} rel diff "
+          f"{loss_rel:.3e}; largest per-tensor relative gradient difference "
+          f"{worst[0]:.3e} ({worst[1]}); BatchNorm-absorbed gradients (noise) "
+          f"{ {k: f'{v:.1e}' for k, v in noise.items()} }", flush=True)
+    # fp32 on both sides, TF32 off: only summation order differs, through 12
+    # layers forward and backward
+    if not loss_rel <= 1e-5:
+        raise AssertionError(f"loss differs card/CPU: {loss_rel}")
+    if not worst[0] <= 1e-3:
+        raise AssertionError(f"gradient of {worst[1]} differs card/CPU: {worst[0]}")
+    if max(noise.values()) > 1e-4:
+        raise AssertionError(f"BatchNorm-absorbed gradients are not noise: {noise}")
+    return {"loss_rel_diff": loss_rel, "max_grad_rel_diff": worst[0]}
+
+
+def training(torch, counters):
+    """2 epochs of DCMHT on configs/DCMHT/synthetic_tpu.yaml through the CLI
+    entry point, at full width in bf16."""
+    import math
+
+    import numpy as np
+    import scipy.io as scio
+    import yaml
+
+    from cmh_torch.main import main as cli_main
+    from cmh_torch.ops.map_bucketed import calc_map_k_4dir
+    from cmh_torch.ops.map_kernel import query_chunk
+    from cmh_torch.ops.metrics import calc_map_k_numpy
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "configs", "DCMHT", "synthetic_tpu.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["run"]["epochs"] = 2
+    for key in ("checkpoint_every", "auto_resume"):
+        cfg["run"].pop(key, None)
+    os.makedirs(WORK, exist_ok=True)
+    cfg_path = os.path.join(WORK, "synthetic_tpu_2ep.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    run = cfg["run"]
+    steps = math.ceil(run["train_num"] / run["batch_size"]) * run["epochs"]
+    retrieval = cfg["dataset"].get("num_items", run["query_num"] + 2 * run["train_num"]) \
+        - run["query_num"]
+    eval_b = run.get("eval_batch_size", run["batch_size"])
+    eval_batches = (math.ceil(run["query_num"] / eval_b) + math.ceil(retrieval / eval_b)) \
+        * run["epochs"]
+    chunks = math.ceil(run["query_num"] / query_chunk(run["output_dim"])) * run["epochs"]
+    ln, attn = 12 * 2 + 2 + 12 * 2 + 1, 11 + 11      # per image + text pair of towers
+    expect = {"layernorm": ln * (steps + eval_batches), "layernorm_bwd": ln * steps,
+              "attention": attn * (steps + eval_batches), "attention_bwd": attn * steps,
+              "hamming": 0, "map_hist": chunks, "map_ap": chunks}
+
+    for c in counters.values():
+        c.launches = 0
+    # ---- the main path: python -m cmh_torch.main, in-process
+    t0 = time.perf_counter()
+    trainer = cli_main(["--config-file", cfg_path, "--save-dir", os.path.join(WORK, "train"),
+                        "--device", "cuda", "--seed", "0"])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    t_main = time.perf_counter() - t0
+    # ---- end of the main path
+    hist = trainer.history
+    train_s = sum(h["seconds"] for h in hist)
+    pairs = sum(h["pairs"] for h in hist)
+    print(f"[train] {steps} steps in {train_s:.2f} s of training ({steps / train_s:.3f} "
+          f"steps/s, {pairs / train_s:.1f} pairs/s, host clock), of which "
+          f"{sum(h['data_wait_s'] for h in hist):.2f} s waiting for data; code generation "
+          f"{[round(h['code_s'], 2) for h in hist]} s, of which "
+          f"{[round(h['code_data_wait_s'], 2) for h in hist]} s waiting for data; 4-direction "
+          f"mAP {[round(h['map_s'], 4) for h in hist]} s; main path {t_main:.1f} s; "
+          f"epoch losses {[h['loss'] for h in hist]}; mAPs {[h['maps'] for h in hist]}",
+          flush=True)
+    print(f"[train] launches {launches} expected {expect}", flush=True)
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if not all(np.isfinite(h["loss"]) for h in hist) or len(hist) != run["epochs"]:
+        raise AssertionError(f"non-finite or missing epoch losses: {hist}")
+    save = trainer.save_dir
+    if not [p for p in os.listdir(save) if p.startswith("model-") and p.endswith(".pt")]:
+        raise AssertionError("no model-*.pt written")
+    for name in ("i2t-best", "t2i-best", "last"):
+        mat = scio.loadmat(os.path.join(save, "mat_files", f"{name}.mat"))
+        if not {"q_img", "q_txt", "r_img", "r_txt", "q_l", "r_l"} <= set(mat):
+            raise AssertionError(f"{name}.mat lacks the reference keys")
+        for key in ("q_img", "q_txt", "r_img", "r_txt"):
+            if not set(np.unique(mat[key])) <= {-1.0, 1.0}:
+                raise AssertionError(f"{name}.mat {key} is not ±1")
+    mat = scio.loadmat(os.path.join(save, "mat_files", "last.mat"))
+    args = [mat[k].astype(np.float32) for k in ("q_img", "q_txt", "r_img", "r_txt", "q_l", "r_l")]
+    plain = calc_map_k_4dir(*(torch.from_numpy(a) for a in args))
+    oracle = [calc_map_k_numpy(a, b, args[4], args[5])
+              for a, b in ((args[0], args[3]), (args[1], args[2]),
+                           (args[0], args[2]), (args[1], args[3]))]
+    got = hist[-1]["maps"]
+    print(f"[train] last valid mAPs {got}; plain {plain}; numpy {oracle}", flush=True)
+    # K3 and the plain version add the same fp32 quotients in fp64; numpy
+    # divides in fp64 (one fp32 rounding a term)
+    if not (np.allclose(got, plain, rtol=0, atol=1e-12)
+            and np.allclose(got, oracle, rtol=0, atol=1e-7)):
+        raise AssertionError("the last valid's mAPs differ from the recomputation")
+    return launches, {"steps": steps, "train_s": train_s, "pairs": pairs, "main_s": t_main}
 
 
 def model_parity(torch):
@@ -295,7 +638,8 @@ def serving(torch, counters):
     thread.start()
     asked, lat = [], []
     expect = {"layernorm": 26 * (GALLERY_IMAGES // B), "attention": 11 * (GALLERY_IMAGES // B),
-              "hamming": 0}
+              "hamming": 0, "layernorm_bwd": 0, "attention_bwd": 0, "map_hist": 0,
+              "map_ap": 0}
     try:
         status, health = request(port, "GET", "/healthz")
         assert status == 200 and health["count"] == INDEX_ITEMS, health
@@ -384,9 +728,10 @@ def main() -> int:
     try:
         import cmh_torch  # noqa: F401
         from cmh_torch.ops import _build
-        from cmh_torch.ops.attention import fused_attention
+        from cmh_torch.ops.attention import attention_bwd, fused_attention
         from cmh_torch.ops.hamming import hamming_packed
-        from cmh_torch.ops.layernorm import fused_layernorm
+        from cmh_torch.ops.layernorm import fused_layernorm, layernorm_bwd
+        from cmh_torch.ops.map_kernel import map_ap, map_hist
     except ImportError as e:
         print(f"chip_smoke: the cmh_torch package is missing: {e}", file=sys.stderr)
         return 2
@@ -412,20 +757,37 @@ def main() -> int:
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         rows = check_layernorm(torch, gen) + check_attention(torch, gen) + check_hamming(torch, gen)
+        rows += check_layernorm_bwd(torch, gen) + check_attention_bwd(torch, gen)
+        map_rows, _ = check_map(torch, gen)
+        rows += map_rows
         for r in rows:
             print(f"[kernel] {r['name']} {r['shape']}: err {r['max_abs_err']:.3g} "
                   f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} library {r['library_ms']} "
                   f"bound {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
 
         model_parity(torch)
+        grad_parity(torch)
         counters = {"layernorm": fused_layernorm, "attention": fused_attention,
-                    "hamming": hamming_packed}
-        launches = serving(torch, counters)
+                    "hamming": hamming_packed, "layernorm_bwd": layernorm_bwd,
+                    "attention_bwd": attention_bwd, "map_hist": map_hist, "map_ap": map_ap}
+        by_path = {"serving": serving(torch, counters)}
+        by_path["training"], _ = training(torch, counters)
+        for path, need in (("serving", ("layernorm", "attention", "hamming")),
+                           ("training", ("layernorm", "layernorm_bwd", "attention",
+                                         "attention_bwd", "map_hist", "map_ap"))):
+            idle = [k for k in need if by_path[path][k] == 0]
+            if idle:
+                raise AssertionError(f"{path}: kernels {idle} were never launched")
 
-        key = {"layernorm_fwd": "layernorm", "attention_fwd": "attention", "hamming": "hamming"}
+        key = {"layernorm_fwd": "layernorm", "attention_fwd": "attention", "hamming": "hamming",
+               "layernorm_bwd": "layernorm_bwd", "attention_bwd": "attention_bwd",
+               "map_hist": "map_hist", "map_ap": "map_ap"}
         kernels, seen = [], {}
         for r in rows:   # one entry per kernel at its first shape, the rest under "shapes"
-            r["launches"] = launches[key[r["name"]]]
+            k = key[r["name"]]
+            # launches over both main-path runs, and per path
+            r["launches"] = sum(p[k] for p in by_path.values())
+            r["launches_by_path"] = {p: c[k] for p, c in by_path.items()}
             if r["name"] in seen:
                 seen[r["name"]].setdefault("shapes", []).append(
                     {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",

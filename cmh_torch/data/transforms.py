@@ -1,9 +1,11 @@
-"""Host-side eval image transform (counterpart of
-``cmh_tpu/data/transforms.py:normalize`` and ``eval_transform``, PIL path).
+"""Host-side image transforms (counterpart of ``cmh_tpu/data/transforms.py``,
+PIL path).
 
-Resize((R, R), bicubic) → ToTensor → Normalize with the CLIP constants,
-emitting HWC float32 (the layout ``encode_image`` takes). PIL is imported
-only when an image is resized.
+train: RandomHorizontalFlip(0.5) → RandomResizedCrop(R) → ToTensor →
+Normalize; eval: Resize((R, R), bicubic) → ToTensor → Normalize, with the
+CLIP constants, emitting HWC float32 (the layout ``encode_image`` takes).
+The random draws consume a ``np.random.RandomState`` in cmh_tpu's order.
+PIL is imported only when an image is transformed.
 """
 
 from __future__ import annotations
@@ -22,6 +24,42 @@ def normalize(img) -> np.ndarray:
     if np.issubdtype(img.dtype, np.integer):
         x = x / 255.0
     return (x - CLIP_MEAN) / CLIP_STD
+
+
+def sample_crop_box(height, width, rng, scale=(0.08, 1.0),
+                    ratio=(3.0 / 4.0, 4.0 / 3.0)):
+    """torchvision RandomResizedCrop.get_params: (y, x, h, w)."""
+    area = height * width
+    log_ratio = (np.log(ratio[0]), np.log(ratio[1]))
+    for _ in range(10):
+        target_area = area * rng.uniform(scale[0], scale[1])
+        aspect = np.exp(rng.uniform(log_ratio[0], log_ratio[1]))
+        w = int(round(np.sqrt(target_area * aspect)))
+        h = int(round(np.sqrt(target_area / aspect)))
+        if 0 < w <= width and 0 < h <= height:
+            i = rng.randint(0, height - h + 1)
+            j = rng.randint(0, width - w + 1)
+            return i, j, h, w
+    in_ratio = width / height
+    if in_ratio < ratio[0]:
+        w, h = width, int(round(width / ratio[0]))
+    elif in_ratio > ratio[1]:
+        h, w = height, int(round(height * ratio[1]))
+    else:
+        w, h = width, height
+    return (height - h) // 2, (width - w) // 2, h, w
+
+
+def train_transform(img, size: int, rng: np.random.RandomState) -> np.ndarray:
+    """PIL image → flip with probability ½ → random resized crop → normalize."""
+    from PIL import Image
+
+    if rng.rand() < 0.5:
+        img = img.transpose(Image.FLIP_LEFT_RIGHT)
+    width, height = img.size
+    i, j, h, w = sample_crop_box(height, width, rng)
+    img = img.resize((size, size), Image.BILINEAR, box=(j, i, j + w, i + h))
+    return normalize(np.asarray(img))
 
 
 def eval_transform(img, size: int) -> np.ndarray:

@@ -20,6 +20,8 @@ from typing import Dict, List
 
 import numpy as np
 
+from ...registry import registry
+
 try:  # optional: exact parity with the reference text cleanup
     import ftfy
 
@@ -93,6 +95,7 @@ def whitespace_clean(text: str) -> str:
 _LETTER = r"[^\W\d_]"
 
 
+@registry.register_tokenizer("clip_tokenizer")
 class SimpleTokenizer:
     """CLIP BPE: text → lowercased word pieces → byte-level BPE merges."""
 

@@ -38,13 +38,18 @@ class SingleTokenAttention(nn.Module):
 
 
 class BatchNorm1d(nn.Module):
-    """Eval-mode torch BatchNorm1d (eps 1e-5, affine) on its running stats:
-    ``(x − running_mean)·rsqrt(running_var + eps)·weight + bias`` in fp32.
-    Serving never updates the statistics, so there is no training branch."""
+    """torch BatchNorm1d semantics (eps 1e-5, momentum 0.1, affine) in fp32,
+    as cmh_tpu's ``_TorchBatchNorm`` (``cmh_tpu/models/common.py:78-129``).
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    Training (``module.train()``): normalise with the batch mean and the
+    *biased* batch variance, and move the running variance toward the
+    *unbiased* one. Eval (``module.eval()``): normalise with the running
+    statistics. Every row of the batch counts, padded rows included."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -52,5 +57,16 @@ class BatchNorm1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        if self.training:
+            mean = x.mean(0)
+            var = (x - mean).square().mean(0)
+            with torch.no_grad():
+                n = x.shape[0]
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var * (n / max(n - 1, 1)),
+                                                    alpha=m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias

@@ -1,19 +1,27 @@
-"""DCMHT model, eval-time forward (counterpart of
-``cmh_tpu/models/dcmht.py:27-75`` and ``models/base.py:105-108``).
+"""DCMHT model, loss and method bundle (counterpart of
+``cmh_tpu/models/dcmht.py`` and the method contract of ``models/base.py``).
 
-Per-modality head = single-token attention → norm (BatchNorm on running
-stats for images, LayerNorm for text) → Linear(embed → 2K) → relu →
-pairwise softmax (or tanh). The eval code is pair-argmax → ±1. No loss in
-this package yet: serving only needs the forward.
+Per-modality head = single-token attention → norm (BatchNorm for images,
+LayerNorm for text) → Linear(embed → 2K) → relu → pairwise softmax (or
+tanh). ``module.train()`` makes the image BatchNorm use and update batch
+statistics; ``module.eval()`` uses the running ones. The loss is the
+clipped euclidean (or cosine-BCE) similarity over intra (i↔t) and inter
+(i↔i, t↔t) pairs plus the soft-argmax quantization ``1 − mean((2c−1)²)``;
+it takes every row of the batch, padded rows included, as cmh_tpu's does.
+The eval code is pair-argmax → ±1.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.hashing import pair_argmax_code, sign_code, softmax_hash, tanh_hash
 from ..ops.layernorm import layernorm_plain
+from ..ops.metrics import calc_label_sim, cosine_similarity, euclidean_similarity
+from ..registry import registry
 from .clip.model import CLIP, CLIPConfig
 from .common import BatchNorm1d, SingleTokenAttention
 
@@ -91,6 +99,11 @@ class DCMHTModel(nn.Module):
         eos_token, _, _, _ = self.backbone.encode_text(text, key_padding_mask)
         return self.hash.txt_hash(eos_token.float())
 
+    def forward(self, image: torch.Tensor, text: torch.Tensor,
+                key_padding_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(image codes, text codes), the continuous relaxations."""
+        return self.encode_image(image), self.encode_text(text, key_padding_mask)
+
     def make_hash_code(self, code: torch.Tensor) -> torch.Tensor:
         if self.hash_func == "softmax":
             return pair_argmax_code(code)
@@ -112,13 +125,105 @@ class DCMHTModel(nn.Module):
         CLIP checkpoints are not read: weights come from ``init_weights``
         or a state dict."""
         m = cfg.get("model") or {}
-        dtype = _DTYPES[str(m.get("clip_dtype", "bfloat16"))]
-        if m.get("clip_variant", None) == "tiny":
-            # tests default fp32, as in cmh_tpu's resolve_clip_cfg
-            clip_cfg = CLIPConfig.tiny(
-                dtype=dtype if m.get("clip_dtype") else torch.float32)
-        else:
-            clip_cfg = CLIPConfig(dtype=dtype)
         run = cfg.get("run") or {}
-        return cls(clip_cfg, output_dim=int(run.get("output_dim", 16)),
+        return cls(clip_config(m), output_dim=int(run.get("output_dim", 16)),
                    hash_func=m.get("hash_func", "softmax"))
+
+
+def clip_config(cfg_model) -> CLIPConfig:
+    """``clip_variant: tiny`` picks the test geometry (fp32 unless
+    ``clip_dtype`` says otherwise, as cmh_tpu's ``resolve_clip_cfg``), else
+    ViT-B/32 with ``clip_dtype`` matmuls (default bf16)."""
+    m = cfg_model or {}
+    dtype = _DTYPES[str(m.get("clip_dtype", "bfloat16"))]
+    if m.get("clip_variant", None) == "tiny":
+        return CLIPConfig.tiny(dtype=dtype if m.get("clip_dtype") else torch.float32)
+    return CLIPConfig(dtype=dtype)
+
+
+def _similarity_loss(a, b, label_sim, *, output_dim, vartheta, threshold,
+                     similarity_function):
+    """(positive, negative) similarity terms (cmh_tpu ``_similarity_loss``)."""
+    if similarity_function == "cosine":
+        sim = torch.clamp(cosine_similarity(a, b), threshold, 1.0 - threshold)
+        m = torch.mean(-label_sim * torch.log(sim)
+                       - (1.0 - label_sim) * torch.log(1.0 - sim))
+        return m, m
+    sim = euclidean_similarity(a, b)
+    positive = sim * label_sim
+    max_value = float(output_dim * 2 * vartheta) ** 0.5
+    negative = torch.clamp(sim * (1.0 - label_sim), max=max_value)
+    negative = max_value * (1.0 - label_sim) - negative
+    return torch.mean(positive**2), torch.mean(negative**2)
+
+
+def soft_argmax_hash_loss(code: torch.Tensor) -> torch.Tensor:
+    """Quantization: 1 − mean((2c−1)²) over pair probabilities."""
+    return 1.0 - torch.mean((2.0 * code - 1.0) ** 2)
+
+
+def dcmht_loss_fn(*, output_dim, vartheta=0.75, threshold=0.1,
+                  quan_alpha=0.001, similarity_function="euclidean"):
+    """The DCMHT loss: ``loss(outputs, labels) -> (total, loss_dict)`` with
+    cmh_tpu's loss-dict layout."""
+
+    def loss(outputs, labels) -> Tuple[torch.Tensor, Dict]:
+        img_hash, txt_hash = outputs
+        label_sim = calc_label_sim(labels, labels)
+        kw = dict(output_dim=output_dim, vartheta=vartheta, threshold=threshold,
+                  similarity_function=similarity_function)
+        intra_p, intra_n = _similarity_loss(img_hash, txt_hash, label_sim, **kw)
+        inter_pi, inter_ni = _similarity_loss(img_hash, img_hash, label_sim, **kw)
+        inter_pt, inter_nt = _similarity_loss(txt_hash, txt_hash, label_sim, **kw)
+        quan_img = soft_argmax_hash_loss(img_hash)
+        quan_txt = soft_argmax_hash_loss(txt_hash)
+        similarity_loss = (intra_p + intra_n) + (inter_pt + inter_pi + inter_ni + inter_nt)
+        total = similarity_loss + quan_alpha * ((quan_img + quan_txt) / 2.0)
+        loss_dict = {
+            "All loss": total,
+            "Intra": {"Positive": intra_p, "Negative": intra_n},
+            "Inter": {
+                "Positive": {"i2t": inter_pi, "t2i": inter_pt},
+                "Negative": {"i2t": inter_ni, "t2i": inter_nt},
+            },
+            "Quan": {"Image": quan_img, "Text": quan_txt},
+        }
+        return total, loss_dict
+
+    return loss
+
+
+@registry.register_model("DCMHT")
+class DCMHTMethod:
+    """What the trainer needs of the method: ``model`` (the module, with
+    parameters under ``backbone.`` and ``hash.``), ``loss``,
+    ``make_hash_code`` and ``eval_code_dims`` (cmh_tpu ``models/base.py:53-130``)."""
+
+    arch = "DCMHT"
+
+    def __init__(self, model: DCMHTModel, loss, cfg_model=None) -> None:
+        self.model = model
+        self.loss = loss
+        self.cfg_model = cfg_model
+
+    @property
+    def output_dim(self) -> int:
+        return self.model.output_dim
+
+    def make_hash_code(self, code: torch.Tensor) -> torch.Tensor:
+        return self.model.make_hash_code(code)
+
+    def eval_code_dims(self) -> int:
+        return self.output_dim
+
+    @classmethod
+    def from_config(cls, cfg_model, output_dim: int = 16, **_) -> "DCMHTMethod":
+        m = cfg_model or {}
+        model = DCMHTModel(clip_config(m), output_dim=output_dim,
+                           hash_func=m.get("hash_func", "softmax"))
+        loss = dcmht_loss_fn(
+            output_dim=output_dim, vartheta=m.get("vartheta", 0.75),
+            threshold=m.get("threshold", 0.1),
+            quan_alpha=m.get("quan_alpha", 0.001),
+            similarity_function=m.get("similarity_function", "euclidean"))
+        return cls(model, loss, cfg_model)

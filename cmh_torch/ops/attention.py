@@ -1,10 +1,14 @@
-"""Self-attention for short sequences (kernel K2-fwd).
+"""Self-attention for short sequences (kernels K2-fwd, K2-bwd).
 
-Counterpart of ``cmh_tpu/ops/attention_pallas.py:fused_attention`` (forward
-only): softmax(scale·QKᵀ + mask + key-padding bias)·V over (B, H, S, hd),
-with fp32 logits and softmax and the probabilities rounded to the compute
-dtype before the PV product. A CUDA tensor launches the hand-written kernel
-in ``csrc/attention.cu``; a CPU tensor takes ``attention_plain``.
+Counterpart of ``cmh_tpu/ops/attention_pallas.py:fused_attention`` and its
+``custom_vjp``: softmax(scale·QKᵀ + mask + key-padding bias)·V over
+(B, H, S, hd), with fp32 logits and softmax and the probabilities rounded to
+the compute dtype before the PV product. The backward recomputes the
+softmax and uses the UNROUNDED fp32 probabilities for dV, as the Pallas
+backward does; autograd of the forward would differentiate through the
+rounding instead. A CUDA tensor launches the hand-written kernels in
+``csrc/attention.cu``; a CPU tensor takes ``attention_plain`` and
+``attention_bwd_plain``.
 
 The scale multiplies the fp32 logits, as in the Pallas kernel. (The JAX
 einsum path, ``cmh_tpu/models/clip/model.py:226-228``, scales q in the
@@ -31,60 +35,147 @@ def kpm_bias(key_padding_mask: torch.Tensor) -> torch.Tensor:
     return torch.where(key_padding_mask, float("-inf"), zero)
 
 
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """fp32 working copy (fp64 stays fp64, for gradcheck)."""
+    return x.double() if x.dtype == torch.float64 else x.float()
+
+
+def _softmax(q, k, scale, mask, bias) -> torch.Tensor:
+    """fp32 probabilities softmax(scale·q kᵀ + mask + bias)."""
+    logits = torch.matmul(_acc(q), _acc(k).transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits + mask.to(logits.dtype)
+    if bias is not None:
+        logits = logits + bias.to(logits.dtype)[:, None, None, :]
+    return torch.softmax(logits, dim=-1)
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, mask: Optional[torch.Tensor] = None,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch. ``mask`` is an (S, S) fp32
     additive mask, ``bias`` the (B, S) fp32 key-padding bias."""
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if mask is not None:
-        logits = logits + mask.float()
-    if bias is not None:
-        logits = logits + bias[:, None, None, :]
-    w = torch.softmax(logits, dim=-1)
-    out = torch.matmul(w.to(v.dtype).float(), v.float())
+    w = _softmax(q, k, scale, mask, bias)
+    out = torch.matmul(_acc(w.to(v.dtype)), _acc(v))
     return out.to(q.dtype)
+
+
+def attention_bwd_plain(q, k, v, scale: float, mask, bias, dout):
+    """The backward kernel's function: (dq, dk, dv) in q's dtype, computed
+    in fp32 from the unrounded probabilities."""
+    w = _softmax(q, k, scale, mask, bias)
+    do = _acc(dout)
+    dv = torch.matmul(w.transpose(-1, -2), do)
+    dw = torch.matmul(do, _acc(v).transpose(-1, -2))
+    dlog = w * (dw - (dw * w).sum(-1, keepdim=True))
+    dq = torch.matmul(dlog, _acc(k)) * scale
+    dk = torch.matmul(dlog.transpose(-1, -2), _acc(q)) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _lib():
     lib = _build.load("attention")
-    fn = lib.cmh_attention_fwd
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p]
-        fn.restype = i
-        lib.cmh_attention_smem_bytes.argtypes = [i, i]
-        lib.cmh_attention_smem_bytes.restype = ctypes.c_long
+    if lib.cmh_attention_fwd.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.cmh_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i, p]
+        lib.cmh_attention_fwd.restype = i
+        lib.cmh_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f,
+                                          i, i, p]
+        lib.cmh_attention_bwd.restype = i
+        for name in ("cmh_attention_smem_bytes", "cmh_attention_bwd_smem_bytes"):
+            getattr(lib, name).argtypes = [i, i]
+            getattr(lib, name).restype = ctypes.c_long
     return lib
 
 
-def _launch(q, k, v, scale, mask, bias) -> torch.Tensor:
+def _prepare(q, k, v, mask, bias, smem_fn: str):
+    """Check the kernel's preconditions; contiguous q/k/v and fp32 masks."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"attention kernels take one (B, H, S, hd) shape for "
+                         f"q, k and v, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, h, s, hd = q.shape
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention kernel takes float32 or bfloat16 q/k/v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     lib = _lib()
-    smem = lib.cmh_attention_smem_bytes(s, hd)
+    smem = getattr(lib, smem_fn)(s, hd)
     if smem > _MAX_SMEM:
-        raise ValueError(f"attention kernel holds one (S, S) block in shared "
+        raise ValueError(f"attention kernel holds one (batch, head) in shared "
                          f"memory: S={s}, hd={hd} needs {smem} bytes")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if mask is not None:
         if mask.shape != (s, s):
             raise ValueError(f"mask must be ({s}, {s}), got {tuple(mask.shape)}")
         mask = mask.to(device=q.device, dtype=torch.float32).contiguous()
     if bias is not None:
         bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
+    return lib, q.contiguous(), k.contiguous(), v.contiguous(), mask, bias
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _launch(q, k, v, scale, mask, bias) -> torch.Tensor:
+    lib, q, k, v, mask, bias = _prepare(q, k, v, mask, bias,
+                                        "cmh_attention_smem_bytes")
+    b, h, s, hd = q.shape
     out = torch.empty_like(q)
     rc = lib.cmh_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        mask.data_ptr() if mask is not None else None,
-        bias.data_ptr() if bias is not None else None,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
         out.data_ptr(), b, h, s, hd, float(scale), _DTYPES[q.dtype],
         q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "attention_fwd")
     fused_attention.launches += 1
     return out
+
+
+def _launch_bwd(q, k, v, scale, mask, bias, dout):
+    lib, q, k, v, mask, bias = _prepare(q, k, v, mask, bias,
+                                        "cmh_attention_bwd_smem_bytes")
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("dout must have q's shape and dtype")
+    dout = dout.contiguous()
+    b, h, s, hd = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    rc = lib.cmh_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s,
+        hd, float(scale), _DTYPES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "attention_bwd")
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def _forward(q, k, v, scale, mask, bias):
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale, mask, bias)
+    return _launch(q, k, v, scale, mask, bias)
+
+
+def attention_bwd(q, k, v, scale: float, mask, bias, dout):
+    """(dq, dk, dv) of the attention at (B, H, S, hd). On a CUDA tensor this
+    launches the backward kernel (counted in ``attention_bwd.launches``); on
+    a CPU tensor it runs ``attention_bwd_plain``."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, scale, mask, bias, dout)
+    return _launch_bwd(q, k, v, scale, mask, bias, dout)
+
+
+class _AttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, mask, bias):
+        ctx.save_for_backward(q, k, v, mask, bias)
+        ctx.scale = scale
+        return _forward(q, k, v, scale, mask, bias)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask, bias = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, ctx.scale, mask, bias, dout)
+        # the masks get no gradient (attention_pallas.py:194-196)
+        return dq, dk, dv, None, None, None
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,19 +185,21 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(scale·q@kᵀ + masks) @ v over (B, H, S, hd), in q's dtype.
 
     ``attn_mask`` is (S, S) additive; ``key_padding_mask`` (B, S) bool with
-    True at pads. On a CUDA tensor this launches the kernel (counted in
-    ``fused_attention.launches``); on a CPU tensor it runs
-    ``attention_plain``."""
+    True at pads. Differentiable in q, k and v. On a CUDA tensor this
+    launches the kernel (counted in ``fused_attention.launches``); on a CPU
+    tensor it runs ``attention_plain``. Outside autograd nothing is saved
+    for a backward."""
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             "fused_attention is self-attention only (S_kv == S_q): got "
             f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    bias = kpm_bias(key_padding_mask) if key_padding_mask is not None else None
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale, attn_mask, bias)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention kernel for device {q.device}")
-    return _launch(q, k, v, scale, attn_mask, bias)
+    bias = kpm_bias(key_padding_mask) if key_padding_mask is not None else None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _AttentionFn.apply(q, k, v, float(scale), attn_mask, bias)
+    return _forward(q, k, v, scale, attn_mask, bias)
 
 
 fused_attention.launches = 0
+attention_bwd.launches = 0

@@ -1,0 +1,443 @@
+"""Trainer: the train/eval lifecycle (counterpart of the parts of
+``cmh_tpu/runners/base.py`` on the training path).
+
+build dataset → loaders → model → optimizer; then per epoch ``train_epoch``
+(one optimizer step per batch: forward in train mode, the method's loss,
+backward through kernels K1-bwd and K2-bwd on the card, BertAdam) and
+``valid`` (±1 codes for the query and retrieval sets, 4-direction mAP
+through kernels K3-hist and K3-ap on the card, best tracking, the ``.mat``
+dumps and the model file). Everything runs on ``device``, which defaults to
+the card; without one the trainer raises unless it is given ``"cpu"``.
+
+Run keys that this port does not carry yet raise ``NotImplementedError``
+rather than being ignored (see ``UNPORTED_RUN_KEYS``).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..config import ConfigNode
+from ..data.builder import build_dataloader
+from ..data.loader import HostDataLoader
+from ..optim.bert_adam import BertAdam
+from ..optim.partition import param_groups
+from ..registry import load_components, registry
+from ..utils.logger import get_color_logger
+from ..utils.seed import set_seed
+
+# run key → (values that leave the feature off, the ROADMAP item that ports it)
+_CKPT = "ROADMAP.md Queue 1, 'Checkpoints, auto-resume and the SIGTERM save'"
+_MULTI = "ROADMAP.md Queue 1, item 11 'Multi-GPU'"
+UNPORTED_RUN_KEYS = {
+    "checkpoint_every": ((None, 0, False), _CKPT),
+    "resume_checkpoint": ((None, "", False), _CKPT),
+    "auto_resume": ((None, 0, False), _CKPT),
+    "distribute": ((None, 0, False), _MULTI),
+    "multi_host": ((None, 0, False), _MULTI),
+    "tp": ((None, 1), _MULTI),
+    "profile_dir": ((None, ""), "ROADMAP.md Queue 1, item 12 'Tools' (torch.profiler)"),
+    "remat": ((None, 0, False), "not ported: activation rematerialisation"),
+}
+
+
+def check_run_keys(run) -> None:
+    """Raise on a run key whose feature is asked for but not ported."""
+    for key, (off, item) in UNPORTED_RUN_KEYS.items():
+        if key in run and run[key] not in off:
+            raise NotImplementedError(
+                f"run.{key}={run[key]!r} is not ported to cmh_torch yet ({item})")
+
+
+class BaseTrainer:
+    def __init__(self, cfg: ConfigNode, is_train: bool = True, logger=None,
+                 device="cuda", output_dim: int = 16, train_num: int = 10000,
+                 query_num: int = 5000, epochs: int = 100,
+                 save_dir: str = "./result", display_step: int = 20,
+                 top_k: Optional[int] = None, model_state: str = "",
+                 batch_size: int = 128, auto_run: bool = True, **kwargs) -> None:
+        check_run_keys(cfg.run)
+        load_components()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.generator = set_seed(cfg.run.get("seed", 1814))
+        self.logger = logger or get_color_logger(
+            cfg.run.get("log_dir"),
+            str(cfg.dataset.get("name", "dataset")) + "-" + self.device.type)
+        self.logger.info(f"parameters: {cfg.to_dict()}")
+        if int(cfg.run.get("scan_steps", 1)) > 1:
+            self.logger.info(
+                "run.scan_steps has no effect in cmh_torch: steps run one at a "
+                "time (cmh_tpu's scan batches dispatches and equals per-step "
+                "stepping, tests/test_train_scan.py)")
+        self.is_train = is_train
+        self.output_dim = output_dim
+        self.train_num = train_num
+        self.query_num = query_num
+        self.epochs = epochs
+        self.display_step = display_step
+        self.top_k = top_k
+        self.model_state = model_state
+        self.batch_size = batch_size
+        self.save_dir = save_dir
+        os.makedirs(save_dir, exist_ok=True)
+
+        self.global_step = 0
+        self.max_mapi2t = 0.0
+        self.max_mapt2i = 0.0
+        self.best_epoch_i = 0
+        self.best_epoch_t = 0
+        self.loss_type = kwargs.get("loss_type", "l1")
+        self._last_model_save = None
+        # one dict per epoch: loss, steps, pairs, train seconds, then the mAPs
+        self.history = []
+
+        self.build_dataset(cfg.dataset, train_num=train_num, query_num=query_num,
+                           batch_size=batch_size, shuffle=cfg.run.get("shuffle", True))
+        self.build_model(cfg.model, output_dim=output_dim)
+        self.build_optimizer(cfg.optimizer)
+        if auto_run:
+            self.run()
+
+    # ------------------------------------------------------------------ data
+    def build_dataset(self, cfg_dataset, train_num=10000, query_num=5000,
+                      batch_size=128, shuffle=True):
+        dataname = cfg_dataset.get("name", "synthetic")
+        path = cfg_dataset.get("path", "./data")
+        self.logger.info(f"Using {dataname} dataset.")
+        files = {key: os.path.join(path, dataname, cfg_dataset.get(key, default))
+                 for key, default in (("img_file", "index.mat"),
+                                      ("txt_file", "caption.mat"),
+                                      ("label_file", "label.mat"))}
+        dataset_cls = cfg_dataset.get("arch", "transformer_dataset")
+        tokenizer_cls = registry.get_tokenizer_class(
+            cfg_dataset.get("tokenizer_arch", "clip_tokenizer"))
+        tokenizer = tokenizer_cls() if tokenizer_cls else None
+        extra = {}
+        if dataset_cls == "synthetic_dataset":
+            extra["num_classes"] = cfg_dataset.get("num_classes", 8)
+            extra["num_items"] = cfg_dataset.get("num_items", query_num + 2 * train_num)
+        train_data, query_data, retrieval_data = build_dataloader(
+            captionFile=files["txt_file"], indexFile=files["img_file"],
+            labelFile=files["label_file"],
+            imageResolution=cfg_dataset.get("image_resolution", 224),
+            maxWords=cfg_dataset.get("max_word", 32), query_num=query_num,
+            train_num=train_num, dataset_cls=dataset_cls, tokenizer=tokenizer,
+            **extra)
+        self.build_loader(train_data, query_data, retrieval_data,
+                          batch_size=batch_size, shuffle=shuffle)
+
+    def build_loader(self, train_data, query_data, retrieval_data,
+                     batch_size=128, shuffle=True):
+        self.train_labels = train_data.get_all_label()
+        self.query_labels_np = query_data.get_all_label()
+        self.retrieval_labels_np = retrieval_data.get_all_label()
+        self.query_labels = torch.as_tensor(self.query_labels_np, device=self.device)
+        self.retrieval_labels = torch.as_tensor(self.retrieval_labels_np,
+                                                device=self.device)
+        self.retrieval_num = int(self.retrieval_labels.shape[0])
+        self.logger.info(f"train shape: {self.train_labels.shape}")
+        self.logger.info(f"query shape: {tuple(self.query_labels.shape)}")
+        self.logger.info(f"retrieval shape: {tuple(self.retrieval_labels.shape)}")
+        workers = self.cfg.run.get("num_workers", 0)
+        eval_batch = self.cfg.run.get("eval_batch_size", batch_size)
+        self.train_loader = HostDataLoader(train_data, batch_size=batch_size,
+                                           shuffle=shuffle, num_workers=workers)
+        self.query_loader = HostDataLoader(query_data, batch_size=eval_batch,
+                                           num_workers=workers)
+        self.retrieval_loader = HostDataLoader(retrieval_data, batch_size=eval_batch,
+                                               num_workers=workers)
+
+    # ----------------------------------------------------------------- model
+    def build_model(self, cfg_model, output_dim=16):
+        arch = cfg_model.get("arch", "DCMHT")
+        self.method = registry.require_model_class(arch).from_config(
+            cfg_model, output_dim=output_dim, train_num=self.train_num)
+        self.model = self.method.model
+        self.model.init_weights(self.generator)
+        clip_path = cfg_model.get("clip_path", "./ViT-B-32.pt")
+        if clip_path and os.path.exists(clip_path):
+            raise NotImplementedError(
+                f"model.clip_path {clip_path!r} exists, but reading a pretrained "
+                "CLIP checkpoint is not ported to cmh_torch yet (ROADMAP.md "
+                "Queue 1, 'Pretrained weights'); remove the file or the key")
+        self.logger.info(f"backbone: random init ({clip_path} not found)")
+        if self.model_state:
+            if not os.path.isfile(self.model_state):
+                raise FileNotFoundError(
+                    f"run.resume_model points at {self.model_state!r}, which "
+                    "does not exist")
+            self.logger.info("loading model...")
+            self.model.load_state_dict(self.load_model_file(self.model_state))
+        self.model.to(self.device)
+        self.logger.info("Building model!")
+        self.logger.info(f"Output dim: {self.output_dim}")
+
+    # ------------------------------------------------------------- optimizer
+    def build_optimizer(self, cfg_optimizer):
+        backbone_lr = cfg_optimizer.get("backbone_lr",
+                                        cfg_optimizer.get("clip_lr", 0.00001))
+        lr = cfg_optimizer.get("lr", 0.001)
+        self._t_total = len(self.train_loader) * self.epochs
+        self.optimizer = BertAdam(
+            param_groups(self.model, lr, backbone_lr), lr=lr,
+            warmup=cfg_optimizer.get("warmup_proportion", 0.1),
+            t_total=self._t_total,
+            schedule=cfg_optimizer.get("schedule", "warmup_cosine"),
+            b1=cfg_optimizer.get("b1", 0.9), b2=cfg_optimizer.get("b2", 0.98),
+            e=cfg_optimizer.get("e", 1e-6),
+            weight_decay=cfg_optimizer.get("weight_decay", 0.2),
+            max_grad_norm=cfg_optimizer.get("max_grad_norm", 1.0))
+        self._lrs = (lr, backbone_lr)
+        self.logger.info("Building optimizer!")
+
+    # ------------------------------------------------------------------- run
+    def run(self):
+        if self.is_train:
+            self.train()
+        else:
+            self.test()
+
+    def train(self):
+        for epoch in range(self.epochs):
+            self.train_epoch(epoch)
+            self.valid(epoch, k=self.top_k)
+        self.logger.info(
+            f">>>>>>> FINISHED >>>>>> Best epoch, I-T: {self.best_epoch_i}, "
+            f"mAP: {self.max_mapi2t}, T-I: {self.best_epoch_t}, mAP: {self.max_mapt2i}")
+
+    def _to_device(self, batch):
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def train_step(self, batch):
+        """One optimizer step on a host batch; returns (loss, loss_dict) as
+        device tensors."""
+        self.model.train()
+        b = self._to_device(batch)
+        outputs = self.model(b["image"], b["text"], b["key_padding_mask"])
+        loss, loss_dict = self.method.loss(outputs, b["label"])
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach(), loss_dict
+
+    def train_epoch(self, epoch: int):
+        self.logger.info(">>>>>> epochs: %d/%d" % (epoch, self.epochs))
+        all_loss, times, examples, wait = None, 0, 0, [0.0]
+        t0 = time.time()
+        for batch in _waited(self.train_loader, wait):
+            self.global_step += 1
+            times += 1
+            loss, loss_dict = self.train_step(batch)
+            all_loss = loss if all_loss is None else all_loss + loss
+            examples += int(batch["valid"].sum())
+            if self.global_step % self.display_step == 0:
+                self.print_loss_dict(_floats(loss_dict), bits=self.output_dim,
+                                     epoch=epoch, times=times)
+        # the host read of the loss waits for the card: take it before the clock
+        epoch_loss = float(all_loss) / max(times, 1) if all_loss is not None else 0.0
+        dt = time.time() - t0
+        self.history.append({"epoch": epoch, "loss": epoch_loss, "steps": times,
+                             "pairs": examples, "seconds": dt, "data_wait_s": wait[0]})
+        self.logger.info(
+            f">>>>>> [{epoch}/{self.epochs}] loss: {epoch_loss}, "
+            f"lr: {self._current_lr_str()}, "
+            f"throughput: {examples / max(dt, 1e-9):.1f} pairs/s, "
+            f"waited {wait[0]:.2f}s of {dt:.2f}s for data")
+
+    def _current_lr_str(self) -> str:
+        factor = self.optimizer.lr_factor()
+        return "-".join("%.9f" % x for x in sorted({lr * factor for lr in self._lrs}))
+
+    # ------------------------------------------------------------------ eval
+    @torch.no_grad()
+    def generate_hash(self, batch):
+        """Continuous (image, text) codes for one host batch, eval mode."""
+        self.model.eval()
+        b = self._to_device(batch)
+        return (self.model.encode_image(b["image"]),
+                self.model.encode_text(b["text"], b["key_padding_mask"]))
+
+    @torch.no_grad()
+    def get_code(self, data_loader, length: int, wait=None):
+        """±1 codes (image, text) of every item, indexed by the batches'
+        ``index``; ``wait``, a one-element list, gathers the seconds spent
+        waiting for the loader."""
+        k = self.method.eval_code_dims()
+        bufs = (torch.zeros((length, k), dtype=torch.float32, device=self.device),
+                torch.zeros((length, k), dtype=torch.float32, device=self.device))
+        for batch in _waited(data_loader, [0.0] if wait is None else wait):
+            valid = torch.as_tensor(batch["valid"], device=self.device)
+            idx = torch.as_tensor(batch["index"], device=self.device).long()[valid]
+            for buf, h in zip(bufs, self.generate_hash(batch)):
+                buf[idx] = self.method.make_hash_code(h)[valid].to(buf.dtype)
+        return bufs
+
+    def valid(self, epoch: int, k: Optional[int] = None):
+        save_dir = os.path.join(self.save_dir, "mat_files")
+        os.makedirs(save_dir, exist_ok=True)
+        self.logger.info("Valid.")
+        t0, wait = time.time(), [0.0]
+        query_img, query_txt = self.get_code(self.query_loader, self.query_num, wait)
+        retrieval_img, retrieval_txt = self.get_code(self.retrieval_loader,
+                                                     self.retrieval_num, wait)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t_code = time.time() - t0
+        t0 = time.time()
+        mapi2t, mapt2i, mapi2i, mapt2t = self.calc_map_4dir(
+            query_img, query_txt, retrieval_img, retrieval_txt, k)
+        t_map = time.time() - t0
+        self.logger.info(f"eval timing: code generation {t_code:.2f}s "
+                         f"(waited {wait[0]:.2f}s for data), 4×mAP {t_map:.2f}s")
+        codes = (query_img, query_txt, self.query_labels_np, retrieval_img,
+                 retrieval_txt, self.retrieval_labels_np)
+        if self.max_mapi2t < mapi2t:
+            self.best_epoch_i = epoch
+            self.save_mat(*codes, save_file=os.path.join(save_dir, "i2t-best.mat"))
+            self.save_model_once(self.save_dir, epoch)
+        self.max_mapi2t = max(self.max_mapi2t, mapi2t)
+        if self.max_mapt2i < mapt2i:
+            self.best_epoch_t = epoch
+            self.save_mat(*codes, save_file=os.path.join(save_dir, "t2i-best.mat"))
+            self.save_model_once(self.save_dir, epoch)
+        self.max_mapt2i = max(self.max_mapt2i, mapt2i)
+        self.save_mat(*codes, save_file=os.path.join(save_dir, "last.mat"))
+        self.logger.info(
+            f">>>>>> [{epoch}/{self.epochs}], MAP(i->t): {mapi2t}, MAP(t->i): {mapt2i}, "
+            f"MAP(t->t): {mapt2t}, MAP(i->i): {mapi2i}, "
+            f"MAX MAP(i->t): {self.max_mapi2t}, epoch: {self.best_epoch_i}, "
+            f"MAX MAP(t->i): {self.max_mapt2i}, epoch: {self.best_epoch_t}")
+        maps = (mapi2t, mapt2i, mapi2i, mapt2t)
+        if self.history and self.history[-1]["epoch"] == epoch:
+            self.history[-1].update(maps=maps, code_s=t_code, code_data_wait_s=wait[0],
+                                    map_s=t_map)
+        return maps
+
+    def calc_map_4dir(self, query_img, query_txt, retrieval_img, retrieval_txt,
+                      k: Optional[int]):
+        """Four-direction mAP: K3 on the card, the plain counting rank on the
+        CPU, the argsort route for codes over 4094 bits."""
+        from ..ops.map_bucketed import calc_map_k_4dir_auto
+
+        return calc_map_k_4dir_auto(query_img, query_txt, retrieval_img,
+                                    retrieval_txt, self.query_labels,
+                                    self.retrieval_labels, k)
+
+    def test(self):
+        assert self.model_state != "", "test step must provide the model file!"
+        self.logger.info("Test.")
+        save_dir = os.path.join(self.save_dir, "mat_files")
+        os.makedirs(save_dir, exist_ok=True)
+        query_img, query_txt = self.get_code(self.query_loader, self.query_num)
+        retrieval_img, retrieval_txt = self.get_code(self.retrieval_loader,
+                                                     self.retrieval_num)
+        maps = self.calc_map_4dir(query_img, query_txt, retrieval_img,
+                                  retrieval_txt, self.top_k)
+        self.save_mat(query_img, query_txt, self.query_labels_np, retrieval_img,
+                      retrieval_txt, self.retrieval_labels_np,
+                      save_file=os.path.join(save_dir, "test.mat"))
+        mapi2t, mapt2i, mapi2i, mapt2t = maps
+        self.logger.info(f">>>>>> TEST, MAP(i->t): {mapi2t}, MAP(t->i): {mapt2i}, "
+                         f"MAP(t->t): {mapt2t}, MAP(i->i): {mapi2i}")
+        return maps
+
+    # ------------------------------------------------------------- artifacts
+    @staticmethod
+    def save_mat(query_img, query_txt, query_labels, retrieval_img,
+                 retrieval_txt, retrieval_labels, save_file="i2t"):
+        """The reference ``.mat`` schema: q_img, q_txt, r_img, r_txt (±1
+        codes), q_l, r_l (labels)."""
+        import scipy.io as scio
+
+        def host(a):
+            return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+        scio.savemat(save_file, {
+            "q_img": host(query_img), "q_txt": host(query_txt),
+            "r_img": host(retrieval_img), "r_txt": host(retrieval_txt),
+            "q_l": host(query_labels), "r_l": host(retrieval_labels)})
+
+    def save_model_once(self, save_dir, epoch, other=""):
+        """``save_model`` that skips a second identical write in one epoch
+        (both directions improving save the same weights)."""
+        key = (save_dir, epoch, other)
+        if self._last_model_save == key:
+            return
+        self._last_model_save = key
+        self.save_model(save_dir, epoch, other)
+
+    def save_model(self, save_dir, epoch, other=""):
+        """Weights only: the model's state dict (parameters and the image
+        BatchNorm's running statistics) as ``model-<epoch>.pt``."""
+        path = os.path.join(save_dir, "model-" + other + str(epoch) + ".pt")
+        state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+        torch.save(state, path)
+        self.logger.info("save mode to {}".format(path))
+
+    @staticmethod
+    def load_model_file(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    # --------------------------------------------------------------- logging
+    def print_loss_dict(self, loss_dict, bits=16, epoch=0, times=0):
+        print_str = (f">>>>>> Display ({self.loss_type} loss-{bits}) >>>>>> "
+                     f"[{epoch}/{self.epochs}], [{times}/{len(self.train_loader)}]: ")
+
+        def leaf_str(d, key, acc):
+            acc += f"{key}: "
+            if isinstance(d[key], dict):
+                for kk in d[key]:
+                    acc = leaf_str(d[key], kk, acc)
+            else:
+                acc += f"{d[key]}, "
+            return acc
+
+        for key in loss_dict.keys():
+            print_str += leaf_str(loss_dict, key, "")
+        print_str += f"lr: {self._current_lr_str()}"
+        self.logger.info(print_str)
+
+    # ------------------------------------------------------------ config API
+    @classmethod
+    def from_config(cls, cfg=None, device="cuda", logger=None, auto_run=True):
+        assert cfg is not None, "config is None!"
+        run = cfg.run
+        return cls(cfg, is_train=run.get("is_train", True), logger=logger,
+                   device=device, output_dim=run.get("output_dim", 16),
+                   train_num=run.get("train_num", 10000),
+                   query_num=run.get("query_num", 5000),
+                   epochs=run.get("epochs", 10),
+                   save_dir=run.get("save_dir", "./result"),
+                   batch_size=run.get("batch_size", 128),
+                   display_step=run.get("display_step", 20),
+                   top_k=run.get("top_k", None),
+                   model_state=run.get("resume_model", ""),
+                   auto_run=auto_run)
+
+
+def _waited(loader, wait):
+    """Yield the loader's batches, adding the seconds spent waiting for each
+    to ``wait[0]`` (the loader prepares batches in a background thread)."""
+    it = iter(loader)
+    while True:
+        t = time.perf_counter()
+        batch = next(it, None)
+        wait[0] += time.perf_counter() - t
+        if batch is None:
+            return
+        yield batch
+
+
+def _floats(tree):
+    """A nested dict of 0-d tensors → the same dict of Python floats."""
+    if isinstance(tree, dict):
+        return {k: _floats(v) for k, v in tree.items()}
+    return float(tree.detach())

@@ -24,6 +24,24 @@ def cuda():
     return torch.device("cuda")
 
 
+def assert_within_one_bf16_step(got, want):
+    """At most 1% of the elements (at least one) differ, each by one bf16
+    step or by 1e-6: two fp32 results a last bit apart round to neighbouring
+    bf16 values, and near 0, where bf16 steps are tiny, fp32 summation noise
+    (up to 2.4e-7 at these shapes against an fp64 sum) spans several. A
+    kernel that rounds W to bf16 before dV moves about 40% of dV."""
+    assert got.dtype == want.dtype == torch.bfloat16
+
+    def ordinal(t):   # bf16 bit patterns in value order, +0 and -0 alike
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -32768 - i, i)
+
+    steps = (ordinal(got) - ordinal(want)).abs()
+    far = (steps > 1) & ((got.float() - want.float()).abs() > 1e-6)
+    assert not bool(far.any())
+    assert int((steps > 0).sum()) <= max(1, steps.numel() // 100)
+
+
 @pytest.mark.parametrize("rows,d", [(1, 64), (37, 512), (1000, 768), (5, 1024)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layernorm_kernel_matches_plain(cuda, rows, d, dtype):
@@ -87,3 +105,133 @@ def test_hamming_kernel_matches_plain(cuda, bits):
     ref = hamming_plain(q, gal, bits=bits)
     assert out.dtype == ref.dtype == (torch.uint8 if bits <= 255 else torch.int32)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("rows,d", [(1, 64), (37, 512), (5000, 768), (3200, 512),
+                                    (700, 1024)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layernorm_bwd_kernel_matches_plain(cuda, rows, d, dtype):
+    from cmh_torch.ops.layernorm import layernorm_bwd, layernorm_bwd_plain
+
+    g = torch.Generator().manual_seed(rows + d)
+    x = (torch.randn(rows, d, generator=g) * 3 + 1).to(dtype).to(cuda)
+    dout = torch.randn(rows, d, generator=g).to(dtype).to(cuda)
+    gamma = torch.randn(d, generator=g).to(cuda)
+    before = layernorm_bwd.launches
+    dx, dg, db = layernorm_bwd(x, gamma, dout)
+    torch.cuda.synchronize()
+    assert layernorm_bwd.launches == before + 1
+    rdx, rdg, rdb = layernorm_bwd_plain(x, gamma, dout)
+    # dx: fp32 summation order, then in bf16 one rounding of the fp32 result;
+    # dγ/dβ: fp32 sums over up to 5000 rows in another order
+    if dtype == torch.float32:
+        torch.testing.assert_close(dx, rdx, rtol=1e-4, atol=1e-4)
+    else:
+        assert_within_one_bf16_step(dx, rdx)
+    torch.testing.assert_close(dg, rdg, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(db, rdb, rtol=1e-4, atol=1e-3)
+    again = layernorm_bwd(x, gamma, dout)    # fixed-order sums: deterministic
+    assert all(torch.equal(a, b) for a, b in zip(again, (dx, dg, db)))
+
+
+@pytest.mark.parametrize("b,h,s,hd", [(3, 12, 50, 64), (5, 8, 32, 64),
+                                      (2, 2, 77, 64)])
+@pytest.mark.parametrize("masks", ["none", "both"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_kernel_matches_plain(cuda, b, h, s, hd, masks, dtype):
+    from cmh_torch.ops.attention import attention_bwd, attention_bwd_plain, kpm_bias
+
+    g = torch.Generator().manual_seed(b * s + hd + 1)
+    q, k, v, do = (torch.randn(b, h, s, hd, generator=g).to(dtype).to(cuda)
+                   for _ in range(4))
+    mask = bias = None
+    if masks == "both":
+        mask = torch.full((s, s), float("-inf")).triu(1).to(cuda)
+        kpm = torch.rand(b, s, generator=g) > 0.7
+        kpm[:, 0] = False
+        bias = kpm_bias(kpm.to(cuda))
+    scale = hd**-0.5
+    before = attention_bwd.launches
+    got = attention_bwd(q, k, v, scale, mask, bias, do)
+    torch.cuda.synchronize()
+    assert attention_bwd.launches == before + 1
+    want = attention_bwd_plain(q, k, v, scale, mask, bias, do)
+    # fp32: summation order over S and hd; bf16: one rounding of the fp32
+    # result (both keep W unrounded)
+    for a, r in zip(got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
+        else:
+            assert_within_one_bf16_step(a, r)
+
+
+def test_autograd_reaches_the_kernels(cuda):
+    """On the card the LayerNorm and attention outputs carry a gradient,
+    and backward launches the backward kernels."""
+    from cmh_torch.ops.attention import attention_bwd, fused_attention
+    from cmh_torch.ops.layernorm import fused_layernorm, layernorm_bwd
+
+    x = torch.randn(4, 10, 64, device=cuda, requires_grad=True)
+    gamma = torch.ones(64, device=cuda, requires_grad=True)
+    beta = torch.zeros(64, device=cuda, requires_grad=True)
+    y = fused_layernorm(x, gamma, beta)
+    q = y.reshape(4, 10, 2, 32).transpose(1, 2)
+    out = fused_attention(q, q, q, 32**-0.5)
+    assert y.requires_grad and out.requires_grad
+    before = (layernorm_bwd.launches, attention_bwd.launches)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (layernorm_bwd.launches, attention_bwd.launches) == (before[0] + 1,
+                                                                before[1] + 1)
+    for t in (x, gamma, beta):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+
+
+@pytest.mark.parametrize("bits,n,k", [(4, 3000, None), (16, 5000, None),
+                                      (64, 4097, 50), (127, 1000, None),
+                                      (1024, 700, None), (4094, 257, 5)])
+def test_map_kernels_match_plain(cuda, bits, n, k):
+    from cmh_torch.ops.map_kernel import (map_ap, map_ap_plain, map_hist,
+                                          map_hist_plain, pack_words, rank_counts)
+    from cmh_torch.ops.metrics import calc_label_sim
+
+    rng = np.random.RandomState(bits + n)
+    q = torch.from_numpy(rng.choice([-1.0, 1.0], (70, bits)).astype(np.float32)).to(cuda)
+    r = torch.from_numpy(rng.choice([-1.0, 1.0], (n, bits)).astype(np.float32)).to(cuda)
+    ql = torch.from_numpy((rng.rand(70, 6) > 0.7).astype(np.float32)).to(cuda)
+    rl = torch.from_numpy((rng.rand(n, 6) > 0.7).astype(np.float32)).to(cuda)
+    ql[:3] = 0                      # queries with no relevant item
+    words = pack_words(q, r, calc_label_sim(ql, rl), bits)
+    before = (map_hist.launches, map_ap.launches)
+    hist, rhist = map_hist(words, bits)
+    torch.cuda.synchronize()
+    ph, prh = map_hist_plain(words, bits)
+    assert torch.equal(hist, ph) and torch.equal(rhist, prh)      # exact
+    less, less_r, total = rank_counts(hist, rhist, k)
+    ap = map_ap(words, less, less_r, total)
+    torch.cuda.synchronize()
+    assert (map_hist.launches, map_ap.launches) == (before[0] + 1, before[1] + 1)
+    # identical fp32 quotients, fp64 sums in another order
+    torch.testing.assert_close(ap, map_ap_plain(words, less, less_r, total),
+                               rtol=1e-12, atol=1e-12)
+    assert float(ap[:3].abs().sum()) == 0.0
+
+
+def test_map_4dir_kernel_matches_numpy(cuda):
+    from cmh_torch.ops.map_bucketed import calc_map_k_4dir_auto
+    from cmh_torch.ops.map_kernel import map_ap
+    from cmh_torch.ops.metrics import calc_map_k_numpy
+
+    rng = np.random.RandomState(3)
+    nq, n, bits = 300, 1200, 16
+    qi, qt = (rng.choice([-1.0, 1.0], (nq, bits)).astype(np.float32) for _ in range(2))
+    ri, rt = (rng.choice([-1.0, 1.0], (n, bits)).astype(np.float32) for _ in range(2))
+    ql = (rng.rand(nq, 8) > 0.8).astype(np.float32)
+    rl = (rng.rand(n, 8) > 0.8).astype(np.float32)
+    before = map_ap.launches
+    got = calc_map_k_4dir_auto(*(torch.from_numpy(a).to(cuda)
+                                 for a in (qi, qt, ri, rt, ql, rl)))
+    assert map_ap.launches == before + 1
+    want = [calc_map_k_numpy(a, b, ql, rl)
+            for a, b in ((qi, rt), (qt, ri), (qi, ri), (qt, rt))]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)

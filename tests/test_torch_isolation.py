@@ -19,8 +19,17 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "cmh_tpu"))
-print(len(names), bad)
+print(" ".join(names))
+print(bad)
 """
+
+# the modules of the training slice, each of which must import on its own
+TRAINING_MODULES = {
+    "cmh_torch.main", "cmh_torch.registry", "cmh_torch.utils.seed",
+    "cmh_torch.utils.logger", "cmh_torch.data.dataset", "cmh_torch.data.builder",
+    "cmh_torch.data.loader", "cmh_torch.ops.metrics", "cmh_torch.ops.map_bucketed",
+    "cmh_torch.ops.map_kernel", "cmh_torch.optim.bert_adam", "cmh_torch.optim.partition",
+    "cmh_torch.runners.base", "cmh_torch.runners.dcmht"}
 
 
 def test_import_pulls_in_no_jax_and_no_cmh_tpu():
@@ -28,8 +37,9 @@ def test_import_pulls_in_no_jax_and_no_cmh_tpu():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15 and bad == "[]", out.stdout
+    names, bad = out.stdout.strip().splitlines()
+    assert TRAINING_MODULES <= set(names.split()), out.stdout
+    assert len(names.split()) >= 30 and bad == "[]", out.stdout
 
 
 @pytest.fixture
@@ -96,17 +106,25 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
     from cmh_torch.ops.hamming import hamming_packed
     from cmh_torch.ops.layernorm import fused_layernorm
 
-    before = (fused_layernorm.launches, fused_attention.launches,
-              hamming_packed.launches)
-    x = torch.randn(2, 4, 8)
-    fused_layernorm(x, torch.ones(8), torch.zeros(8))
-    q = torch.randn(1, 2, 4, 8)
-    fused_attention(q, q, q, 0.5)
+    from cmh_torch.ops.attention import attention_bwd
+    from cmh_torch.ops.layernorm import layernorm_bwd
+    from cmh_torch.ops.map_kernel import map_ap, map_hist
+
+    wrappers = (fused_layernorm, fused_attention, hamming_packed, layernorm_bwd,
+                attention_bwd, map_hist, map_ap)
+    before = [w.launches for w in wrappers]
+    x = torch.randn(2, 4, 8, requires_grad=True)
+    fused_layernorm(x, torch.ones(8), torch.zeros(8)).sum().backward()
+    q = torch.randn(1, 2, 4, 8, requires_grad=True)
+    fused_attention(q, q, q, 0.5).sum().backward()
     hamming_packed(torch.zeros((1, 1), dtype=torch.int32),
                    torch.zeros((2, 1), dtype=torch.int32))
-    # plain versions on the CPU: no launch is counted
-    assert (fused_layernorm.launches, fused_attention.launches,
-            hamming_packed.launches) == before
+    words = torch.tensor([[0, 3, 2]], dtype=torch.uint8)
+    hist, rhist = map_hist(words, 1)
+    map_ap(words, torch.zeros_like(hist), torch.zeros_like(rhist),
+           torch.ones(1, dtype=torch.int32))
+    # plain versions on the CPU, forward and backward: no launch is counted
+    assert [w.launches for w in wrappers] == before
     with pytest.raises(ValueError, match="no layernorm kernel"):
         fused_layernorm(x.to("meta"), torch.ones(8, device="meta"),
                         torch.zeros(8, device="meta"))
