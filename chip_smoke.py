@@ -10,7 +10,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 2. build the four CUDA sources from ``cmh_torch/csrc`` (``ops/_build.py``),
    one ``nvcc`` each, all at once;
 3. each kernel against its plain PyTorch version, with its time beside the
-   plain version's, one PyTorch library call's and the card's bound: the
+   plain version's, one PyTorch library call's and the card's bound (the
+   attention kernels also once on the head views of a packed projection,
+   which they read in place): the
    forward kernels and K4 at the serving path's shapes (batch 256), the
    backward kernels at the training step's (batch 100), and the mAP
    kernels at coco scale (4 directions of 1,024-query chunks against
@@ -18,16 +20,21 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 4. the full-width ViT-B/32 DCMHT model in fp32 on the card (kernels) and on
    the CPU (plain versions) from one seed: head outputs and codes must agree;
 5. one full-width fp32 train step's gradients on 8 pairs, card against CPU;
-6. serving at full width in bf16: encode a gallery of synthetic images, fill
+6. the full-width bf16 model's device time on inputs made on the card: the
+   image and the text tower forward at batch 256, and one image + text
+   forward and backward at batch 100;
+7. serving at full width in bf16: encode a gallery of synthetic images, fill
    a 16-bit index past 2^20 items, start ``cmh_torch.server`` on a local
    port and answer requests over HTTP; every answer must equal the top-k
    of the same query from a CPU copy of the index (plain Hamming), and the
    kernels' launch counters must show the path went through them;
-7. training through the CLI entry point (``cmh_torch.main``) on
+8. training through the CLI entry point (``cmh_torch.main``) on
    ``configs/DCMHT/synthetic_tpu.yaml`` for 2 epochs at full width in bf16
    (12 steps and 2 ``valid``s): finite losses, the model and ``.mat``
    files, the last mAPs equal to the plain counting rank and the numpy
-   oracle on ``last.mat``, and the launch counts worked out from the code.
+   oracle on ``last.mat``, and the launch counts worked out from the code;
+   then ``torch.profiler`` over one more train step: the ten kernels with
+   the most device time.
 
 The last lines are the card's name and power limit, one JSON object with a
 ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -161,10 +168,31 @@ def check_layernorm(torch, gen):
     return rows
 
 
+def text_masks(torch, gen, n, s):
+    """The text tower's masks at batch n: the causal (S, S) mask, a random
+    key-padding mask (lengths 2..S), its fp32 bias, and the bool mask SDPA
+    takes for both."""
+    from cmh_torch.ops.attention import kpm_bias
+
+    mask = torch.full((s, s), float("-inf"), device="cuda").triu(1)
+    lengths = torch.randint(2, s + 1, (n,), generator=gen, device="cuda")
+    kpm = torch.arange(s, device="cuda")[None, :] >= lengths[:, None]
+    causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    return mask, kpm, kpm_bias(kpm), causal[None, None] & ~kpm[:, None, None, :]
+
+
+def head_views(torch, gen, n, h, s, parts):
+    """``parts`` (B, H, S, 64) bf16 head views of one packed (B, S, parts·H·64)
+    tensor, as MultiHeadAttention hands q, k, v to the kernels (and autograd
+    dout, parts = 1)."""
+    packed = torch.randn(n, s, parts * h * 64, generator=gen, device="cuda").bfloat16()
+    return [t.reshape(n, s, h, 64).transpose(1, 2) for t in packed.split(h * 64, -1)]
+
+
 def check_attention(torch, gen):
     import torch.nn.functional as F
 
-    from cmh_torch.ops.attention import attention_plain, fused_attention, kpm_bias
+    from cmh_torch.ops.attention import attention_plain, fused_attention
 
     rows = []
     for tower, h, s in (("vision", 12, 50), ("text", 8, MAX_WORDS)):
@@ -172,19 +200,22 @@ def check_attention(torch, gen):
                    for _ in range(3))
         mask = kpm = bias = sdpa_mask = None
         if tower == "text":
-            mask = torch.full((s, s), float("-inf"), device="cuda").triu(1)
-            lengths = torch.randint(2, s + 1, (B,), generator=gen, device="cuda")
-            kpm = torch.arange(s, device="cuda")[None, :] >= lengths[:, None]
-            bias = kpm_bias(kpm)
-            causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
-            sdpa_mask = causal[None, None] & ~kpm[:, None, None, :]
+            mask, kpm, bias, sdpa_mask = text_masks(torch, gen, B, s)
         scale = 64**-0.5
         out = fused_attention(q, k, v, scale, mask, kpm)
         ref = attention_plain(q, k, v, scale, mask, bias)
         torch.cuda.synchronize()
-        # a few bf16 steps: P and the output round to bf16 in both versions
-        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        # P and the output round to bf16 in both; a last-bit logit
+        # difference can move a rounding step
+        steps = bf16_steps_checked(out, ref, f"attention_fwd {tower}")
+        print(f"[kernel] attention_fwd {tower}: {steps}", flush=True)
         err = (out.float() - ref.float()).abs().max().item()
+        # once more on the head views of a packed projection, read in place
+        qp, kp, vp = head_views(torch, gen, B, h, s, 3)
+        steps = bf16_steps_checked(fused_attention(qp, kp, vp, scale, mask, kpm),
+                                   attention_plain(qp, kp, vp, scale, mask, bias),
+                                   f"attention_fwd {tower} head views")
+        print(f"[kernel] attention_fwd {tower} head views: {steps}", flush=True)
         nbytes = 4 * B * h * s * 64 * 2 + (s * s * 4 + B * s * 4 if mask is not None else 0)
         rows.append(entry(
             "attention_fwd", "cmh_torch/csrc/attention.cu",
@@ -196,6 +227,7 @@ def check_attention(torch, gen):
             cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=sdpa_mask, scale=scale)),
             nbytes, 4 * B * h * s * s * 64, "bf16"))
+        rows[-1]["head_views_ms"] = cuda_ms(lambda: fused_attention(qp, kp, vp, scale, mask, kpm))
     return rows
 
 
@@ -261,7 +293,7 @@ def check_layernorm_bwd(torch, gen):
 def check_attention_bwd(torch, gen):
     import torch.nn.functional as F
 
-    from cmh_torch.ops.attention import attention_bwd, attention_bwd_plain, kpm_bias
+    from cmh_torch.ops.attention import attention_bwd, attention_bwd_plain
 
     rows = []
     for tower, h, s in (("vision", 12, 50), ("text", 8, MAX_WORDS)):
@@ -269,12 +301,7 @@ def check_attention_bwd(torch, gen):
                        for _ in range(4))
         mask = bias = sdpa_mask = None
         if tower == "text":
-            mask = torch.full((s, s), float("-inf"), device="cuda").triu(1)
-            lengths = torch.randint(2, s + 1, (TRAIN_B,), generator=gen, device="cuda")
-            kpm = torch.arange(s, device="cuda")[None, :] >= lengths[:, None]
-            bias = kpm_bias(kpm)
-            causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
-            sdpa_mask = causal[None, None] & ~kpm[:, None, None, :]
+            mask, _, bias, sdpa_mask = text_masks(torch, gen, TRAIN_B, s)
         scale = 64**-0.5
         got = attention_bwd(q, k, v, scale, mask, bias, do)
         want = attention_bwd_plain(q, k, v, scale, mask, bias, do)
@@ -285,6 +312,14 @@ def check_attention_bwd(torch, gen):
             steps = bf16_steps_checked(a, b, f"attention_bwd {name}")
             print(f"[kernel] attention_bwd {tower} {name}: {steps}", flush=True)
         err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        # once more on head views, as autograd hands them over
+        qp, kp, vp = head_views(torch, gen, TRAIN_B, h, s, 3)
+        (dop,) = head_views(torch, gen, TRAIN_B, h, s, 1)
+        for name, a, b in zip(("dq", "dk", "dv"),
+                              attention_bwd(qp, kp, vp, scale, mask, bias, dop),
+                              attention_bwd_plain(qp, kp, vp, scale, mask, bias, dop)):
+            steps = bf16_steps_checked(a, b, f"attention_bwd {name} head views")
+            print(f"[kernel] attention_bwd {tower} {name} head views: {steps}", flush=True)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask, scale=scale)
         nbytes = 7 * TRAIN_B * h * s * 64 * 2 + (s * s * 4 + TRAIN_B * s * 4 if mask is not None else 0)
@@ -297,6 +332,8 @@ def check_attention_bwd(torch, gen):
             cuda_ms(lambda: attention_bwd_plain(q, k, v, scale, mask, bias, do)),
             cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)),
             nbytes, 10 * TRAIN_B * h * s * s * 64, "bf16"))
+        rows[-1]["head_views_ms"] = cuda_ms(
+            lambda: attention_bwd(qp, kp, vp, scale, mask, bias, dop))
     return rows
 
 
@@ -429,13 +466,127 @@ def grad_parity(torch):
           f"{ {k: f'{v:.1e}' for k, v in noise.items()} }", flush=True)
     # fp32 on both sides, TF32 off: only summation order differs, through 12
     # layers forward and backward
-    if not loss_rel <= 1e-5:
+    if not loss_rel <= 1e-6:
         raise AssertionError(f"loss differs card/CPU: {loss_rel}")
-    if not worst[0] <= 1e-3:
+    if not worst[0] <= 1e-4:
         raise AssertionError(f"gradient of {worst[1]} differs card/CPU: {worst[0]}")
     if max(noise.values()) > 1e-4:
         raise AssertionError(f"BatchNorm-absorbed gradients are not noise: {noise}")
     return {"loss_rel_diff": loss_rel, "max_grad_rel_diff": worst[0]}
+
+
+def device_batch(torch, gen, n):
+    """A training batch made on the card (no loader): 224 px NHWC images,
+    token ids laid out as the tokenizer's ([SOT] … [EOT], zero-padded to
+    32, lengths 2..32) with their key-padding mask, and multi-hot labels
+    over the synthetic config's 8 classes."""
+    pos = torch.arange(MAX_WORDS, device="cuda")
+    lengths = torch.randint(2, MAX_WORDS + 1, (n,), generator=gen, device="cuda")
+    ids = torch.randint(1, 49406, (n, MAX_WORDS), generator=gen, device="cuda")
+    ids = torch.where(pos[None] < lengths[:, None], ids, 0)
+    ids[:, 0] = 49406
+    ids[torch.arange(n, device="cuda"), lengths - 1] = 49407
+    label = torch.rand(n, 8, generator=gen, device="cuda") < 0.25
+    label[torch.arange(n, device="cuda"), torch.randint(0, 8, (n,), generator=gen, device="cuda")] = True
+    return {"image": torch.randn(n, 224, 224, 3, generator=gen, device="cuda"),
+            "text": ids.int(), "key_padding_mask": pos[None] >= lengths[:, None],
+            "label": label.float()}
+
+
+def tower_times(torch):
+    """Device time (cuda_ms) of the full-width bf16 model on inputs made on
+    the card: the image and the text tower forward at the serving batch,
+    and one image + text forward and backward (loss included, no optimizer)
+    at the training batch."""
+    from cmh_torch.models.clip.model import CLIPConfig
+    from cmh_torch.models.dcmht import DCMHTModel, dcmht_loss_fn
+
+    model = DCMHTModel(CLIPConfig(), CODE_BITS)
+    model.init_weights(torch.Generator().manual_seed(0)).to("cuda").eval()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x_txt = device_batch(torch, gen, B)
+    x_img = x_txt.pop("image")
+    with torch.no_grad():
+        image_ms = cuda_ms(lambda: model.encode_image(x_img), iters=10, warmup=2)
+        text_ms = cuda_ms(lambda: model.encode_text(x_txt["text"], x_txt["key_padding_mask"]),
+                          iters=10, warmup=2)
+    x = device_batch(torch, gen, TRAIN_B)
+    loss_fn = dcmht_loss_fn(output_dim=CODE_BITS)
+    model.train()
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(model(x["image"], x["text"], x["key_padding_mask"]), x["label"])
+        loss.backward()
+
+    train_ms = cuda_ms(step, iters=5, warmup=2)
+    with torch.no_grad():
+        model.eval()
+        busy = {"image_fwd_b256": kernel_busy_ms(torch, lambda: model.encode_image(x_img)),
+                "text_fwd_b256": kernel_busy_ms(
+                    torch, lambda: model.encode_text(x_txt["text"], x_txt["key_padding_mask"]))}
+    model.train()
+    busy["fwd_bwd_b100"] = kernel_busy_ms(torch, step)
+    out = {"image_fwd_b256_ms": image_ms, "text_fwd_b256_ms": text_ms,
+           "fwd_bwd_b100_ms": train_ms}
+    print(f"[towers] device ms (CUDA events around back-to-back calls, idle gaps "
+          f"included), full-width bf16: {out}", flush=True)
+    print(f"[towers] kernel busy ms (torch.profiler, one call): {busy}", flush=True)
+    return out
+
+
+def _device_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def kernel_events(torch, prof):
+    """The device kernels of a torch.profiler run, summed by name: device
+    events whose name is no host event's (annotations such as
+    ``Optimizer.step#…`` carry a device span of the same name as their host
+    span, and no kernel is named like a host op)."""
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type != torch.autograd.DeviceType.CUDA}
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in host and _device_us(e) > 0]
+
+
+def kernel_busy_ms(torch, fn):
+    """Device time spent in kernels during one call of ``fn`` (after one
+    warm call), from torch.profiler: no idle gaps, unlike ``cuda_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in kernel_events(torch, prof)) / 1e3
+
+
+def profile_train_step(torch, trainer):
+    """torch.profiler over one train step of the CLI's trainer on a batch
+    made on the card: the ten kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = device_batch(torch, torch.Generator(device="cuda").manual_seed(6), TRAIN_B)
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = kernel_events(torch, prof)
+    total = sum(_device_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=_device_us, reverse=True)[:10]
+    print(f"[profile] one train step (batch {TRAIN_B}): {len(kernels)} kernel names, "
+          f"{sum(e.count for e in kernels)} launches, {total:.3f} ms of kernel time in "
+          f"{wall_ms:.3f} ms of host wall clock (device busy {total / wall_ms:.1%})",
+          flush=True)
+    for e in top:
+        print(f"[profile] {_device_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:110]}", flush=True)
+    return {"kernel_ms": total, "wall_ms": wall_ms,
+            "top": [(e.key[:110], _device_us(e) / 1e3, e.count) for e in top]}
 
 
 def training(torch, counters):
@@ -524,6 +675,7 @@ def training(torch, counters):
     if not (np.allclose(got, plain, rtol=0, atol=1e-12)
             and np.allclose(got, oracle, rtol=0, atol=1e-7)):
         raise AssertionError("the last valid's mAPs differ from the recomputation")
+    profile_train_step(torch, trainer)
     return launches, {"steps": steps, "train_s": train_s, "pairs": pairs, "main_s": t_main}
 
 
@@ -564,7 +716,7 @@ def model_parity(torch):
                   f"{out[name]['code_agreement']:.4f} "
                   f"({out[name]['undecided_pairs']} pairs with margin < 1e-3)", flush=True)
             # fp32 with TF32 off on both: only summation order differs
-            if not (np.isfinite(rel) and rel <= 1e-3):
+            if not (np.isfinite(rel) and rel <= 1e-5):
                 raise AssertionError(f"{name} head outputs differ: {rel}")
             if not bool(agree[decided].all()):
                 raise AssertionError(f"{name} codes differ at a pair with margin >= 1e-3")
@@ -767,6 +919,7 @@ def main() -> int:
 
         model_parity(torch)
         grad_parity(torch)
+        tower_times(torch)
         counters = {"layernorm": fused_layernorm, "attention": fused_attention,
                     "hamming": hamming_packed, "layernorm_bwd": layernorm_bwd,
                     "attention_bwd": attention_bwd, "map_hist": map_hist, "map_ap": map_ap}

@@ -8,8 +8,8 @@ use, into its own shared library with one ``nvcc`` call:
 
 The libraries are loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds). Outputs live in ``build/cmh_torch/`` at the repository
-root, keyed by a hash of the source and flags, so a changed source
-rebuilds and an unchanged one is reused. ``build_all`` starts every
+root, keyed by a hash of the source, the ``csrc/*.cuh`` headers and the
+flags, so a changed source or header rebuilds and an unchanged one is reused. ``build_all`` starts every
 missing build at once and waits for all of them.
 """
 
@@ -45,8 +45,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where ``<name>.cu``'s library lives, keyed by the source, every
+    ``csrc/*.cuh`` header (any of which it may include) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    key = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 

@@ -10,6 +10,14 @@ rounding instead. A CUDA tensor launches the hand-written kernels in
 ``csrc/attention.cu``; a CPU tensor takes ``attention_plain`` and
 ``attention_bwd_plain``.
 
+In bf16 the kernels run on the tensor cores (the forward's logits on the
+CUDA cores, so that P rounds to bf16 as in the plain version), read q, k, v
+and dout where they lie (the strided head views of a packed projection) and
+write their outputs in (B, S, H, hd) memory, returned as (B, H, S, hd)
+views, so merging the heads back is free (``kernel_strides``,
+``kernel_output``). They take hd ∈ {32, 64} and S up to ``BF16_MAX_S``. The fp32 kernels, for the parity
+checks, take contiguous (B, H, S, hd) tensors.
+
 The scale multiplies the fp32 logits, as in the Pallas kernel. (The JAX
 einsum path, ``cmh_tpu/models/clip/model.py:226-228``, scales q in the
 compute dtype before the dot instead; the port keeps that form only for the
@@ -19,14 +27,16 @@ explicit last-block path that returns attention weights.)
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 227 * 1024   # dynamic shared memory a block can have on sm_90
+# largest S the bf16 kernels are built for (16 × their largest row-tile
+# count, csrc/attention.cu:max_kc_fwd/max_kc_bwd), by head dim
+BF16_MAX_S = {"fwd": {32: 208, 64: 176}, "bwd": {32: 144, 64: 128}}
 
 
 def kpm_bias(key_padding_mask: torch.Tensor) -> torch.Tensor:
@@ -73,76 +83,133 @@ def attention_bwd_plain(q, k, v, scale: float, mask, bias, dout):
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def kernel_strides(t: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+    """(t, its (b, h, s) element strides) as the bf16 kernels read a
+    (B, H, S, hd) tensor: in place when hd is contiguous and every row
+    starts on a 16-byte boundary (true of the head views of a packed
+    projection), else from a contiguous copy."""
+    st = t.stride()
+    unit = 16 // t.element_size()
+    if st[3] != 1 or t.data_ptr() % 16 or any(x % unit for x in st[:3]):
+        t = t.contiguous()
+        st = t.stride()
+    return t, tuple(st[:3])
+
+
+def kernel_output(like: torch.Tensor) -> torch.Tensor:
+    """An empty (B, H, S, hd) tensor in (B, S, H, hd) memory, the layout the
+    bf16 kernels write: ``out.transpose(1, 2).reshape(B, S, H·hd)`` is then a
+    view."""
+    b, h, s, hd = like.shape
+    return torch.empty((b, s, h, hd), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
 def _lib():
     lib = _build.load("attention")
-    if lib.cmh_attention_fwd.argtypes is None:
+    if lib.cmh_attention_fwd_f32.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.cmh_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i, p]
-        lib.cmh_attention_fwd.restype = i
-        lib.cmh_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f,
-                                          i, i, p]
-        lib.cmh_attention_bwd.restype = i
+        lib.cmh_attention_fwd_f32.argtypes = [p] * 6 + [i, i, i, i, f, i, p]
+        lib.cmh_attention_bwd_f32.argtypes = [p] * 9 + [i, i, i, i, f, i, p]
+        lib.cmh_attention_fwd_bf16.argtypes = [p] * 7 + [i, i, i, i, f, i, p]
+        lib.cmh_attention_bwd_bf16.argtypes = [p] * 10 + [i, i, i, i, f, i, p]
+        for name in ("fwd_f32", "bwd_f32", "fwd_bf16", "bwd_bf16"):
+            getattr(lib, f"cmh_attention_{name}").restype = i
         for name in ("cmh_attention_smem_bytes", "cmh_attention_bwd_smem_bytes"):
             getattr(lib, name).argtypes = [i, i]
             getattr(lib, name).restype = ctypes.c_long
     return lib
 
 
-def _prepare(q, k, v, mask, bias, smem_fn: str):
-    """Check the kernel's preconditions; contiguous q/k/v and fp32 masks."""
+def _prepare(q, k, v, mask, bias, which: str):
+    """Check the kernels' preconditions (``which`` is "fwd" or "bwd"), all
+    but the fp32 shared-memory size before the library is loaded; fp32
+    masks on q's device."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"attention kernels take one (B, H, S, hd) shape for "
                          f"q, k and v, got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, h, s, hd = q.shape
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
         raise TypeError(f"attention kernel takes float32 or bfloat16 q/k/v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype == torch.bfloat16:
+        limits = BF16_MAX_S[which]
+        if hd not in limits:
+            raise ValueError(f"bf16 attention kernels take hd 32 or 64, got {hd}")
+        if s > limits[hd]:
+            raise ValueError(f"bf16 attention {which} kernel takes S <= "
+                             f"{limits[hd]} at hd={hd}, got S={s}")
+    if mask is not None and mask.shape != (s, s):
+        raise ValueError(f"mask must be ({s}, {s}), got {tuple(mask.shape)}")
+    if bias is not None and bias.shape != (b, s):
+        raise ValueError(f"key-padding bias must be ({b}, {s}), got "
+                         f"{tuple(bias.shape)}")
     lib = _lib()
-    smem = getattr(lib, smem_fn)(s, hd)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"attention kernel holds one (batch, head) in shared "
-                         f"memory: S={s}, hd={hd} needs {smem} bytes")
+    if q.dtype == torch.float32:
+        smem = getattr(lib, "cmh_attention_smem_bytes" if which == "fwd"
+                       else "cmh_attention_bwd_smem_bytes")(s, hd)
+        if smem > _MAX_SMEM:
+            raise ValueError(f"attention kernel holds one (batch, head) in shared "
+                             f"memory: S={s}, hd={hd} needs {smem} bytes")
     if mask is not None:
-        if mask.shape != (s, s):
-            raise ValueError(f"mask must be ({s}, {s}), got {tuple(mask.shape)}")
         mask = mask.to(device=q.device, dtype=torch.float32).contiguous()
     if bias is not None:
         bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
-    return lib, q.contiguous(), k.contiguous(), v.contiguous(), mask, bias
+    return lib, mask, bias
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
+def _stream(t: torch.Tensor):
+    return t.device.index or 0, torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _launch(q, k, v, scale, mask, bias) -> torch.Tensor:
-    lib, q, k, v, mask, bias = _prepare(q, k, v, mask, bias,
-                                        "cmh_attention_smem_bytes")
+    lib, mask, bias = _prepare(q, k, v, mask, bias, "fwd")
     b, h, s, hd = q.shape
-    out = torch.empty_like(q)
-    rc = lib.cmh_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
-        out.data_ptr(), b, h, s, hd, float(scale), _DTYPES[q.dtype],
-        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
+    if q.dtype == torch.bfloat16:
+        (q, sq), (k, sk), (v, sv) = (kernel_strides(t) for t in (q, k, v))
+        out = kernel_output(q)
+        strides = (ctypes.c_longlong * 9)(*sq, *sk, *sv)
+        rc = lib.cmh_attention_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
+            out.data_ptr(), strides, b, h, s, hd, float(scale), *_stream(q))
+    else:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        out = torch.empty_like(q)
+        rc = lib.cmh_attention_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
+            out.data_ptr(), b, h, s, hd, float(scale), *_stream(q))
     _build.check(rc, "attention_fwd")
     fused_attention.launches += 1
     return out
 
 
 def _launch_bwd(q, k, v, scale, mask, bias, dout):
-    lib, q, k, v, mask, bias = _prepare(q, k, v, mask, bias,
-                                        "cmh_attention_bwd_smem_bytes")
+    lib, mask, bias = _prepare(q, k, v, mask, bias, "bwd")
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError("dout must have q's shape and dtype")
-    dout = dout.contiguous()
     b, h, s, hd = q.shape
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    rc = lib.cmh_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
-        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s,
-        hd, float(scale), _DTYPES[q.dtype], q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    if q.dtype == torch.bfloat16:
+        (q, sq), (k, sk), (v, sv), (dout, so) = (
+            kernel_strides(t) for t in (q, k, v, dout))
+        dq, dk, dv = (kernel_output(q) for _ in range(3))
+        strides = (ctypes.c_longlong * 12)(*sq, *sk, *sv, *so)
+        rc = lib.cmh_attention_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
+            b, h, s, hd, float(scale), *_stream(q))
+    else:
+        q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        rc = lib.cmh_attention_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s,
+            hd, float(scale), *_stream(q))
     _build.check(rc, "attention_bwd")
     attention_bwd.launches += 1
     return dq, dk, dv

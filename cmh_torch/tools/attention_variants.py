@@ -1,0 +1,120 @@
+"""Time edited copies of ``csrc/attention.cu`` against it on the card.
+
+    python -m cmh_torch.tools.attention_variants [name ...]
+
+Each variant is the source with a few string edits (``VARIANTS``), built
+with the package's nvcc flags into ``build/attention_variants/``, all at
+once. The bf16 forward and backward of each then run through the package's
+wrappers at the main path's shapes (the head views of a packed projection
+at batch 256 forward and 100 backward, vision and text), with their device
+time from ``chip_smoke.cuda_ms`` and their elements off the plain version.
+The ablations compute wrong results on purpose: they show what each phase
+of the forward costs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+
+_LOGITS = ("  for (int k4 = 0; k4 < HD / 4; ++k4) {   // hd elements 4 k4 .. 4 k4 + 3\n"
+           "    const uint2 a0")
+_SOFTMAX = ("      softmax_rows<NT>(x, tile * 16 + g, s, b, mask, kpm, scale, t);\n"
+            "    } else {",
+            "      softmax_rows<NT, NT - 1>(x, tile * 16 + g, s, b, mask, kpm, scale, t);")
+_PV = ("        mma_bf16(o[2 * nn], pa, vb[0], vb[1]);\n"
+       "        mma_bf16(o[2 * nn + 1], pa, vb[2], vb[3]);")
+_NO_LOGITS = [(_LOGITS, _LOGITS.replace("k4 < HD / 4", "k4 < 0"))]
+_NO_SOFTMAX = [(_SOFTMAX[0], "    } else {"), (_SOFTMAX[1], "")]
+_NO_PV = [(_PV, "        o[2 * nn][0] += __uint_as_float(vb[0] ^ pa[0]);")]
+
+VARIANTS = {
+    "base": [],
+    "no-logits": _NO_LOGITS,            # forward without QK^T
+    "no-softmax": _NO_SOFTMAX,          # forward without the softmax
+    "no-pv": _NO_PV,                    # forward without P V
+    "load-store": _NO_LOGITS + _NO_SOFTMAX + _NO_PV,
+}
+
+
+def build(names):
+    from cmh_torch.ops import _build
+
+    src = (_build.CSRC / "attention.cu").read_text()
+    out = _build.BUILD_DIR.parent / "attention_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        text = src
+        for old, new in VARIANTS[name]:
+            if old not in text:
+                raise ValueError(f"{name}: edit target not in attention.cu: {old[:60]!r}")
+            text = text.replace(old, new)
+        cu = out / f"{name}.cu"
+        cu.write_text(text)
+        so = out / f"{name}.so"
+        log = open(out / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                                         str(cu)], stdout=log, stderr=subprocess.STDOUT), so)
+    for name, (p, so) in procs.items():
+        if p.wait() != 0:
+            raise RuntimeError(f"nvcc failed for {name}: {(out / f'{name}.log').read_text()[-3000:]}")
+    return {name: so for name, (_, so) in procs.items()}
+
+
+def main(argv=None) -> int:
+    import torch
+
+    import chip_smoke as cs
+    import cmh_torch.ops.attention as A
+    from cmh_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("attention_variants: no CUDA device", file=sys.stderr)
+        return 2
+    names = (argv if argv is not None else sys.argv[1:]) or list(VARIANTS)
+    libs = build(names)
+    print(cs.smi_line(), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for tower, h, s in (("vision", 12, 50), ("text", 8, cs.MAX_WORDS)):
+        for n, bwd in ((cs.B, False), (cs.TRAIN_B, True)):
+            q, k, v = cs.head_views(torch, gen, n, h, s, 3)
+            (do,) = cs.head_views(torch, gen, n, h, s, 1)
+            mask = bias = None
+            if tower == "text":
+                mask, _, bias, _ = cs.text_masks(torch, gen, n, s)
+            cases.append((f"{tower}-{'bwd' if bwd else 'fwd'}", bwd, (q, k, v, 64**-0.5, mask, bias), do))
+
+    def off(got, want):
+        try:
+            return cs.bf16_steps_checked(got, want, "").split()[0]
+        except AssertionError:
+            return "fails the check"
+
+    load = _build.load
+    try:
+        for name, so in libs.items():
+            lib = ctypes.CDLL(os.path.abspath(so))
+            _build.load = lambda _name, lib=lib: lib
+            row = {}
+            for case, bwd, args, do in cases:
+                if bwd:
+                    got = A._launch_bwd(*args, do)
+                    want = A.attention_bwd_plain(*args, do)
+                    ms = cs.cuda_ms(lambda: A._launch_bwd(*args, do))
+                    row[case] = (round(ms, 5), [off(a, b) for a, b in zip(got, want)])
+                else:
+                    got, want = A._launch(*args), A.attention_plain(*args)
+                    ms = cs.cuda_ms(lambda: A._launch(*args))
+                    row[case] = (round(ms, 5), off(got, want))
+            print(name, row, flush=True)
+    finally:
+        _build.load = load
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,227 @@
+"""The bf16 attention kernels' layout and arithmetic, on the CPU.
+
+The tensor-core kernels in ``cmh_torch/csrc/attention.cu`` read q, k, v and
+dout where they lie (the strided head views ``MultiHeadAttention`` makes of
+its packed projection) and write (B, S, H, hd) memory. Their stride and
+layout arithmetic is plain Python (``kernel_strides``, ``kernel_output``),
+tested here. Their backward splits the fp32 operands W and dlog into bf16
+pieces for the tensor cores; a plain-torch emulation of those products,
+kept in this file, is held against cmh_tpu's Pallas backward (interpret
+mode) with the same one-bf16-step check the card's tests use.
+"""
+
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cmh_torch.ops.attention import (BF16_MAX_S, _prepare, _softmax, fused_attention,
+                                     kernel_output, kernel_strides, kpm_bias)
+from cmh_tpu.ops.attention_pallas import fused_attention as jax_attention
+from test_torch_gpu_kernels import assert_within_one_bf16_step
+
+ROOT = Path(__file__).resolve().parents[1]
+JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+@pytest.fixture(autouse=True)
+def fused(monkeypatch):
+    monkeypatch.setenv("CMH_TPU_FUSED", "1")
+
+
+def _packed_heads(b, s, h, hd, dtype, seed):
+    """q, k, v as MultiHeadAttention makes them: head views of one packed
+    (B, S, 3·H·hd) projection."""
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rng.randn(b, s, 3 * h * hd).astype(np.float32)).to(dtype)
+    return qkv, [t.reshape(b, s, h, hd).transpose(1, 2) for t in qkv.split(h * hd, -1)]
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_kernel_strides_read_the_packed_head_views_in_place(which):
+    b, s, h, hd = 3, 50, 12, 64
+    qkv, views = _packed_heads(b, s, h, hd, torch.bfloat16, seed=which)
+    t, strides = kernel_strides(views[which])
+    assert t.data_ptr() == qkv.data_ptr() + which * h * hd * 2    # no copy
+    assert strides == (s * 3 * h * hd, hd, 3 * h * hd)
+    # the element the kernel addresses as (b, h, s, c) is the view's
+    flat = qkv.reshape(-1)
+    i, j, r, c = 2, 7, 41, 5
+    off = (t.data_ptr() - qkv.data_ptr()) // 2 + i * strides[0] + j * strides[1] \
+        + r * strides[2] + c
+    assert torch.equal(flat[off], views[which][i, j, r, c])
+
+
+@pytest.mark.parametrize("case", ["hd-strided", "row-off-16-bytes", "dout-expanded"])
+def test_kernel_strides_copy_what_the_kernels_cannot_read(case):
+    b, s, h, hd = 2, 17, 4, 32
+    base = torch.randn(b, h, s, hd + 1).bfloat16()
+    t = {"hd-strided": torch.randn(b, h, hd, s).bfloat16().transpose(2, 3),
+         "row-off-16-bytes": base[..., 1:],                  # 66-byte rows, odd start
+         "dout-expanded": torch.ones(()).bfloat16().expand(b, h, s, hd)}[case]
+    got, strides = kernel_strides(t)
+    assert got.is_contiguous() and got.data_ptr() != t.data_ptr()
+    assert strides == (h * s * hd, s * hd, hd)
+    assert torch.equal(got, t)
+
+
+def test_kernel_output_merges_heads_as_a_view():
+    b, h, s, hd = 3, 8, 32, 64
+    out = kernel_output(torch.empty(b, h, s, hd, dtype=torch.bfloat16))
+    assert out.shape == (b, h, s, hd) and out.dtype == torch.bfloat16
+    assert out.stride() == (s * h * hd, hd, h * hd, 1)
+    merged = out.transpose(1, 2).reshape(b, s, h * hd)    # model.py's merge
+    assert merged.data_ptr() == out.data_ptr() and merged.is_contiguous()
+
+
+@pytest.mark.parametrize("which,s,hd", [("fwd", 177, 64), ("fwd", 209, 32),
+                                        ("bwd", 129, 64), ("bwd", 145, 32),
+                                        ("fwd", 50, 128)])
+def test_bf16_limits_raise_before_any_build(which, s, hd):
+    q = torch.zeros(1, 2, s, hd, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="S <=|hd 32 or 64"):
+        _prepare(q, q, q, None, None, which)
+
+
+def test_bf16_limits_are_the_kernels_instantiations():
+    """``BF16_MAX_S`` is 16 × the largest row-tile count each kernel is
+    built for in csrc/attention.cu."""
+    src = (ROOT / "cmh_torch" / "csrc" / "attention.cu").read_text()
+    for which in ("fwd", "bwd"):
+        m = re.search(rf"max_kc_{which}\(\) {{ return HD == 32 \? (\d+) : (\d+); }}", src)
+        assert m, which
+        assert BF16_MAX_S[which] == {32: 16 * int(m[1]), 64: 16 * int(m[2])}
+
+
+def test_key_padding_bias_must_be_b_by_s():
+    q = torch.zeros(2, 3, 10, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="key-padding bias must be"):
+        _prepare(q, q, q, None, torch.zeros(10, 2), "fwd")
+    with pytest.raises(ValueError, match="mask must be"):
+        _prepare(q, q, q, torch.zeros(10, 9), None, "bwd")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masks", [False, True])
+def test_fused_attention_on_strided_views_matches_pallas(dtype, masks):
+    """Forward and gradients of fused_attention on the packed head views, as
+    the CLIP blocks call it, against cmh_tpu's fused_attention (Pallas in
+    interpret mode) on the same values."""
+    b, s, h, hd = 2, 12, 3, 32
+    qkv, _ = _packed_heads(b, s, h, hd, dtype, seed=5 + int(masks))
+    leaf = qkv.clone().requires_grad_()
+    q, k, v = (t.reshape(b, s, h, hd).transpose(1, 2) for t in leaf.split(h * hd, -1))
+    rng = np.random.RandomState(9)
+    m = p = None
+    if masks:
+        m = np.triu(np.full((s, s), -np.inf, np.float32), 1)
+        p = rng.rand(b, s) > 0.6
+        p[:, 0] = False
+    scale = hd**-0.5
+    out = fused_attention(q, k, v, scale, None if m is None else torch.from_numpy(m),
+                          None if p is None else torch.from_numpy(p))
+    do = torch.from_numpy(rng.randn(b, h, s, hd).astype(np.float32)).to(dtype)
+    out.backward(do)
+
+    def jx(t):
+        return jnp.asarray(t.detach().float().numpy(), JDT[dtype])
+
+    want, vjp = jax.vjp(
+        lambda a, c, e: jax_attention(a, c, e, scale, None if m is None else jnp.asarray(m),
+                                      None if p is None else jnp.asarray(p)),
+        jx(q), jx(k), jx(v))
+    dq, dk, dv = vjp(jx(do))
+    want_grad = torch.cat([torch.from_numpy(np.array(jnp.asarray(g, jnp.float32)))
+                           .transpose(1, 2).reshape(b, s, h * hd) for g in (dq, dk, dv)], -1)
+    want = torch.from_numpy(np.array(jnp.asarray(want, jnp.float32)))
+    assert out.dtype == leaf.grad.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(leaf.grad, want_grad, rtol=1e-5, atol=1e-5)
+    else:
+        assert_within_one_bf16_step(out, want.bfloat16())
+        assert_within_one_bf16_step(leaf.grad, want_grad.bfloat16())
+
+
+def _pieces(x: torch.Tensor, n: int):
+    """x (fp32) as n bf16-valued pieces, largest first: each the bf16
+    rounding of what the earlier ones left (csrc/attention.cu:split_pair)."""
+    out, rest = [], x
+    for _ in range(n):
+        p = rest.bfloat16().float()
+        out.append(p)
+        rest = rest - p
+    return out
+
+
+def split_piece_bwd(q, k, v, scale, mask, bias, dout, n):
+    """The bf16 backward kernel's products in plain torch: W and dlog fp32
+    as in the Pallas backward, then dV = Σ Wₚᵀ dO, dQ = Σ dlogₚ K · scale and
+    dK = Σ dlogₚᵀ Q · scale over n bf16 pieces, smallest first (every
+    product exact in fp32, sums fp32), each result rounded once to bf16."""
+    w = _softmax(q, k, scale, mask, bias)
+    do = dout.float()
+    dw = torch.matmul(do, v.float().transpose(-1, -2))
+    dlog = w * (dw - (dw * w).sum(-1, keepdim=True))
+    pw, pl = _pieces(w, n)[::-1], _pieces(dlog, n)[::-1]
+    dv = sum(torch.matmul(p.transpose(-1, -2), do) for p in pw)
+    dq = sum(torch.matmul(p, k.float()) for p in pl) * scale
+    dk = sum(torch.matmul(p.transpose(-1, -2), q.float()) for p in pl) * scale
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("tower", ["vision", "text"])
+def test_split_piece_products_match_pallas_backward(tower):
+    """Three bf16 pieces of W and dlog reproduce cmh_tpu's backward to the
+    one-bf16-step check at both tower shapes; one piece (W rounded to bf16,
+    the fault the check exists to catch) fails it, and so does two."""
+    h, s = (12, 50) if tower == "vision" else (8, 32)
+    b, hd = 4, 64
+    rng = np.random.RandomState(h + s)
+    q, k, v, do = (torch.from_numpy(rng.randn(b, h, s, hd).astype(np.float32)).bfloat16()
+                   for _ in range(4))
+    m = p = None
+    if tower == "text":
+        m = np.triu(np.full((s, s), -np.inf, np.float32), 1)
+        p = rng.rand(b, s) > 0.6
+        p[:, 0] = False
+    scale = hd**-0.5
+
+    def jx(t):
+        return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+
+    _, vjp = jax.vjp(
+        lambda a, c, e: jax_attention(a, c, e, scale, None if m is None else jnp.asarray(m),
+                                      None if p is None else jnp.asarray(p)),
+        jx(q), jx(k), jx(v))
+    want = [torch.from_numpy(np.array(jnp.asarray(g, jnp.float32))).bfloat16()
+            for g in vjp(jx(do))]
+    mask = None if m is None else torch.from_numpy(m)
+    bias = None if p is None else kpm_bias(torch.from_numpy(p))
+
+    for a, w in zip(split_piece_bwd(q, k, v, scale, mask, bias, do, 3), want):
+        assert_within_one_bf16_step(a, w)
+    for n in (1, 2):
+        got = split_piece_bwd(q, k, v, scale, mask, bias, do, n)
+        failed = 0
+        for a, w in zip(got, want):
+            try:
+                assert_within_one_bf16_step(a, w)
+            except AssertionError:
+                failed += 1
+        assert failed >= 1, n
+
+
+def test_attention_variant_edits_still_apply():
+    """The variant-timing tool edits csrc/attention.cu by string
+    replacement; every edit must still find its target."""
+    from cmh_torch.tools.attention_variants import VARIANTS
+
+    src = (ROOT / "cmh_torch" / "csrc" / "attention.cu").read_text()
+    for name, edits in VARIANTS.items():
+        for old, _ in edits:
+            assert src.count(old) == 1, (name, old)

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from cmh_torch.ops.attention import fused_attention, kpm_bias
+
 pytestmark = pytest.mark.gpu
 
 
@@ -86,9 +88,10 @@ def test_attention_kernel_matches_plain(cuda, b, h, s, hd, masks, dtype):
                           kpm_bias(kpm) if kpm is not None else None)
     # fp32: summation order; bf16: P and the output round to bf16 in both,
     # a last-bit logit difference can move a rounding step
-    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
-        dict(rtol=2e-2, atol=2e-2)
-    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert_within_one_bf16_step(out, ref)
 
 
 @pytest.mark.parametrize("bits", [16, 64, 225, 256, 1024])
@@ -163,6 +166,121 @@ def test_attention_bwd_kernel_matches_plain(cuda, b, h, s, hd, masks, dtype):
             torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
         else:
             assert_within_one_bf16_step(a, r)
+
+
+def _bf16_case(b, h, s, hd, seed, masks=True, packed=True):
+    """bf16 q, k, v, dout and fp32 mask/bias; with ``packed``, q/k/v are the
+    head views of one (B, S, 3·H·hd) projection and dout a head view of a
+    (B, S, H·hd) gradient, as MultiHeadAttention and autograd hand them to
+    the kernels."""
+    g = torch.Generator().manual_seed(seed)
+    if packed:
+        qkv = torch.randn(b, s, 3 * h * hd, generator=g).bfloat16().cuda()
+        q, k, v = (t.reshape(b, s, h, hd).transpose(1, 2) for t in qkv.split(h * hd, -1))
+        do = torch.randn(b, s, h * hd, generator=g).bfloat16().cuda()
+        do = do.reshape(b, s, h, hd).transpose(1, 2)
+    else:
+        q, k, v, do = (torch.randn(b, h, s, hd, generator=g).bfloat16().cuda()
+                       for _ in range(4))
+    mask = bias = None
+    if masks:
+        mask = torch.full((s, s), float("-inf")).triu(1).cuda()
+        kpm = torch.rand(b, s, generator=g) > 0.7
+        kpm[:, 0] = False
+        bias = kpm_bias(kpm.cuda())
+    return q, k, v, do, mask, bias
+
+
+def _check_bf16_pair(q, k, v, do, mask, bias, scale):
+    """Both bf16 kernels against their plain versions (one bf16 step), and
+    their outputs in (B, S, H, hd) memory."""
+    from cmh_torch.ops.attention import (_launch, attention_bwd, attention_bwd_plain,
+                                         attention_plain)
+
+    b, h, s, hd = q.shape
+    before = (fused_attention.launches, attention_bwd.launches)
+    out = _launch(q, k, v, scale, mask, bias)
+    got = attention_bwd(q, k, v, scale, mask, bias, do)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, attention_bwd.launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+    assert_within_one_bf16_step(out, attention_plain(q, k, v, scale, mask, bias))
+    for a, r in zip(got, attention_bwd_plain(q, k, v, scale, mask, bias, do)):
+        assert_within_one_bf16_step(a, r)
+    for t in (out, *got):
+        assert t.shape == (b, h, s, hd) and t.stride() == (s * h * hd, hd, h * hd, 1)
+
+
+@pytest.mark.parametrize("masks", [False, True])
+@pytest.mark.parametrize("tower", ["vision", "text"])
+def test_attention_bf16_kernels_read_packed_head_views(cuda, tower, masks):
+    from cmh_torch.ops.attention import kernel_strides
+
+    h, s = (12, 50) if tower == "vision" else (8, 32)
+    q, k, v, do, mask, bias = _bf16_case(6, h, s, 64, seed=s + int(masks), masks=masks)
+    assert all(kernel_strides(t)[0] is t for t in (q, k, v, do))     # read in place
+    _check_bf16_pair(q, k, v, do, mask, bias, 64**-0.5)
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("s", [1, 17, 50, 77, "max-bwd", "max-fwd"])
+def test_attention_bf16_kernels_at_every_row_tile_count(cuda, s, hd):
+    """S from one row to the largest each kernel is built for, padded to 16
+    rows and partly filled: the backward up to its limit, the forward alone
+    beyond it."""
+    from cmh_torch.ops.attention import (BF16_MAX_S, attention_plain, fused_attention,
+                                         kpm_bias)
+
+    s = {"max-bwd": BF16_MAX_S["bwd"][hd], "max-fwd": BF16_MAX_S["fwd"][hd]}.get(s, s)
+    q, k, v, do, mask, bias = _bf16_case(2, 3, s, hd, seed=s * hd, masks=s > 1)
+    if s <= BF16_MAX_S["bwd"][hd]:
+        _check_bf16_pair(q, k, v, do, mask, bias, hd**-0.5)
+    else:
+        out = fused_attention(q, k, v, hd**-0.5, mask, None)
+        assert_within_one_bf16_step(out, attention_plain(q, k, v, hd**-0.5, mask, None))
+
+
+def test_attention_bf16_all_masked_row_gives_nan(cuda):
+    """A query row with every key masked is NaN in the kernels' results
+    exactly where the plain versions (and jax.nn.softmax) give NaN; the
+    rest holds to one bf16 step."""
+    from cmh_torch.ops.attention import (_launch, attention_bwd, attention_bwd_plain,
+                                         attention_plain)
+
+    q, k, v, do, mask, bias = _bf16_case(3, 4, 50, 64, seed=11)
+    mask[7] = float("-inf")
+    got = (_launch(q, k, v, 0.125, mask, bias), *attention_bwd(q, k, v, 0.125, mask, bias, do))
+    want = (attention_plain(q, k, v, 0.125, mask, bias),
+            *attention_bwd_plain(q, k, v, 0.125, mask, bias, do))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want[0][:, :, 7]).all())
+    for a, r in zip(got, want):
+        nan = torch.isnan(r)
+        assert torch.equal(torch.isnan(a), nan)
+        assert_within_one_bf16_step(a[~nan], r[~nan])
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_attention_bf16_past_the_s_limit_raises(cuda, which):
+    from cmh_torch.ops.attention import BF16_MAX_S, attention_bwd
+
+    s = BF16_MAX_S[which][64] + 1
+    q = torch.zeros(1, 2, s, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match=f"S <= {s - 1}"):
+        if which == "fwd":
+            fused_attention(q, q, q, 0.125)
+        else:
+            attention_bwd(q, q, q, 0.125, None, None, q)
+
+
+def test_attention_bf16_bwd_is_deterministic(cuda):
+    from cmh_torch.ops.attention import attention_bwd
+
+    q, k, v, do, mask, bias = _bf16_case(16, 12, 50, 64, seed=3)
+    first = attention_bwd(q, k, v, 0.125, mask, bias, do)
+    again = attention_bwd(q, k, v, 0.125, mask, bias, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_autograd_reaches_the_kernels(cuda):
