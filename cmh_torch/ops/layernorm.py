@@ -12,6 +12,7 @@ the forward.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -20,8 +21,6 @@ from . import _build
 EPS = 1e-5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_VEC_PER_LANE = 8   # kernel instantiations, csrc/layernorm.cu
-_BWD_BLOCKS = 256       # most blocks of the backward's row pass
-_BWD_ROWS_PER_BLOCK = 8
 
 
 def _acc(x: torch.Tensor) -> torch.Tensor:
@@ -62,11 +61,36 @@ def _lib():
     lib = _build.load("layernorm")
     if lib.cmh_layernorm_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cmh_layernorm_fwd.argtypes = [p, p, p, p, i, i, i, i, p]
+        for fn in (lib.cmh_layernorm_blocks_per_sm, lib.cmh_layernorm_warps_per_block):
+            fn.argtypes, fn.restype = [i], i
+        lib.cmh_layernorm_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.cmh_layernorm_fwd.restype = i
         lib.cmh_layernorm_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.cmh_layernorm_bwd.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _grid(lib, t: torch.Tensor, bwd: bool) -> int:
+    """The persistent grid: the blocks each SM keeps resident, times the
+    SM count (the kernels launch no more warps than rows)."""
+    return lib.cmh_layernorm_blocks_per_sm(int(bwd)) * _sm_count(t.device.index or 0)
+
+
+_SYNC: dict = {}
+
+
+def _sync_word(t: torch.Tensor) -> torch.Tensor:
+    """The backward's grid-barrier word for t's device and current stream:
+    zeroed once, and left at zero by every launch."""
+    key = (t.device.index or 0, _stream(t))
+    if key not in _SYNC:
+        _SYNC[key] = torch.zeros(1, dtype=torch.int32, device=t.device)
+    return _SYNC[key]
 
 
 def _check(x2d: torch.Tensor, gamma: torch.Tensor, *others: torch.Tensor) -> None:
@@ -96,12 +120,13 @@ def _launch(x2d: torch.Tensor, gamma: torch.Tensor,
             beta: torch.Tensor) -> torch.Tensor:
     _check(x2d, gamma, beta)
     rows, d = x2d.shape
-    x2d = _aligned(x2d)
-    gamma, beta = gamma.contiguous(), beta.contiguous()
+    x2d, gamma, beta = _aligned(x2d), _aligned(gamma), _aligned(beta)
     out = torch.empty_like(x2d)
-    rc = _lib().cmh_layernorm_fwd(
+    lib = _lib()
+    rc = lib.cmh_layernorm_fwd(
         x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-        rows, d, _DTYPES[x2d.dtype], x2d.device.index or 0, _stream(x2d))
+        rows, d, _grid(lib, x2d, False), _DTYPES[x2d.dtype], x2d.device.index or 0,
+        _stream(x2d))
     _build.check(rc, "layernorm_fwd")
     fused_layernorm.launches += 1
     return out
@@ -112,14 +137,15 @@ def _launch_bwd(x2d: torch.Tensor, gamma: torch.Tensor, dout: torch.Tensor):
     if dout.shape != x2d.shape or dout.dtype != x2d.dtype:
         raise ValueError("dout must have x's shape and dtype")
     rows, d = x2d.shape
-    x2d, dout, gamma = _aligned(x2d), _aligned(dout), gamma.contiguous()
-    blocks = max(1, min(_BWD_BLOCKS, -(-rows // _BWD_ROWS_PER_BLOCK)))
+    x2d, dout, gamma = _aligned(x2d), _aligned(dout), _aligned(gamma)
+    lib = _lib()
+    blocks = _grid(lib, x2d, True)
     dx = torch.empty_like(x2d)
-    part = torch.empty((2, blocks, d), dtype=torch.float32, device=x2d.device)
+    part = torch.empty((blocks, 2, d), dtype=torch.float32, device=x2d.device)
     dgb = torch.empty((2, d), dtype=torch.float32, device=x2d.device)
-    rc = _lib().cmh_layernorm_bwd(
+    rc = lib.cmh_layernorm_bwd(
         x2d.data_ptr(), gamma.data_ptr(), dout.data_ptr(), dx.data_ptr(),
-        part[0].data_ptr(), part[1].data_ptr(), dgb[0].data_ptr(),
+        part.data_ptr(), _sync_word(x2d).data_ptr(), dgb[0].data_ptr(),
         dgb[1].data_ptr(), rows, d, blocks, _DTYPES[x2d.dtype],
         x2d.device.index or 0, _stream(x2d))
     _build.check(rc, "layernorm_bwd")
@@ -135,10 +161,9 @@ def _forward(x2d, gamma, beta):
 
 def layernorm_bwd(x2d: torch.Tensor, gamma: torch.Tensor, dout: torch.Tensor):
     """(dx, dγ, dβ) of the LayerNorm at (rows, d) ``x2d``. On a CUDA tensor
-    this launches the backward kernels, the row pass and
-    ``layernorm_bwd_reduce`` (counted together as one in
-    ``layernorm_bwd.launches``); on a CPU tensor it runs
-    ``layernorm_bwd_plain``."""
+    this launches the backward kernel, one cooperative launch that also sums
+    dγ/dβ over the card (counted in ``layernorm_bwd.launches``); on a CPU
+    tensor it runs ``layernorm_bwd_plain``."""
     if x2d.device.type == "cpu":
         return layernorm_bwd_plain(x2d, gamma, dout)
     return _launch_bwd(x2d, gamma, dout)

@@ -4,20 +4,19 @@
 
 Each variant is the source with a few string edits (``VARIANTS``), built
 with the package's nvcc flags into ``build/attention_variants/``, all at
-once. The bf16 forward and backward of each then run through the package's
-wrappers at the main path's shapes (the head views of a packed projection
-at batch 256 forward and 100 backward, vision and text), with their device
-time from ``chip_smoke.cuda_ms`` and their elements off the plain version.
-The ablations compute wrong results on purpose: they show what each phase
-of the forward costs.
+once (``tools/_variants.py``). The bf16 forward and backward of each then
+run through the package's wrappers at the main path's shapes (the head
+views of a packed projection at batch 256 forward and 100 backward, vision
+and text), with their device time from ``chip_smoke.cuda_ms`` and their
+elements off the plain version. The ablations compute wrong results on
+purpose: they show what each phase of the forward costs.
 """
 
 from __future__ import annotations
 
-import ctypes
-import os
-import subprocess
 import sys
+
+from cmh_torch.tools import _variants
 
 _LOGITS = ("  for (int k4 = 0; k4 < HD / 4; ++k4) {   // hd elements 4 k4 .. 4 k4 + 3\n"
            "    const uint2 a0")
@@ -39,31 +38,6 @@ VARIANTS = {
 }
 
 
-def build(names):
-    from cmh_torch.ops import _build
-
-    src = (_build.CSRC / "attention.cu").read_text()
-    out = _build.BUILD_DIR.parent / "attention_variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        text = src
-        for old, new in VARIANTS[name]:
-            if old not in text:
-                raise ValueError(f"{name}: edit target not in attention.cu: {old[:60]!r}")
-            text = text.replace(old, new)
-        cu = out / f"{name}.cu"
-        cu.write_text(text)
-        so = out / f"{name}.so"
-        log = open(out / f"{name}.log", "w")
-        procs[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                                         str(cu)], stdout=log, stderr=subprocess.STDOUT), so)
-    for name, (p, so) in procs.items():
-        if p.wait() != 0:
-            raise RuntimeError(f"nvcc failed for {name}: {(out / f'{name}.log').read_text()[-3000:]}")
-    return {name: so for name, (_, so) in procs.items()}
-
-
 def main(argv=None) -> int:
     import torch
 
@@ -75,7 +49,8 @@ def main(argv=None) -> int:
         print("attention_variants: no CUDA device", file=sys.stderr)
         return 2
     names = (argv if argv is not None else sys.argv[1:]) or list(VARIANTS)
-    libs = build(names)
+    libs = _variants.build((_build.CSRC / "attention.cu").read_text(), VARIANTS, names,
+                           "attention_variants")
     print(cs.smi_line(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -88,17 +63,9 @@ def main(argv=None) -> int:
                 mask, _, bias, _ = cs.text_masks(torch, gen, n, s)
             cases.append((f"{tower}-{'bwd' if bwd else 'fwd'}", bwd, (q, k, v, 64**-0.5, mask, bias), do))
 
-    def off(got, want):
-        try:
-            return cs.bf16_steps_checked(got, want, "").split()[0]
-        except AssertionError:
-            return "fails the check"
-
-    load = _build.load
-    try:
-        for name, so in libs.items():
-            lib = ctypes.CDLL(os.path.abspath(so))
-            _build.load = lambda _name, lib=lib: lib
+    off = _variants.bf16_off
+    for name, so in libs.items():
+        with _variants.swapped(so):
             row = {}
             for case, bwd, args, do in cases:
                 if bwd:
@@ -111,8 +78,6 @@ def main(argv=None) -> int:
                     ms = cs.cuda_ms(lambda: A._launch(*args))
                     row[case] = (round(ms, 5), off(got, want))
             print(name, row, flush=True)
-    finally:
-        _build.load = load
     return 0
 
 

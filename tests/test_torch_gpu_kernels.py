@@ -58,10 +58,91 @@ def test_layernorm_kernel_matches_plain(cuda, rows, d, dtype):
     torch.cuda.synchronize()
     assert fused_layernorm.launches == before + 1
     ref = layernorm_plain(x, gamma, beta)
-    # fp32: summation order only; bf16: at most one rounding step of the output
-    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
-        dict(rtol=2**-7, atol=2e-2)
-    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    # fp32: summation order only; bf16: fp32 in both, rounded once
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert_within_one_bf16_step(out, ref)
+
+
+def _grid_rows(x, bwd):
+    """Rows one pass of the persistent grid covers: one a warp."""
+    import cmh_torch.ops.layernorm as L
+
+    lib = L._lib()
+    return L._grid(lib, x, bwd) * lib.cmh_layernorm_warps_per_block(int(bwd))
+
+
+@pytest.mark.parametrize("d", [64, 512, 768, 1024])
+@pytest.mark.parametrize("rows", [1, 7, "grid+1", 12800])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layernorm_kernels_at_the_persistent_loop_edges(cuda, rows, d, dtype):
+    """Forward and backward at row counts below one warp a block, one past a
+    full pass of the persistent grid (one warp takes a second row) and the
+    image tower's at the serving batch; the forward is deterministic."""
+    from cmh_torch.ops.layernorm import (fused_layernorm, layernorm_bwd, layernorm_bwd_plain,
+                                         layernorm_plain)
+
+    probe = torch.zeros(1, d, dtype=dtype, device=cuda)
+    n = {"grid+1": max(_grid_rows(probe, False), _grid_rows(probe, True)) + 1}.get(rows, rows)
+    g = torch.Generator().manual_seed(n + d)
+    x = (torch.randn(n, d, generator=g) * 3 + 1).to(dtype).to(cuda)
+    dout = torch.randn(n, d, generator=g).to(dtype).to(cuda)
+    gamma, beta = (torch.randn(d, generator=g).to(cuda) for _ in range(2))
+    out = fused_layernorm(x, gamma, beta)
+    got = layernorm_bwd(x, gamma, dout)
+    torch.cuda.synchronize()
+    want, want_b = layernorm_plain(x, gamma, beta), layernorm_bwd_plain(x, gamma, dout)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got[0], want_b[0], rtol=1e-4, atol=1e-4)
+    else:
+        assert_within_one_bf16_step(out, want)
+        assert_within_one_bf16_step(got[0], want_b[0])
+    for a, w in zip(got[1:], want_b[1:]):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-3)
+    assert torch.equal(fused_layernorm(x, gamma, beta), out)
+
+
+def test_layernorm_kernels_at_the_widest_bf16_row(cuda):
+    """d = 2048 in bf16, 8 vectors a lane: the backward's block partial needs
+    more than 48 KB of shared memory, which its launch opts into."""
+    from cmh_torch.ops.layernorm import (fused_layernorm, layernorm_bwd, layernorm_bwd_plain,
+                                         layernorm_plain)
+
+    g = torch.Generator().manual_seed(2048)
+    x = (torch.randn(300, 2048, generator=g) * 3 + 1).bfloat16().to(cuda)
+    dout = torch.randn(300, 2048, generator=g).bfloat16().to(cuda)
+    gamma, beta = (torch.randn(2048, generator=g).to(cuda) for _ in range(2))
+    assert_within_one_bf16_step(fused_layernorm(x, gamma, beta), layernorm_plain(x, gamma, beta))
+    got, want = layernorm_bwd(x, gamma, dout), layernorm_bwd_plain(x, gamma, dout)
+    assert_within_one_bf16_step(got[0], want[0])
+    for a, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-3)
+
+
+def test_layernorm_bwd_barrier_resets_between_calls(cuda):
+    """The backward's grid barrier counts blocks in a word that each launch
+    leaves at zero: calls of different row counts (so different grids) in a
+    row give the plain version's sums, and a rerun gives the same bits."""
+    from cmh_torch.ops.layernorm import layernorm_bwd, layernorm_bwd_plain
+
+    g = torch.Generator().manual_seed(4)
+    gamma = torch.randn(768, generator=g).to(cuda)
+    cases = {}
+    for n in (5000, 3, 37, 1):
+        x = (torch.randn(n, 768, generator=g) * 3 + 1).bfloat16().to(cuda)
+        cases[n] = (x, torch.randn(n, 768, generator=g).bfloat16().to(cuda))
+    order = (5000, 3, 37, 5000, 1, 5000)
+    results = [layernorm_bwd(cases[n][0], gamma, cases[n][1]) for n in order]
+    torch.cuda.synchronize()
+    for n, got in zip(order, results):
+        want = layernorm_bwd_plain(cases[n][0], gamma, cases[n][1])
+        assert_within_one_bf16_step(got[0], want[0])
+        for a, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-3)
+    for rerun in (results[3], results[5]):
+        assert all(torch.equal(a, b) for a, b in zip(rerun, results[0]))
 
 
 @pytest.mark.parametrize("b,h,s,hd", [(3, 12, 50, 64), (5, 8, 32, 64),
