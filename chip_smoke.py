@@ -12,8 +12,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 3. each kernel against its plain PyTorch version, with its time beside the
    plain version's, one PyTorch library call's and the card's bound (the
    attention kernels also once on the head views of a packed projection,
-   which they read in place; the LayerNorm kernels also with a cold L2,
-   ``cold_ms``): the forward kernels and K4 at the serving path's shapes
+   which they read in place; K1, K3 and K4 also with a cold L2,
+   ``cold_ms``; K3-ap also run twice for the same bits): the forward
+   kernels and K4 at the serving path's shapes
    (batch 256), K1-fwd also at the training step's, the backward kernels
    at the training step's (batch 100), and the mAP
    kernels at coco scale (4 directions of 1,024-query chunks against
@@ -274,6 +275,7 @@ def check_hamming(torch, gen):
             cuda_ms(lambda: hamming_plain(q, g, bits=bits), iters=3, warmup=1),
             None,   # no single PyTorch call computes a packed popcount distance
             (nq + ng) * w * 4 + nq * ng, 3 * nq * ng * w, "fp32"))
+        rows[-1]["cold_ms"] = cold_ms(lambda a, b: hamming_packed(a, b, bits=bits), (q, g))
     return rows
 
 
@@ -376,46 +378,56 @@ def coco_codes(torch, gen, nq, n, bits):
 def check_map(torch, gen):
     from cmh_torch.ops.map_bucketed import calc_map_k_4dir
     from cmh_torch.ops.map_kernel import (map_ap, map_ap_plain, map_hist, map_hist_plain,
-                                          pack_words, query_chunk, rank_counts)
+                                          pack_words, query_chunk, rank_counts, segment_len)
     from cmh_torch.ops.metrics import calc_label_sim
 
     rows, runs = [], []
     for bits, n in ((16, COCO_N), (64, COCO_N), (1024, 20_000)):
-        chunk = query_chunk(bits)
+        chunk, seg = query_chunk(bits), segment_len(bits)
         qi, qt, ri, rt, ql, rl = coco_codes(torch, gen, chunk, n, bits)
         gnd = calc_label_sim(ql, rl)
         words = torch.cat([pack_words(a, b, gnd, bits)
                            for a, b in ((qi, rt), (qt, ri), (qi, ri), (qt, rt))])
         sl = words[:1024].contiguous()          # the comparison slice, Q = 1,024
         q, wsize, v = sl.shape[0], sl.element_size(), bits + 1
-        hist, rhist = map_hist(sl, bits)
-        ph, prh = map_hist_plain(sl, bits)
+        hist, rhist = map_hist(sl, bits, seg)
+        ph, prh = map_hist_plain(sl, bits, seg)
         torch.cuda.synchronize()
         if not (torch.equal(hist, ph) and torch.equal(rhist, prh)):
             raise AssertionError(f"K3-hist histograms differ from plain at {bits} bits")
-        less, less_r, total = rank_counts(hist, rhist, None)
-        ap, pap = map_ap(sl, less, less_r, total), map_ap_plain(sl, less, less_r, total)
+        start, start_r, total = rank_counts(hist, rhist, None)
+        ap = map_ap(sl, start, start_r, total, seg)
+        pap = map_ap_plain(sl, start, start_r, total, seg)
+        again = map_ap(sl, start, start_r, total, seg)
         torch.cuda.synchronize()
         t = torch.clamp(total.double(), min=1.0)
         err = ((ap - pap) / t).abs().max().item()
         # identical fp32 quotients, fp64 sums in another order
         if not err <= 1e-12:
             raise AssertionError(f"K3-ap per-query AP differs by {err} at {bits} bits")
-        shape = f"Q={q} N={n} {bits}-bit " + ("uint8" if wsize == 1 else "int16")
+        if not torch.equal(ap, again):
+            raise AssertionError(f"K3-ap gave other bits on a rerun at {bits} bits")
+        shape = (f"Q={q} N={n} {bits}-bit " + ("uint8" if wsize == 1 else "int16")
+                 + f", {hist.shape[1]} segments of {seg}")
         rows.append(entry(
             "map_hist", "cmh_torch/csrc/map.cu", "cmh_tpu/ops/map_pallas.py:110", shape,
-            0.0, cuda_ms(lambda: map_hist(sl, bits), iters=10, warmup=2),
-            cuda_ms(lambda: map_hist_plain(sl, bits), iters=3, warmup=1),
+            0.0, cuda_ms(lambda: map_hist(sl, bits, seg), iters=10, warmup=2),
+            cuda_ms(lambda: map_hist_plain(sl, bits, seg), iters=3, warmup=1),
             None,   # no single PyTorch call computes it
             q * n * wsize + 2 * q * v * 4, 2 * q * n, "fp32"))
+        rows[-1]["cold_ms"] = cold_ms(lambda w: map_hist(w, bits, seg), (sl,), iters=10)
         rows.append(entry(
             "map_ap", "cmh_torch/csrc/map.cu", "cmh_tpu/ops/map_pallas.py:129", shape,
-            err, cuda_ms(lambda: map_ap(sl, less, less_r, total), iters=10, warmup=2),
-            cuda_ms(lambda: map_ap_plain(sl, less, less_r, total), iters=2, warmup=1),
+            err, cuda_ms(lambda: map_ap(sl, start, start_r, total, seg), iters=10, warmup=2),
+            cuda_ms(lambda: map_ap_plain(sl, start, start_r, total, seg), iters=2, warmup=1),
             None, q * n * wsize + 2 * q * v * 4 + q * 12, 4 * q * n, "fp32"))
-        counts = rank_counts(*map_hist(words, bits), None)
-        full = (cuda_ms(lambda: map_hist(words, bits), iters=5, warmup=1),
-                cuda_ms(lambda: map_ap(words, *counts), iters=5, warmup=1))
+        rows[-1]["cold_ms"] = cold_ms(lambda w, a, b, c: map_ap(w, a, b, c, seg),
+                                      (sl, start, start_r, total), iters=10)
+        counts = rank_counts(*map_hist(words, bits, seg), None)
+        full = (cuda_ms(lambda: map_hist(words, bits, seg), iters=5, warmup=1),
+                cuda_ms(lambda: rank_counts(*map_hist(words, bits, seg), None), iters=5,
+                        warmup=1),
+                cuda_ms(lambda: map_ap(words, *counts, seg), iters=5, warmup=1))
         del words, sl, gnd, counts
         # the whole 4-direction eval of 5,000 queries (host clock, packing included)
         nq = COCO_Q if n == COCO_N else 1_000
@@ -426,8 +438,9 @@ def check_map(torch, gen):
         maps = calc_map_k_4dir(*data)
         torch.cuda.synchronize()
         runs.append({"bits": bits, "queries": nq, "items": n,
-                     "chunk_words": [4 * chunk, n], "chunk_hist_ms": full[0],
-                     "chunk_ap_ms": full[1],
+                     "chunk_words": [4 * chunk, n], "segment_len": seg,
+                     "chunk_hist_ms": full[0], "chunk_hist_and_counts_ms": full[1],
+                     "chunk_ap_ms": full[2],
                      "eval_4dir_s": time.perf_counter() - t0,
                      "maps": [round(m, 6) for m in maps]})
         print(f"[map] {runs[-1]}", flush=True)

@@ -49,7 +49,7 @@ def main(argv: Optional[list] = None):
     if args.distribute:
         raise NotImplementedError(
             "--distribute is not ported to cmh_torch yet (ROADMAP.md Queue 1, "
-            "item 11 'Multi-GPU')")
+            "'Multi-GPU')")
     from . import resolve_device
     from .registry import load_components
 

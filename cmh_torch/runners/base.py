@@ -34,7 +34,7 @@ from ..utils.seed import set_seed
 
 # run key → (values that leave the feature off, the ROADMAP item that ports it)
 _CKPT = "ROADMAP.md Queue 1, 'Checkpoints, auto-resume and the SIGTERM save'"
-_MULTI = "ROADMAP.md Queue 1, item 11 'Multi-GPU'"
+_MULTI = "ROADMAP.md Queue 1, 'Multi-GPU'"
 UNPORTED_RUN_KEYS = {
     "checkpoint_every": ((None, 0, False), _CKPT),
     "resume_checkpoint": ((None, "", False), _CKPT),
@@ -42,7 +42,7 @@ UNPORTED_RUN_KEYS = {
     "distribute": ((None, 0, False), _MULTI),
     "multi_host": ((None, 0, False), _MULTI),
     "tp": ((None, 1), _MULTI),
-    "profile_dir": ((None, ""), "ROADMAP.md Queue 1, item 12 'Tools' (torch.profiler)"),
+    "profile_dir": ((None, ""), "ROADMAP.md Queue 1, 'The run keys remat and profile_dir'"),
     "remat": ((None, 0, False), "not ported: activation rematerialisation"),
 }
 

@@ -386,34 +386,66 @@ def test_autograd_reaches_the_kernels(cuda):
         assert t.grad is not None and torch.isfinite(t.grad).all()
 
 
-@pytest.mark.parametrize("bits,n,k", [(4, 3000, None), (16, 5000, None),
-                                      (64, 4097, 50), (127, 1000, None),
-                                      (1024, 700, None), (4094, 257, 5)])
-def test_map_kernels_match_plain(cuda, bits, n, k):
+@pytest.mark.parametrize("bits,n,k,rows,seg_len", [
+    (4, 3000, None, 70, None),      # rows start 8 bytes off a 16-byte boundary; n < L
+    (4, 300, None, 70, 1),          # one item a segment
+    (16, 5000, None, 70, None),     # two segments, the second ragged; rows unaligned
+    (16, 8192, None, 70, None),     # n an exact multiple of L = 4096
+    (16, 3000, None, 70, 33),       # odd L: every segment starts unaligned
+    (16, 20000, None, 4096, None),  # a 4,096-row chunk, five segments
+    (64, 4097, 50, 70, None),       # L = 4096: the second segment holds one item
+    (64, 3000, 50, 70, 512),        # one tile a segment
+    (127, 1000, None, 70, None),
+    (1024, 700, None, 70, None),
+    (1024, 700, None, 70, 256),
+    (4094, 257, 5, 70, None),
+    (4094, 70000, None, 16, None),  # five segments of 16,384
+    (4, 140000, None, 16, 65535),   # three segments, two of the longest length
+])
+def test_map_kernels_match_plain(cuda, bits, n, k, rows, seg_len):
     from cmh_torch.ops.map_kernel import (map_ap, map_ap_plain, map_hist,
                                           map_hist_plain, pack_words, rank_counts)
     from cmh_torch.ops.metrics import calc_label_sim
 
     rng = np.random.RandomState(bits + n)
-    q = torch.from_numpy(rng.choice([-1.0, 1.0], (70, bits)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.choice([-1.0, 1.0], (rows, bits)).astype(np.float32)).to(cuda)
     r = torch.from_numpy(rng.choice([-1.0, 1.0], (n, bits)).astype(np.float32)).to(cuda)
-    ql = torch.from_numpy((rng.rand(70, 6) > 0.7).astype(np.float32)).to(cuda)
+    ql = torch.from_numpy((rng.rand(rows, 6) > 0.7).astype(np.float32)).to(cuda)
     rl = torch.from_numpy((rng.rand(n, 6) > 0.7).astype(np.float32)).to(cuda)
     ql[:3] = 0                      # queries with no relevant item
     words = pack_words(q, r, calc_label_sim(ql, rl), bits)
     before = (map_hist.launches, map_ap.launches)
-    hist, rhist = map_hist(words, bits)
+    hist, rhist = map_hist(words, bits, seg_len)
     torch.cuda.synchronize()
-    ph, prh = map_hist_plain(words, bits)
+    ph, prh = map_hist_plain(words, bits, seg_len)
+    assert hist.shape == ph.shape
     assert torch.equal(hist, ph) and torch.equal(rhist, prh)      # exact
-    less, less_r, total = rank_counts(hist, rhist, k)
-    ap = map_ap(words, less, less_r, total)
+    start, start_r, total = rank_counts(hist, rhist, k)
+    ap = map_ap(words, start, start_r, total, seg_len)
     torch.cuda.synchronize()
     assert (map_hist.launches, map_ap.launches) == (before[0] + 1, before[1] + 1)
     # identical fp32 quotients, fp64 sums in another order
-    torch.testing.assert_close(ap, map_ap_plain(words, less, less_r, total),
+    torch.testing.assert_close(ap, map_ap_plain(words, start, start_r, total, seg_len),
                                rtol=1e-12, atol=1e-12)
     assert float(ap[:3].abs().sum()) == 0.0
+    # no float atomics, partial sums added in a fixed order: the same bits again
+    assert torch.equal(map_ap(words, start, start_r, total, seg_len), ap)
+
+
+def test_map_hist_counts_a_full_segment_of_one_bucket(cuda):
+    """K3-hist keeps a segment's counts of all and of relevant items in the
+    two 16-bit halves of one counter: 65,535 relevant items in one bucket
+    fill both halves, and a longer segment is refused."""
+    from cmh_torch.ops.map_kernel import map_hist
+
+    words = torch.full((3, 2 * 65535 + 5), 2 * 7 + 1, dtype=torch.uint8, device=cuda)
+    hist, rhist = map_hist(words, 16, 65535)
+    torch.cuda.synchronize()
+    want = torch.zeros((3, 3, 17), dtype=torch.int32, device=cuda)
+    want[:, :, 7] = torch.tensor([65535, 65535, 5], dtype=torch.int32, device=cuda)
+    assert torch.equal(hist, want) and torch.equal(rhist, want)
+    with pytest.raises(ValueError, match="segments of 1 to 65535"):
+        map_hist(words, 16, 65536)
 
 
 def test_map_4dir_kernel_matches_numpy(cuda):

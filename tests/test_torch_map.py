@@ -84,17 +84,18 @@ def test_histograms_and_totals_are_exact(bits):
     words = pack_words(torch.from_numpy(qi), torch.from_numpy(ri), gnd, bits)
     assert words.dtype == (torch.uint8 if bits <= 126 else torch.int16)
     hist, rhist = map_hist(words, bits)        # a CPU tensor: the plain version
+    assert hist.shape == rhist.shape == (len(qi), 1, bits + 1)   # 97 items: one segment
     d = (0.5 * (bits - qi @ ri.T)).astype(np.int64)
     g = ((ql @ rl.T) > 0).astype(np.int64)
     for i in range(len(qi)):
-        np.testing.assert_array_equal(hist[i].numpy(), np.bincount(d[i], minlength=bits + 1))
-        np.testing.assert_array_equal(rhist[i].numpy(),
+        np.testing.assert_array_equal(hist[i, 0].numpy(), np.bincount(d[i], minlength=bits + 1))
+        np.testing.assert_array_equal(rhist[i, 0].numpy(),
                                       np.bincount(d[i], weights=g[i], minlength=bits + 1))
-    less, less_r, total = rank_counts(hist, rhist, k=10)
+    start, start_r, total = rank_counts(hist, rhist, k=10)
     np.testing.assert_array_equal(total.numpy(), np.minimum(g.sum(1), 10))
-    np.testing.assert_array_equal(less[:, 0].numpy(), 0)
-    np.testing.assert_array_equal((less + hist)[:, -1].numpy(), len(ri))
-    ap = map_ap(words, less, less_r, total)
+    np.testing.assert_array_equal(start[:, 0, 0].numpy(), 0)
+    np.testing.assert_array_equal((start + hist)[:, 0, -1].numpy(), len(ri))
+    ap = map_ap(words, start, start_r, total)
     assert ap.dtype == torch.float64 and float(ap[0]) == 0.0     # no relevant item
 
 
