@@ -13,10 +13,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    plain version's, one PyTorch library call's and the card's bound (the
    attention kernels also once on the head views of a packed projection,
    which they read in place; K1, K3 and K4 also with a cold L2,
-   ``cold_ms``; K3-ap also run twice for the same bits): the forward
-   kernels and K4 at the serving path's shapes
+   ``cold_ms``; K3-ap also run twice for the same bits; K4 also beside its
+   popcount floor): the forward kernels at the serving path's shapes
    (batch 256), K1-fwd also at the training step's, the backward kernels
-   at the training step's (batch 100), and the mAP
+   at the training step's (batch 100), K4 at 64 queries against 2^20 + 777
+   items (16 and 64 bits), a request's 4 queries against 2^20 (16 bits)
+   and 64 against 2^18 at 1,024 bits (int32), and the mAP
    kernels at coco scale (4 directions of 1,024-query chunks against
    110,000 items, 80 classes, 16 and 64 bits, and 1,024 bits at 20,000);
 4. the full-width ViT-B/32 DCMHT model in fp32 on the card (kernels) and on
@@ -29,7 +31,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    a 16-bit index past 2^20 items, start ``cmh_torch.server`` on a local
    port and answer requests over HTTP; every answer must equal the top-k
    of the same query from a CPU copy of the index (plain Hamming), and the
-   kernels' launch counters must show the path went through them;
+   kernels' launch counters must show the path went through them; then one
+   line splits a 4-query search's device time into K4 and the rest;
 8. training through the CLI entry point (``cmh_torch.main``) on
    ``configs/DCMHT/synthetic_tpu.yaml`` for 2 epochs at full width in bf16
    (12 steps and 2 ``valid``s): finite losses, the model and ``.mat``
@@ -252,30 +255,49 @@ def check_attention(torch, gen):
     return rows
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, from nvidia-smi (MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+POPC_PER_CLOCK_PER_SM = 16       # __popc on compute capability 9.0, a quarter of XOR's rate
+
+
 def check_hamming(torch, gen):
     from cmh_torch.ops.hamming import hamming_packed, hamming_plain
     from cmh_torch.ops.hashing import pack_bits
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    popc_per_s = sms * POPC_PER_CLOCK_PER_SM * sm_clock_hz()
     rows = []
-    nq, ng = 64, (1 << 20) + 777
-    for bits in (16, 64):
+    # chip_smoke's two K4 shapes first, then a serving request's (4 queries
+    # against a 2^20 block) and the int32 path at 1,024 bits
+    for nq, ng, bits in ((64, (1 << 20) + 777, 16), (64, (1 << 20) + 777, 64),
+                         (4, 1 << 20, 16), (64, 1 << 18, 1024)):
         def codes(n):
             return torch.randint(0, 2, (n, bits), generator=gen, device="cuda").float() * 2 - 1
-        q, g = pack_bits(codes(nq)), pack_bits(codes(ng))
+        qf, gf = codes(nq), codes(ng)
+        q, g = pack_bits(qf), pack_bits(gf)
         w = q.shape[1]
         out, ref = hamming_packed(q, g, bits=bits), hamming_plain(q, g, bits=bits)
         torch.cuda.synchronize()
         if out.dtype != ref.dtype or not torch.equal(out, ref):
-            raise AssertionError(f"hamming kernel differs from plain at {bits} bits")
+            raise AssertionError(f"hamming kernel differs from plain at Q={nq} N={ng} {bits} bits")
         rows.append(entry(
             "hamming", "cmh_torch/csrc/hamming.cu",
-            "cmh_tpu/ops/hamming_pallas.py:42", f"Q={nq} N={ng} {bits}-bit -> uint8",
-            0.0,
+            "cmh_tpu/ops/hamming_pallas.py:42",
+            f"Q={nq} N={ng} {bits}-bit -> {str(out.dtype).split('.')[-1]}", 0.0,
             cuda_ms(lambda: hamming_packed(q, g, bits=bits)),
             cuda_ms(lambda: hamming_plain(q, g, bits=bits), iters=3, warmup=1),
-            None,   # no single PyTorch call computes a packed popcount distance
-            (nq + ng) * w * 4 + nq * ng, 3 * nq * ng * w, "fp32"))
+            # the same distances from the unpacked ±1 codes
+            cuda_ms(lambda: torch.cdist(qf, gf, p=0), iters=5, warmup=1),
+            (nq + ng) * w * 4 + nq * ng * out.element_size(), 3 * nq * ng * w, "fp32"))
         rows[-1]["cold_ms"] = cold_ms(lambda a, b: hamming_packed(a, b, bits=bits), (q, g))
+        rows[-1]["popc_floor_ms"] = nq * ng * w / popc_per_s * 1e3
+        del qf, gf, q, g, out, ref
     return rows
 
 
@@ -902,7 +924,29 @@ def serving(torch, counters):
     if answers[self_query]["dist"][0][0] != 0:
         raise AssertionError("a gallery item's own code did not come back at distance 0")
     print(f"[serving] all {len(asked)} answers equal the plain top-k", flush=True)
+    search_split(torch, index._gallery(), rng)
     return launches
+
+
+def search_split(torch, gallery, rng):
+    """Device time of one 4-query search over the whole index: K4 on both
+    gallery blocks, against ``topk_blocked`` whole (K4, the int64 keys and
+    the ``torch.topk`` merge). Printed, not a metric."""
+    import numpy as np
+
+    from cmh_torch.ops.hamming import hamming_packed
+    from cmh_torch.ops.hashing import pack_bits
+    from cmh_torch.serving import _DEVICE_BLOCK, topk_blocked
+
+    q = pack_bits(torch.from_numpy(
+        rng.choice([-1.0, 1.0], (4, CODE_BITS)).astype(np.float32)).to("cuda"))
+    n = gallery.shape[0]
+    blocks = [gallery[s:s + _DEVICE_BLOCK] for s in range(0, n, _DEVICE_BLOCK)]
+    k4 = cuda_ms(lambda: [hamming_packed(q, b, bits=CODE_BITS) for b in blocks])
+    whole = cuda_ms(lambda: topk_blocked(q, gallery, 10, _DEVICE_BLOCK, CODE_BITS))
+    print(f"[serving] one search of 4 queries over {n} items, device ms: K4 on the "
+          f"{len(blocks)} blocks {k4:.5f}; topk_blocked whole {whole:.5f}; keys and "
+          f"merge {whole - k4:.5f}", flush=True)
 
 
 def main() -> int:
@@ -947,10 +991,11 @@ def main() -> int:
         map_rows, _ = check_map(torch, gen)
         rows += map_rows
         for r in rows:
-            cold = f" cold {r['cold_ms']:.4f}" if "cold_ms" in r else ""
+            cold = f" cold {r['cold_ms']:.5f}" if "cold_ms" in r else ""
+            popc = f" popcount floor {r['popc_floor_ms']:.5f}" if "popc_floor_ms" in r else ""
             print(f"[kernel] {r['name']} {r['shape']}: err {r['max_abs_err']:.3g} "
-                  f"ms {r['ms']:.4f}{cold} plain {r['plain_ms']:.4f} library {r['library_ms']} "
-                  f"bound {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+                  f"ms {r['ms']:.5f}{cold} plain {r['plain_ms']:.4f} library {r['library_ms']} "
+                  f"bound {r['bound_ms']:.5f} ({r['bound_by']}){popc}", flush=True)
 
         model_parity(torch)
         grad_parity(torch)
@@ -979,7 +1024,8 @@ def main() -> int:
             if r["name"] in seen:
                 seen[r["name"]].setdefault("shapes", []).append(
                     {k: r[k] for k in ("shape", "max_abs_err", "ms", "cold_ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms") if k in r})
+                                       "bound_ms", "bound_by", "popc_floor_ms", "library_ms")
+                     if k in r})
             else:
                 seen[r["name"]] = r
                 kernels.append(r)

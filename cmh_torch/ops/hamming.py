@@ -6,19 +6,30 @@ tensors holding uint32 bit patterns (``ops/hashing.py``). The output is
 uint8 when the true code length ``bits`` is at most 255 (which includes
 225–255-bit codes padded to 8 words) and int32 above that; torch's uint16
 lacks most operations. A CUDA tensor launches the hand-written kernel in
-``csrc/hamming.cu``; a CPU tensor takes ``hamming_plain``.
+``csrc/hamming.cu``; a CPU tensor takes ``hamming_plain``. The kernel reads
+any 4-byte-aligned gallery view (a row slice of a larger gallery) in place
+and writes every output row at whatever alignment it starts; the wrapper
+only chooses how many queries a block takes (``query_tile``), from the
+launch geometry the library reports for the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
-_MAX_WORDS = 384        # query tile of 32 rows in 48 KB of shared memory
+_MAX_WORDS = 384
 _MAX_QUERIES = 65535 * 32
+# the query tile (query_tile); _SUB_Q and _MAX_TILE_Q are csrc/hamming.cu's
+# kSubQ and kMaxTileQ
+_SUB_Q = 8
+_MAX_TILE_Q = 64              # one tile covers a request's queries
+_TILE_Q_WORDS = 16384         # a block's query words, at most 64 KB of shared memory
+_WAVES = 1.0                  # split queries until the grid fills this many resident waves
 
 
 def out_dtype(bits: int, words: int) -> torch.dtype:
@@ -45,26 +56,63 @@ def hamming_plain(q_packed: torch.Tensor, g_packed: torch.Tensor,
 
 
 def _lib():
-    fn = _build.load("hamming").cmh_hamming
-    if fn.argtypes is None:
+    lib = _build.load("hamming")
+    if lib.cmh_hamming.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, p]
-        fn.restype = i
-    return fn
+        lib.cmh_hamming.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.cmh_hamming.restype = i
+        lib.cmh_hamming_geometry.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        lib.cmh_hamming_geometry.restype = None
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry(lib, index: int, out_u8: bool, words: int):
+    """(gallery rows a block, blocks the card holds at once) of the kernel
+    for (out_u8, words): the SM count times the blocks an SM holds, at the
+    largest query tile's shared memory."""
+    geo = (ctypes.c_int * 2)()
+    lib.cmh_hamming_geometry(int(out_u8), words, _tile_cap(words), index, geo)
+    if geo[1] < 1:
+        raise RuntimeError(f"hamming: no resident block for {words} words")
+    return geo[0], geo[1] * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tile_cap(words: int) -> int:
+    return max(_SUB_Q, min(_MAX_TILE_Q, _TILE_Q_WORDS // words // _SUB_Q * _SUB_Q))
+
+
+def query_tile(nq: int, ng: int, words: int, rows_per_block: int, resident: int) -> int:
+    """Queries a block takes (grid.y is ceil(nq / tile)): all of them up to
+    64, fewer for codes so wide that their words would pass 64 KB, halved
+    (not below 8) while the grid of ``rows_per_block``-row gallery tiles has
+    fewer blocks than ``_WAVES`` times the ``resident`` blocks the card
+    holds at once."""
+    tile = min(nq, _tile_cap(words))
+    blocks_x = -(-ng // rows_per_block)
+    while tile > _SUB_Q and blocks_x * -(-nq // tile) < _WAVES * resident:
+        tile = max(_SUB_Q, tile // 2)
+    return tile
 
 
 def _launch(q: torch.Tensor, g: torch.Tensor, bits: int) -> torch.Tensor:
     nq, w = q.shape
     ng = g.shape[0]
-    if w > _MAX_WORDS or nq > _MAX_QUERIES:
-        raise ValueError(f"hamming kernel takes at most {_MAX_WORDS} words "
-                         f"and {_MAX_QUERIES} queries, got {w} and {nq}")
+    if w > _MAX_WORDS or nq > _MAX_QUERIES or ng > 2**31 - 1:
+        raise ValueError(f"hamming kernel takes at most {_MAX_WORDS} words, "
+                         f"{_MAX_QUERIES} queries and 2^31 - 1 gallery rows, "
+                         f"got {w}, {nq} and {ng}")
+    # a row slice of the gallery stays a view: the kernel reads any
+    # 4-byte-aligned start
     q, g = q.contiguous(), g.contiguous()
     dt = out_dtype(bits, w)
+    u8 = dt == torch.uint8
     out = torch.empty((nq, ng), dtype=dt, device=q.device)
-    rc = _lib()(q.data_ptr(), g.data_ptr(), out.data_ptr(), nq, ng, w,
-                int(dt == torch.uint8), q.device.index or 0,
-                torch.cuda.current_stream(q.device).cuda_stream)
+    index = q.device.index or 0
+    lib = _lib()
+    tile = query_tile(nq, ng, w, *_geometry(lib, index, u8, w))
+    rc = lib.cmh_hamming(q.data_ptr(), g.data_ptr(), out.data_ptr(), nq, ng, w, int(u8), tile,
+                         index, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "hamming")
     hamming_packed.launches += 1
     return out

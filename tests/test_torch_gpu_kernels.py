@@ -175,20 +175,110 @@ def test_attention_kernel_matches_plain(cuda, b, h, s, hd, masks, dtype):
         assert_within_one_bf16_step(out, ref)
 
 
-@pytest.mark.parametrize("bits", [16, 64, 225, 256, 1024])
-def test_hamming_kernel_matches_plain(cuda, bits):
-    from cmh_torch.ops.hamming import hamming_packed, hamming_plain
+def _packed(rng, n, bits, cuda):
     from cmh_torch.ops.hashing import pack_bits
 
-    rng = np.random.RandomState(bits)
-    qc = torch.from_numpy(rng.choice([-1.0, 1.0], (45, bits)).astype(np.float32))
-    gc = torch.from_numpy(rng.choice([-1.0, 1.0], (1000, bits)).astype(np.float32))
-    q, gal = pack_bits(qc).to(cuda), pack_bits(gc).to(cuda)
+    codes = rng.choice([-1.0, 1.0], (n, bits)).astype(np.float32)
+    return pack_bits(torch.from_numpy(codes)).to(cuda)
+
+
+def _hamming_checked(q, gal, bits):
+    """K4 on the card, bit-equal to the plain version, one launch."""
+    from cmh_torch.ops.hamming import hamming_packed, hamming_plain
+
+    before = hamming_packed.launches
     out = hamming_packed(q, gal, bits=bits)
     torch.cuda.synchronize()
+    assert hamming_packed.launches == before + 1
     ref = hamming_plain(q, gal, bits=bits)
-    assert out.dtype == ref.dtype == (torch.uint8 if bits <= 255 else torch.int32)
+    assert out.dtype == ref.dtype and out.is_contiguous()
     assert torch.equal(out, ref)
+    return out
+
+
+# 16, 32: one word (uint8, words in registers); 64: two; 96, 225: uint8 words
+# walked from shared memory; 256: eight words to int32 (registers); 1024 and
+# 2048: int32 walked from shared memory, 2048 in two chunks
+@pytest.mark.parametrize("bits", [16, 32, 64, 96, 225, 256, 1024, 2048])
+def test_hamming_kernel_matches_plain(cuda, bits):
+    rng = np.random.RandomState(bits)
+    out = _hamming_checked(_packed(rng, 45, bits, cuda), _packed(rng, 1000, bits, cuda), bits)
+    assert out.dtype == (torch.uint8 if bits <= 255 else torch.int32)
+
+
+@pytest.mark.parametrize("bits", [16, 64, 96, 256, 1024])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4873])
+@pytest.mark.parametrize("nq", [1, 3, 4, 33, 64, 65])
+def test_hamming_kernel_at_query_and_gallery_edges(cuda, nq, n, bits):
+    """Fewer rows than one thread's 16 (or 4), one warp cut short, a last
+    tile cut short; one query, a query tile of 64 and one past it, and
+    galleries so small that the wrapper splits the queries."""
+    rng = np.random.RandomState(nq * 7919 + n + bits)
+    _hamming_checked(_packed(rng, nq, bits, cuda), _packed(rng, n, bits, cuda), bits)
+
+
+@pytest.mark.parametrize("bits", [16, 256])
+@pytest.mark.parametrize("n_mod", range(16))
+def test_hamming_kernel_at_every_output_row_alignment(cuda, n_mod, bits):
+    """N mod 16 = 0..15: output row q starts q·N·size bytes in, so with 19
+    queries the rows start at many alignments mod 16 (every one for odd N)."""
+    rng = np.random.RandomState(n_mod + bits)
+    n = 4096 + 512 + n_mod
+    _hamming_checked(_packed(rng, 19, bits, cuda), _packed(rng, n, bits, cuda), bits)
+
+
+@pytest.mark.parametrize("bits", [16, 64, 96, 256, 1024])
+@pytest.mark.parametrize("start", [1, 3, 7])
+def test_hamming_kernel_reads_gallery_views_in_place(cuda, start, bits):
+    """A row slice of the gallery (as the blocked search makes) starts
+    4·W·start bytes into its allocation, off a 16-byte boundary for W = 1, 2
+    and 3; the kernel reads it as it is, as it does a sliced query block."""
+    rng = np.random.RandomState(start + bits)
+    gal, q = _packed(rng, 3000 + start, bits, cuda), _packed(rng, 9 + start, bits, cuda)
+    gv, qv = gal[start:], q[start:]
+    assert gv.data_ptr() == gal.data_ptr() + 4 * gal.shape[1] * start
+    _hamming_checked(qv, gv, bits)
+
+
+def test_hamming_kernel_words_limits(cuda):
+    """384 words (12,288 bits) is the widest code; wider raises. A uint8
+    output over 9 words (a code of 100 bits in a wider word array) walks its
+    words in two chunks of shared memory."""
+    from cmh_torch.ops.hamming import hamming_packed
+
+    rng = np.random.RandomState(384)
+    _hamming_checked(_packed(rng, 70, 384 * 32, cuda), _packed(rng, 600, 384 * 32, cuda), 0)
+    q = torch.zeros((3, 9), dtype=torch.int32)
+    gal = torch.zeros((700, 9), dtype=torch.int32)
+    q[:, :4] = torch.from_numpy(rng.randint(-2**31, 2**31, (3, 4)).astype(np.int32))
+    gal[:, :4] = torch.from_numpy(rng.randint(-2**31, 2**31, (700, 4)).astype(np.int32))
+    q[:, 3] &= 0xF
+    gal[:, 3] &= 0xF
+    out = _hamming_checked(q.to(cuda), gal.to(cuda), 100)
+    assert out.dtype == torch.uint8
+    with pytest.raises(ValueError, match="at most 384 words"):
+        hamming_packed(torch.zeros((1, 385), dtype=torch.int32, device=cuda),
+                       torch.zeros((1, 385), dtype=torch.int32, device=cuda))
+
+
+def test_retrieval_search_on_the_card_equals_a_cpu_copy(cuda):
+    """Blocks of 777 rows: every block but the first starts off a 16-byte
+    boundary, and the last is short."""
+    from cmh_torch.serving import RetrievalIndex
+
+    rng = np.random.RandomState(777)
+    gallery = rng.choice([-1.0, 1.0], (5000, 16)).astype(np.float32)
+    queries = rng.choice([-1.0, 1.0], (6, 16)).astype(np.float32)
+    queries[0] = gallery[4321]
+    on_card, on_cpu = RetrievalIndex(16, device="cuda"), RetrievalIndex(16, device="cpu")
+    for index in (on_card, on_cpu):
+        index.add(gallery[:1234])
+        index.add(gallery[1234:])
+    got = on_card.search(queries, topk=25, block=777)
+    want = on_cpu.search(queries, topk=25, block=777)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert got[0][0, 0] == 0 and got[1][0, 0] == 4321
 
 
 @pytest.mark.parametrize("rows,d", [(1, 64), (37, 512), (5000, 768), (3200, 512),

@@ -98,6 +98,22 @@ def test_blocked_search_equals_unblocked(block, topk):
     np.testing.assert_array_equal(i, ri)
 
 
+@pytest.mark.parametrize("block", [777, (1 << 10) + 3])
+def test_blocked_search_16_bit_equals_cmh_tpu(block):
+    """The serving width (16 bits) in blocks that start off a 16-byte
+    boundary of the packed gallery, the last one short."""
+    bits = 16
+    gallery = _codes(3000, bits, 16)
+    queries = _codes(5, bits, 17)
+    queries[1] = gallery[2999]
+    port, ref = _both(gallery, bits, split=1100)
+    d, i = port.search(queries, topk=40, block=block)
+    rd, ri = ref.search(queries, topk=40)
+    np.testing.assert_array_equal(d, rd)
+    np.testing.assert_array_equal(i, ri)
+    assert d[1, 0] == 0 and i[1, 0] == 2999
+
+
 def test_npz_interop_both_ways(tmp_path):
     bits = 24
     gallery = _codes(120, bits, 7)
