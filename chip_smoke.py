@@ -33,13 +33,27 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    of the same query from a CPU copy of the index (plain Hamming), and the
    kernels' launch counters must show the path went through them; then one
    line splits a 4-query search's device time into K4 and the rest;
-8. training through the CLI entry point (``cmh_torch.main``) on
-   ``configs/DCMHT/synthetic_tpu.yaml`` for 2 epochs at full width in bf16
-   (12 steps and 2 ``valid``s): finite losses, the model and ``.mat``
-   files, the last mAPs equal to the plain counting rank and the numpy
-   oracle on ``last.mat``, and the launch counts worked out from the code;
-   then ``torch.profiler`` over one more train step: the ten kernels with
-   the most device time.
+8. training through the CLI entry point (``cmh_torch.main``) at full width
+   in bf16, in a fresh save root made with ``tempfile.mkdtemp`` and removed
+   at the end (each checkpoint holds about 1.85 GB):
+   a. ``configs/DCMHT/synthetic_tpu.yaml`` as it stands (3 epochs, 18 steps
+      and 3 ``valid``s, a full-state checkpoint after each epoch,
+      ``auto_resume``): finite losses, the model, checkpoint and ``.mat``
+      files, the last mAPs equal to the plain counting rank and the numpy
+      oracle on ``last.mat``, and the launch counts worked out from the code;
+   b. the same command again: it resumes at epoch 3, trains nothing
+      (launches no kernel), and its parameters, BatchNorm statistics,
+      optimizer vectors, step counts and best-mAP tracking equal run a's
+      bit for bit;
+   c. a preemption: SIGTERM from a wrapped ``train_step`` in epoch 1 of a
+      run cut to 200 train and 100 query items; the run writes
+      ``emergency.ckpt.pt`` and returns, and the same command resumes at
+      epoch 1 and finishes with finite losses;
+   d. the flat BertAdam over the full-width parameter list with seeded
+      gradients, two steps: the card against the CPU's flat path and the
+      card's tree path (1e-6), and a second run on the card bit-equal;
+   e. ``torch.profiler`` over one more train step of run a's trainer: the
+      launches, and the ten kernels with the most device time.
 
 The last lines are the card's name and power limit, one JSON object with a
 ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -56,8 +70,11 @@ import itertools
 import json
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -72,6 +89,8 @@ COCO_N, COCO_Q, COCO_CLASSES = 110_000, 5_000, 80   # bench.py's coco-scale eval
 GALLERY_IMAGES = 2048
 INDEX_ITEMS = (1 << 20) + 4096   # two gallery blocks of the blocked search
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+TRAIN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "DCMHT",
+                            "synthetic_tpu.yaml")
 
 
 def smi_line() -> str:
@@ -645,30 +664,45 @@ def profile_train_step(torch, trainer):
             "top": [(e.key[:110], _device_us(e) / 1e3, e.count) for e in top]}
 
 
+def train_cli(cfg_path, save_dir):
+    """``python -m cmh_torch.main`` in-process, on the card, seed 0."""
+    from cmh_torch.main import main as cli_main
+
+    return cli_main(["--config-file", cfg_path, "--save-dir", save_dir, "--device", "cuda",
+                     "--seed", "0"])
+
+
+def read_sidecar(path):
+    with open(path + ".meta.json") as f:
+        return json.load(f)
+
+
 def training(torch, counters):
-    """2 epochs of DCMHT on configs/DCMHT/synthetic_tpu.yaml through the CLI
-    entry point, at full width in bf16."""
+    """Phase 8a, b and e in a fresh save root outside the repository."""
+    root = tempfile.mkdtemp(prefix="cmh_smoke_train_")
+    try:
+        launches, stats, trainer = train_main_path(torch, counters, root)
+        check_resume(torch, counters, trainer, root)
+        profile_train_step(torch, trainer)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, stats
+
+
+def train_main_path(torch, counters, root):
+    """8a: configs/DCMHT/synthetic_tpu.yaml as it stands, through the CLI."""
     import math
 
     import numpy as np
     import scipy.io as scio
     import yaml
 
-    from cmh_torch.main import main as cli_main
     from cmh_torch.ops.map_bucketed import calc_map_k_4dir
     from cmh_torch.ops.map_kernel import query_chunk
     from cmh_torch.ops.metrics import calc_map_k_numpy
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(root, "configs", "DCMHT", "synthetic_tpu.yaml")) as f:
+    with open(TRAIN_CONFIG) as f:
         cfg = yaml.safe_load(f)
-    cfg["run"]["epochs"] = 2
-    for key in ("checkpoint_every", "auto_resume"):
-        cfg["run"].pop(key, None)
-    os.makedirs(WORK, exist_ok=True)
-    cfg_path = os.path.join(WORK, "synthetic_tpu_2ep.yaml")
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(cfg, f)
     run = cfg["run"]
     steps = math.ceil(run["train_num"] / run["batch_size"]) * run["epochs"]
     retrieval = cfg["dataset"].get("num_items", run["query_num"] + 2 * run["train_num"]) \
@@ -686,8 +720,7 @@ def training(torch, counters):
         c.launches = 0
     # ---- the main path: python -m cmh_torch.main, in-process
     t0 = time.perf_counter()
-    trainer = cli_main(["--config-file", cfg_path, "--save-dir", os.path.join(WORK, "train"),
-                        "--device", "cuda", "--seed", "0"])
+    trainer = train_cli(TRAIN_CONFIG, os.path.join(root, "main"))
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
     t_main = time.perf_counter() - t0
@@ -711,6 +744,12 @@ def training(torch, counters):
     save = trainer.save_dir
     if not [p for p in os.listdir(save) if p.startswith("model-") and p.endswith(".pt")]:
         raise AssertionError("no model-*.pt written")
+    ckpt = os.path.join(save, "checkpoint-last.pt")
+    meta = read_sidecar(ckpt)
+    if meta != {"epoch": run["epochs"], "fingerprint": trainer._config_fingerprint()}:
+        raise AssertionError(f"checkpoint sidecar {meta}")
+    print(f"[train] checkpoint-last.pt {os.path.getsize(ckpt) / 1e9:.3f} GB, sidecar "
+          f"epoch {meta['epoch']}", flush=True)
     for name in ("i2t-best", "t2i-best", "last"):
         mat = scio.loadmat(os.path.join(save, "mat_files", f"{name}.mat"))
         if not {"q_img", "q_txt", "r_img", "r_txt", "q_l", "r_l"} <= set(mat):
@@ -731,8 +770,172 @@ def training(torch, counters):
     if not (np.allclose(got, plain, rtol=0, atol=1e-12)
             and np.allclose(got, oracle, rtol=0, atol=1e-7)):
         raise AssertionError("the last valid's mAPs differ from the recomputation")
-    profile_train_step(torch, trainer)
-    return launches, {"steps": steps, "train_s": train_s, "pairs": pairs, "main_s": t_main}
+    stats = {"steps": steps, "train_s": train_s, "pairs": pairs, "main_s": t_main}
+    return launches, stats, trainer
+
+
+def trackers(tr):
+    return (tr.global_step, tr.optimizer.step_count, tr.max_mapi2t, tr.max_mapt2i,
+            tr.best_epoch_i, tr.best_epoch_t)
+
+
+def same_state(torch, a, b):
+    """Names of the model tensors and optimizer vectors that differ."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    for i, (ga, gb) in enumerate(zip(a.optimizer.state_dict()["groups"],
+                                     b.optimizer.state_dict()["groups"])):
+        bad += [f"group {i} {k}" for k in ("m", "v") if not torch.equal(ga[k], gb[k])]
+    return bad
+
+
+def check_resume(torch, counters, trainer, root):
+    """8b: the same command again resumes at epoch 3 and trains nothing."""
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    again = train_cli(TRAIN_CONFIG, os.path.join(root, "main"))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    bad = same_state(torch, trainer, again)
+    print(f"[resume] {time.perf_counter() - t0:.1f} s; epochs trained {len(again.history)}; "
+          f"launches {sum(launches.values())}; step, step_count and best tracking "
+          f"{trackers(again)} (run a {trackers(trainer)}); "
+          f"{len(again.model.state_dict())} model tensors and "
+          f"{2 * len(again.optimizer.param_groups)} optimizer vectors, "
+          f"{len(bad)} differ", flush=True)
+    if again.history or any(launches.values()):
+        raise AssertionError(f"the resumed run trained: {again.history}, {launches}")
+    if trackers(again) != trackers(trainer) or bad:
+        raise AssertionError(f"the resumed state differs from run a's: {bad[:8]}")
+
+
+def preemption(torch):
+    """8c: SIGTERM in epoch 1; the emergency save; the same command resumes."""
+    import numpy as np
+    import yaml
+
+    from cmh_torch.runners.base import BaseTrainer
+
+    root = tempfile.mkdtemp(prefix="cmh_smoke_preempt_")
+    try:
+        with open(TRAIN_CONFIG) as f:
+            cfg = yaml.safe_load(f)
+        cfg["run"].update(train_num=200, query_num=100)     # 2 steps an epoch
+        cfg_path = os.path.join(root, "preempt.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        steps_per_epoch = -(-cfg["run"]["train_num"] // cfg["run"]["batch_size"])
+        orig = BaseTrainer.train_step
+
+        def sigterm_in_epoch_1(self, batch):
+            out = orig(self, batch)
+            if self.global_step == steps_per_epoch + 1:
+                signal.raise_signal(signal.SIGTERM)
+            return out
+
+        BaseTrainer.train_step = sigterm_in_epoch_1
+        try:
+            first = train_cli(cfg_path, os.path.join(root, "run"))
+        finally:
+            BaseTrainer.train_step = orig
+        emergency = os.path.join(first.save_dir, "emergency.ckpt.pt")
+        meta = read_sidecar(emergency)
+        if meta["epoch"] != 1 or len(first.history) != 1:
+            raise AssertionError(f"preempted run: sidecar {meta}, {len(first.history)} epochs")
+        second = train_cli(cfg_path, os.path.join(root, "run"))
+        losses = [h["loss"] for h in second.history]
+        print(f"[preempt] SIGTERM at step {steps_per_epoch + 1}: emergency.ckpt.pt epoch "
+              f"{meta['epoch']}, step {first.global_step}; the restart trained epochs "
+              f"{[h['epoch'] for h in second.history]} to step {second.global_step}, losses "
+              f"{losses}", flush=True)
+        if [h["epoch"] for h in second.history] != [1, 2] or not np.all(np.isfinite(losses)):
+            raise AssertionError("the preempted run did not resume and finish")
+        if second.global_step != first.global_step + 2 * steps_per_epoch:
+            raise AssertionError(f"resumed at step {second.global_step - 2 * steps_per_epoch}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def flat_optimizer(torch):
+    """8d: BertAdam's flat path over the full-width parameter list, two steps
+    of seeded gradients (logit_scale gets none, as in training): the card
+    against the CPU and against the card's tree path, and rerun bit-equal."""
+    from cmh_torch.models.clip.model import CLIPConfig
+    from cmh_torch.models.dcmht import DCMHTModel
+    from cmh_torch.optim.bert_adam import BertAdam, _FlatSpec
+    from cmh_torch.optim.partition import param_groups
+
+    base = DCMHTModel(CLIPConfig(), CODE_BITS)
+    base.init_weights(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(9)
+    # 1e-3 an element: the clip takes every tensor of more than 1e6 elements
+    grads = [[None if n.endswith("logit_scale") else torch.randn(p.shape, generator=gen) * 1e-3
+              for n, p in base.named_parameters()] for _ in range(2)]
+    clipped = sum(1 for g in grads[0] if g is not None and float(g.norm()) > 1.0)
+    # configs/DCMHT/synthetic_tpu.yaml's settings, 18 steps
+    common = dict(warmup=0.1, t_total=18, schedule="warmup_cosine", b1=0.9, b2=0.98, e=1e-6,
+                  weight_decay=0.2, max_grad_norm=1.0)
+
+    def run(device, flat):
+        model = copy.deepcopy(base).to(device)
+        opt = BertAdam(param_groups(model, 0.001, 0.00001), lr=0.001, flat=flat, **common)
+        for step in grads:
+            for p, g in zip(model.parameters(), step):
+                p.grad = None if g is None else g.to(device)
+            opt.step()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return model, opt
+
+    def moments(opt):   # each group's m and v, unpadded, on the host
+        out = []
+        for group, saved in zip(opt.param_groups, opt.state_dict()["groups"]):
+            for k in ("m", "v"):
+                ts = saved[k]
+                if torch.is_tensor(ts):
+                    ts = _FlatSpec(group["params"]).views(ts)
+                out.append(torch.cat([t.reshape(-1).cpu() for t in ts]))
+        return out
+
+    def diff(a, b):     # largest parameter difference, largest moment one relative
+        (ma, oa), (mb, ob) = a, b
+        dp = max((x.detach().cpu() - y.detach().cpu()).abs().max().item()
+                 for x, y in zip(ma.parameters(), mb.parameters()))
+        dm = max(((x - y).abs().max() / y.abs().max()).item()
+                 for x, y in zip(moments(oa), moments(ob)) if x.numel())
+        return dp, dm
+
+    card = run("cuda", True)
+    cpu = run("cpu", True)
+    d_cpu = diff(card, cpu)
+    del cpu
+    again = run("cuda", True)
+    rerun_equal = (all(torch.equal(x, y) for x, y in zip(card[0].parameters(),
+                                                            again[0].parameters()))
+                   and all(torch.equal(x, y) for x, y in zip(moments(card[1]),
+                                                               moments(again[1]))))
+    del again
+    tree = run("cuda", False)
+    d_tree = diff(card, tree)
+    times = {}
+    for name, (model, opt) in (("flat", card), ("tree", tree)):
+        # host clock of one step, enqueue to finish, then its device time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        times[name] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                       "device_ms": cuda_ms(opt.step, iters=5, warmup=1)}
+    n = sum(1 for _ in base.parameters())
+    print(f"[optim] flat BertAdam, {n} tensors, {sum(p.numel() for p in base.parameters())} "
+          f"parameters, {clipped} clipped: card vs CPU flat max |dparam| {d_cpu[0]:.3e}, moments "
+          f"{d_cpu[1]:.3e} relative; card flat vs card tree {d_tree[0]:.3e}, {d_tree[1]:.3e}; "
+          f"rerun bit-equal {rerun_equal}; one step {times}", flush=True)
+    if not (d_cpu[0] <= 1e-6 and d_cpu[1] <= 1e-6 and d_tree[0] <= 1e-6 and d_tree[1] <= 1e-6):
+        raise AssertionError(f"flat BertAdam differs: vs CPU {d_cpu}, vs tree {d_tree}")
+    if not rerun_equal:
+        raise AssertionError("flat BertAdam on the card gave other bits on a rerun")
 
 
 def model_parity(torch):
@@ -1005,6 +1208,8 @@ def main() -> int:
                     "attention_bwd": attention_bwd, "map_hist": map_hist, "map_ap": map_ap}
         by_path = {"serving": serving(torch, counters)}
         by_path["training"], _ = training(torch, counters)
+        preemption(torch)
+        flat_optimizer(torch)
         for path, need in (("serving", ("layernorm", "attention", "hamming")),
                            ("training", ("layernorm", "layernorm_bwd", "attention",
                                          "attention_bwd", "map_hist", "map_ap"))):

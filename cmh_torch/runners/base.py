@@ -9,13 +9,27 @@ through kernels K3-hist and K3-ap on the card, best tracking, the ``.mat``
 dumps and the model file). Everything runs on ``device``, which defaults to
 the card; without one the trainer raises unless it is given ``"cpu"``.
 
+Around the loop, as in cmh_tpu (``cmh_tpu/runners/base.py:461-692``,
+``:1047-1167``): ``run.checkpoint_every`` writes a full-state checkpoint
+(model with BatchNorm statistics, optimizer moments and step count,
+trainer bookkeeping) after every N epochs; ``run.resume_checkpoint`` loads
+one; ``run.auto_resume`` takes the newest checkpoint under the save root
+whose config fingerprint matches this run's; SIGTERM, or a crash, writes
+an emergency checkpoint of the interrupted epoch (``runners/checkpoint.py``
+holds the file format). ``run.profile_dir`` traces ``run.profile_steps``
+train steps with ``torch.profiler``; ``run.remat`` is ignored with a
+warning, as cmh_tpu ignores it, because the model's BatchNorm keeps
+running statistics.
+
 Run keys that this port does not carry yet raise ``NotImplementedError``
 rather than being ignored (see ``UNPORTED_RUN_KEYS``).
 """
 
 from __future__ import annotations
 
+import copy
 import os
+import signal
 import time
 from typing import Optional
 
@@ -31,20 +45,21 @@ from ..optim.partition import param_groups
 from ..registry import load_components, registry
 from ..utils.logger import get_color_logger
 from ..utils.seed import set_seed
+from . import checkpoint
 
 # run key → (values that leave the feature off, the ROADMAP item that ports it)
-_CKPT = "ROADMAP.md Queue 1, 'Checkpoints, auto-resume and the SIGTERM save'"
 _MULTI = "ROADMAP.md Queue 1, 'Multi-GPU'"
 UNPORTED_RUN_KEYS = {
-    "checkpoint_every": ((None, 0, False), _CKPT),
-    "resume_checkpoint": ((None, "", False), _CKPT),
-    "auto_resume": ((None, 0, False), _CKPT),
     "distribute": ((None, 0, False), _MULTI),
     "multi_host": ((None, 0, False), _MULTI),
     "tp": ((None, 1), _MULTI),
-    "profile_dir": ((None, ""), "ROADMAP.md Queue 1, 'The run keys remat and profile_dir'"),
-    "remat": ((None, 0, False), "not ported: activation rematerialisation"),
 }
+
+
+class PreemptionRequested(Exception):
+    """SIGTERM arrived during training. ``train`` turns it into an emergency
+    checkpoint and a clean return, so the same command restarted with
+    ``run.auto_resume`` continues."""
 
 
 def check_run_keys(run) -> None:
@@ -95,6 +110,11 @@ class BaseTrainer:
         self.best_epoch_t = 0
         self.loss_type = kwargs.get("loss_type", "l1")
         self._last_model_save = None
+        # a torch.profiler trace of run.profile_steps train steps from the second
+        self.profile_dir = cfg.run.get("profile_dir", None)
+        self.profile_steps = int(cfg.run.get("profile_steps", 5))
+        self._profiler = None
+        self._preempt_signal = None
         # one dict per epoch: loss, steps, pairs, train seconds, then the mAPs
         self.history = []
 
@@ -176,8 +196,25 @@ class BaseTrainer:
             self.logger.info("loading model...")
             self.model.load_state_dict(self.load_model_file(self.model_state))
         self.model.to(self.device)
+        if self.cfg.run.get("remat", False):
+            self._check_remat()
         self.logger.info("Building model!")
         self.logger.info(f"Output dim: {self.output_dim}")
+
+    def _check_remat(self):
+        """cmh_tpu's rule (``runners/base.py:302-311``): a model with mutable
+        state, here buffers that a train-mode forward updates (BatchNorm's
+        running statistics), cannot be recomputed in the backward without
+        updating them twice, so ``run.remat`` is ignored with a warning and
+        activations are stored."""
+        stateful = sorted({name.rsplit(".", 1)[0] for name, _ in self.model.named_buffers()})
+        if not stateful:
+            raise NotImplementedError(
+                "run.remat on a model without running statistics is not ported to "
+                "cmh_torch yet (ROADMAP.md Queue 1, 'The other seven methods')")
+        self.logger.warning(
+            f"run.remat ignored: the model carries running statistics ({stateful}) "
+            "that a recomputed forward would update twice — activations will be stored")
 
     # ------------------------------------------------------------- optimizer
     def build_optimizer(self, cfg_optimizer):
@@ -185,8 +222,7 @@ class BaseTrainer:
                                         cfg_optimizer.get("clip_lr", 0.00001))
         lr = cfg_optimizer.get("lr", 0.001)
         self._t_total = len(self.train_loader) * self.epochs
-        self.optimizer = BertAdam(
-            param_groups(self.model, lr, backbone_lr), lr=lr,
+        common = dict(
             warmup=cfg_optimizer.get("warmup_proportion", 0.1),
             t_total=self._t_total,
             schedule=cfg_optimizer.get("schedule", "warmup_cosine"),
@@ -194,6 +230,11 @@ class BaseTrainer:
             e=cfg_optimizer.get("e", 1e-6),
             weight_decay=cfg_optimizer.get("weight_decay", 0.2),
             max_grad_norm=cfg_optimizer.get("max_grad_norm", 1.0))
+        # what the run fingerprint hashes, built as cmh_tpu builds it
+        self._opt_cfg = dict(common, lr=lr, backbone_lr=backbone_lr)
+        # the flat path by default, as cmh_tpu runs it off a mesh
+        self.optimizer = BertAdam(param_groups(self.model, lr, backbone_lr), lr=lr,
+                                  flat=bool(cfg_optimizer.get("flat", True)), **common)
         self._lrs = (lr, backbone_lr)
         self.logger.info("Building optimizer!")
 
@@ -204,13 +245,128 @@ class BaseTrainer:
         else:
             self.test()
 
+    def _config_fingerprint(self) -> dict:
+        """Identity of this run for resume safety, key for key cmh_tpu's: two
+        runs may resume each other's checkpoints only if every field
+        matches. The optimizer and model sections are hashed whole, since
+        hyperparameters that leave the state's structure unchanged still
+        change the trajectory."""
+        return {
+            "method": str(self.cfg.model.get("arch", "")),
+            "runner": type(self).__name__,
+            "output_dim": int(self.output_dim),
+            "dataset": str(self.cfg.dataset.get("name", "")),
+            "train_num": int(self.train_num),
+            "query_num": int(self.query_num),
+            "retrieval_num": int(self.retrieval_num),
+            "batch_size": int(self.batch_size),
+            "optimizer_hash": checkpoint.digest([self._opt_cfg, self.cfg.optimizer.to_dict()]),
+            "model_hash": checkpoint.digest(self.cfg.model.to_dict()),
+        }
+
+    def _resume_candidates(self):
+        """The checkpoints under the save root (the directory holding this
+        run's timestamped save dir) whose fingerprint matches this run's,
+        newest first. Foreign and fingerprint-less ones are skipped with
+        the reason logged."""
+        mine = self._config_fingerprint()
+        for path in checkpoint.candidates(os.path.dirname(os.path.abspath(self.save_dir))):
+            fp = checkpoint.read_fingerprint(path)
+            if fp == mine:
+                yield path
+            elif fp is None:
+                self.logger.info(
+                    f"auto_resume: skipping {path} (no config fingerprint — "
+                    "legacy checkpoint; use run.resume_checkpoint to load it)")
+            else:
+                self.logger.info(
+                    f"auto_resume: skipping {path} (config fingerprint mismatch on "
+                    f"{checkpoint.fingerprint_diff(mine, fp)})")
+
+    def _resume(self) -> int:
+        """The epoch to start at: 0, or the one ``run.resume_checkpoint`` or
+        the newest loadable ``run.auto_resume`` candidate names."""
+        resume_from = self.cfg.run.get("resume_checkpoint", None)
+        if resume_from:
+            return self.load_checkpoint(resume_from)
+        if not self.cfg.run.get("auto_resume", False):
+            return 0
+        pristine = None
+        for cand in self._resume_candidates():
+            # copies of all that a load changes: one that fails may have
+            # changed some of it before it raised
+            pristine = pristine or (copy.deepcopy(self.model.state_dict()),
+                                    copy.deepcopy(self.optimizer.state_dict()),
+                                    self._checkpoint_meta(0))
+            try:
+                return self.load_checkpoint(cand)
+            except Exception as e:
+                # an unreadable candidate (truncated by an ungraceful kill,
+                # say) must not stop the restart: try the next, or start fresh
+                self.logger.warning(f"auto_resume: {cand} unreadable "
+                                    f"({type(e).__name__}: {e}) — trying next candidate")
+                self.model.load_state_dict(pristine[0])
+                self.optimizer.load_state_dict(pristine[1])
+                self._restore_meta(pristine[2])
+        return 0
+
     def train(self):
-        for epoch in range(self.epochs):
-            self.train_epoch(epoch)
-            self.valid(epoch, k=self.top_k)
+        start_epoch = self._resume()
+        ckpt_every = int(self.cfg.run.get("checkpoint_every", 0) or 0)
+        # SIGTERM only sets a flag; the loop raises PreemptionRequested at
+        # its next safe point (after a step, between epochs). Only the main
+        # thread may install a handler: trainers driven from other threads
+        # run without one.
+        self._preempt_signal = None
+
+        def on_sigterm(signum, frame):
+            self._preempt_signal = signum
+
+        try:
+            previous = signal.signal(signal.SIGTERM, on_sigterm)
+            installed = True
+        except ValueError:
+            installed = False
+        epoch = start_epoch
+        emergency = os.path.join(self.save_dir, checkpoint.EMERGENCY)
+        try:
+            for epoch in range(start_epoch, self.epochs):
+                self._check_preempted()
+                self.train_epoch(epoch)
+                self.valid(epoch, k=self.top_k)
+                if ckpt_every and (epoch + 1) % ckpt_every == 0:
+                    self.save_checkpoint(os.path.join(self.save_dir, checkpoint.CHECKPOINT_LAST),
+                                         epoch=epoch + 1)
+        except PreemptionRequested:
+            # the interrupted epoch runs again on resume
+            try:
+                self.save_checkpoint(emergency, epoch=epoch)
+            except Exception:
+                self.logger.exception("preempted (SIGTERM); emergency save failed too")
+                return
+            self.logger.error(f"preempted (SIGTERM) — state saved to {emergency}; restart "
+                              "the same command with run.auto_resume to continue")
+            return
+        except Exception:
+            try:
+                self.save_checkpoint(emergency, epoch=epoch)
+                self.logger.error(f"training crashed — state saved to {emergency}")
+            except Exception:
+                self.logger.exception("training crashed; emergency save failed too")
+            raise
+        finally:
+            if installed:
+                signal.signal(signal.SIGTERM, previous)
+            self._stop_profiler()
         self.logger.info(
             f">>>>>>> FINISHED >>>>>> Best epoch, I-T: {self.best_epoch_i}, "
             f"mAP: {self.max_mapi2t}, T-I: {self.best_epoch_t}, mAP: {self.max_mapt2i}")
+
+    def _check_preempted(self):
+        """Raise PreemptionRequested if SIGTERM arrived (once per signal)."""
+        if self._preempt_signal is not None:
+            sig, self._preempt_signal = self._preempt_signal, None
+            raise PreemptionRequested(f"signal {sig}")
 
     def _to_device(self, batch):
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
@@ -235,12 +391,18 @@ class BaseTrainer:
         for batch in _waited(self.train_loader, wait):
             self.global_step += 1
             times += 1
+            if self.profile_dir and self.global_step == 2 and self._profiler is None:
+                self._start_profiler()
             loss, loss_dict = self.train_step(batch)
             all_loss = loss if all_loss is None else all_loss + loss
             examples += int(batch["valid"].sum())
+            self._check_preempted()
+            if self._profiler is not None and self.global_step >= 1 + self.profile_steps:
+                self._stop_profiler()
             if self.global_step % self.display_step == 0:
                 self.print_loss_dict(_floats(loss_dict), bits=self.output_dim,
                                      epoch=epoch, times=times)
+        self._stop_profiler()   # an epoch shorter than the window
         # the host read of the loss waits for the card: take it before the clock
         epoch_loss = float(all_loss) / max(times, 1) if all_loss is not None else 0.0
         dt = time.time() - t0
@@ -251,6 +413,31 @@ class BaseTrainer:
             f"lr: {self._current_lr_str()}, "
             f"throughput: {examples / max(dt, 1e-9):.1f} pairs/s, "
             f"waited {wait[0]:.2f}s of {dt:.2f}s for data")
+
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+        self._profile_first = self.global_step
+
+    def _stop_profiler(self):
+        """Close an open trace window and write its Chrome trace under
+        ``profile_dir``."""
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)   # a trace stopped early misses the kernels
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, f"train-steps-{self._profile_first}-"
+                                              f"{self.global_step}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        self.logger.info(f"profiler trace written to {path}")
 
     def _current_lr_str(self) -> str:
         factor = self.optimizer.lr_factor()
@@ -385,6 +572,62 @@ class BaseTrainer:
     @staticmethod
     def load_model_file(path):
         return torch.load(path, map_location="cpu", weights_only=True)
+
+    def _checkpoint_meta(self, epoch: int) -> dict:
+        """Trainer bookkeeping beside the state: ``epoch`` is the next epoch
+        to run on resume."""
+        return {
+            "epoch": int(epoch),
+            "global_step": int(self.global_step),
+            "max_mapi2t": float(self.max_mapi2t),
+            "max_mapt2i": float(self.max_mapt2i),
+            "best_epoch_i": int(self.best_epoch_i),
+            "best_epoch_t": int(self.best_epoch_t),
+            "fingerprint": self._config_fingerprint(),
+        }
+
+    def _restore_meta(self, meta: dict) -> None:
+        self.global_step = int(meta["global_step"])
+        self.max_mapi2t = float(meta["max_mapi2t"])
+        self.max_mapt2i = float(meta["max_mapt2i"])
+        self.best_epoch_i = int(meta["best_epoch_i"])
+        self.best_epoch_t = int(meta["best_epoch_t"])
+
+    def save_checkpoint(self, path: str, epoch: int = 0):
+        """The full training state: the model's state dict (parameters and
+        BatchNorm statistics), the optimizer's moments and step count, and
+        the trainer's bookkeeping."""
+        checkpoint.write(path, {"model": self.model.state_dict(),
+                                "optimizer": self.optimizer.state_dict(),
+                                "meta": self._checkpoint_meta(epoch)})
+        self.logger.info(f"checkpoint saved to {path}")
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restore a checkpoint of ``save_checkpoint``; returns the epoch to
+        resume at. An optimizer state of the other path (flat or tree) is
+        converted. A fingerprint that differs from this run's is named in a
+        warning and the load goes on (it was asked for explicitly)."""
+        blob = checkpoint.read(path)
+        try:
+            meta = blob["meta"]
+            self.model.load_state_dict(blob["model"])
+            converted = self.optimizer.load_state_dict(blob["optimizer"])
+        except (KeyError, TypeError, ValueError, RuntimeError) as e:
+            raise ValueError(
+                f"checkpoint at {path} does not match this trainer's state structure "
+                f"(different method/model config?): {type(e).__name__}: {e}") from e
+        if converted:
+            self.logger.info("optimizer state format converted (flat↔tree) on restore")
+        fp, mine = meta.get("fingerprint"), self._config_fingerprint()
+        if fp is not None and fp != mine:
+            self.logger.warning(
+                f"checkpoint config fingerprint differs from this run on "
+                f"{checkpoint.fingerprint_diff(mine, fp)} — resuming anyway (explicitly "
+                "requested)")
+        self._restore_meta(meta)
+        start_epoch = int(meta["epoch"])
+        self.logger.info(f"checkpoint restored from {path} (resuming at epoch {start_epoch})")
+        return start_epoch
 
     # --------------------------------------------------------------- logging
     def print_loss_dict(self, loss_dict, bits=16, epoch=0, times=0):

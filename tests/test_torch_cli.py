@@ -3,9 +3,12 @@
 A tiny synthetic DCMHT config (``CLIPConfig.tiny()``) runs two epochs end to
 end and writes the model file and the three ``.mat`` files in the
 reference schema. Without ``--device cpu`` (and no card) it raises; run keys
-the port does not carry yet raise instead of being ignored.
+the port does not carry yet raise instead of being ignored, and each ported
+run key does its work in a tiny run.
 """
 
+import json
+import logging
 import os
 import subprocess
 import sys
@@ -66,13 +69,61 @@ def test_cli_refuses_the_cpu_unless_asked(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (", checkpoint_every: 1", "checkpoint_every"), (", auto_resume: True", "auto_resume"),
-    (", resume_checkpoint: x.msgpack", "resume_checkpoint"), (", tp: 2", "tp"),
-    (", profile_dir: /tmp/p", "profile_dir"), (", distribute: True", "distribute")])
+    (", tp: 2", "tp"), (", distribute: True", "distribute"),
+    (", multi_host: True", "multi_host")])
 def test_unported_run_keys_raise(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         main(["--config-file", _cfg(tmp_path, extra), "--save-dir", str(tmp_path / "o"),
               "--device", "cpu"])
+
+
+@pytest.fixture
+def trainer_log():
+    """The messages the runner logs (its logger does not propagate)."""
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    logger = logging.getLogger("synthetic-cpu")
+    logger.addHandler(handler)
+    yield records
+    logger.removeHandler(handler)
+
+
+def _train(tmp_path, extra, out="o"):
+    return main(["--config-file", _cfg(tmp_path, ", epochs: 1" + extra),
+                 "--save-dir", str(tmp_path / out), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("key", ["checkpoint_every", "auto_resume", "resume_checkpoint",
+                                 "profile_dir", "remat"])
+def test_ported_run_keys_run(tmp_path, trainer_log, key):
+    if key == "checkpoint_every":
+        tr = _train(tmp_path, ", checkpoint_every: 1")
+        path = os.path.join(tr.save_dir, "checkpoint-last.pt")
+        with open(path + ".meta.json") as f:
+            assert json.load(f) == {"epoch": 1, "fingerprint": tr._config_fingerprint()}
+        assert torch.load(path, weights_only=True)["meta"]["global_step"] == 2
+    elif key == "auto_resume":
+        first = _train(tmp_path, ", checkpoint_every: 1, auto_resume: True")
+        again = _train(tmp_path, ", checkpoint_every: 1, auto_resume: True")
+        assert any("resuming at epoch 1" in m for m in trainer_log)
+        assert again.global_step == first.global_step == 2 and again.history == []
+    elif key == "resume_checkpoint":
+        first = _train(tmp_path, ", checkpoint_every: 1", out="first")
+        path = os.path.join(first.save_dir, "checkpoint-last.pt")
+        again = _train(tmp_path, f", resume_checkpoint: {path}")
+        assert f"checkpoint restored from {path} (resuming at epoch 1)" in trainer_log
+        assert again.optimizer.step_count == first.optimizer.step_count == 2
+    elif key == "profile_dir":
+        prof = tmp_path / "prof"
+        _train(tmp_path, f", profile_dir: {prof}, profile_steps: 1")
+        with open(prof / "train-steps-2-2.pt.trace.json") as f:
+            assert json.load(f)["traceEvents"]
+    else:
+        tr = _train(tmp_path, ", remat: True")
+        assert any(m.startswith("run.remat ignored") and "hash.img_hash.norm" in m
+                   for m in trainer_log)
+        assert tr.history and np.isfinite(tr.history[0]["loss"])
 
 
 def test_unknown_arch_names_the_ported_ones(tmp_path):

@@ -29,7 +29,7 @@ TRAINING_MODULES = {
     "cmh_torch.utils.logger", "cmh_torch.data.dataset", "cmh_torch.data.builder",
     "cmh_torch.data.loader", "cmh_torch.ops.metrics", "cmh_torch.ops.map_bucketed",
     "cmh_torch.ops.map_kernel", "cmh_torch.optim.bert_adam", "cmh_torch.optim.partition",
-    "cmh_torch.runners.base", "cmh_torch.runners.dcmht"}
+    "cmh_torch.runners.base", "cmh_torch.runners.checkpoint", "cmh_torch.runners.dcmht"}
 
 
 def test_import_pulls_in_no_jax_and_no_cmh_tpu():
