@@ -53,7 +53,27 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
       gradients, two steps: the card against the CPU's flat path and the
       card's tree path (1e-6), and a second run on the card bit-equal;
    e. ``torch.profiler`` over one more train step of run a's trainer: the
-      launches, and the ten kernels with the most device time.
+      launches, and the ten kernels with the most device time;
+9. pretrained CLIP at full width: a seeded ViT-B/32 in OpenAI's layout (fp16
+   tensors and the three integer entries), written as a plain state dict and
+   as a TorchScript archive; the DCMHT trainer built with ``clip_path`` at
+   each must infer ViT-B/32 and hold every backbone tensor of the file, and
+   the eval codes of 256 pairs on the card (K1-fwd, K2-fwd) must agree with
+   the CPU model read from the same file (at most 1% of the bits, each near
+   the boundary); the files' bytes and the load seconds are printed;
+10. Baseline, DSPH and DNPH through the CLI at full width in bf16:
+   ``configs/{DSPH,DNPH}/config.yaml`` (Baseline's YAML made here) with the
+   synthetic dataset of ``configs/DCMHT/synthetic_tpu.yaml`` and 8 classes,
+   2 epochs of 2 steps at batch 100, a checkpoint after each epoch,
+   ``auto_resume``, DSPH with ``run.remat``: the launch counts (K1-fwd and
+   K2-fwd twice a step under ``remat``), finite losses, the mAPs against the
+   recomputation, and a rerun that resumes at epoch 2, trains nothing and
+   holds the model, BertAdam and the proxies' SGD state bit for bit. Printed:
+   each method's step time (host clock), DSPH's peak memory of a step with
+   and without ``remat``, DNPH's host milliseconds a step in the Hungarian
+   solve. After DSPH, phase 7's search once more on its exported encoders:
+   256 images encoded (codes equal the trainer's) into an index past 2^20
+   items, one search through K4 equal to a CPU copy's.
 
 The last lines are the card's name and power limit, one JSON object with a
 ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -88,9 +108,9 @@ MAX_WORDS, CODE_BITS = 32, 16    # configs/DCMHT/config.yaml
 COCO_N, COCO_Q, COCO_CLASSES = 110_000, 5_000, 80   # bench.py's coco-scale eval
 GALLERY_IMAGES = 2048
 INDEX_ITEMS = (1 << 20) + 4096   # two gallery blocks of the blocked search
-WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
-TRAIN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "DCMHT",
-                            "synthetic_tpu.yaml")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+TRAIN_CONFIG = os.path.join(ROOT, "configs", "DCMHT", "synthetic_tpu.yaml")
 
 
 def smi_line() -> str:
@@ -178,6 +198,15 @@ def entry(name, source, replaces, shape, err, ms, plain_ms, lib_ms, nbytes, ops,
             "shape": shape, "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": lib_ms}
+
+
+def reset_counts(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def read_counts(counters):
+    return {k: c.launches for k, c in counters.items()}
 
 
 def check_layernorm(torch, gen):
@@ -513,7 +542,8 @@ def grad_parity(torch):
     loss_fn = dcmht_loss_fn(output_dim=CODE_BITS)
     losses = {}
     for name, m, dev in (("cuda", gpu_model, "cuda"), ("cpu", cpu_model, "cpu")):
-        loss, _ = loss_fn(m(img.to(dev), ids.to(dev), kpm.to(dev)), labels.to(dev))
+        loss, _, _ = loss_fn(m(img.to(dev), ids.to(dev), kpm.to(dev)),
+                             {"label": labels.to(dev)}, {}, 0)
         loss.backward()
         losses[name] = float(loss.detach())
     loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
@@ -591,7 +621,7 @@ def tower_times(torch):
 
     def step():
         model.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(model(x["image"], x["text"], x["key_padding_mask"]), x["label"])
+        loss, _, _ = loss_fn(model(x["image"], x["text"], x["key_padding_mask"]), x, {}, 0)
         loss.backward()
 
     train_ms = cuda_ms(step, iters=5, warmup=2)
@@ -689,20 +719,16 @@ def training(torch, counters):
     return launches, stats
 
 
-def train_main_path(torch, counters, root):
-    """8a: configs/DCMHT/synthetic_tpu.yaml as it stands, through the CLI."""
+def expected_launches(cfg, remat=False):
+    """(train steps, kernel launches) of a training run of the config
+    ``cfg`` (a dict) through the CLI, worked out from the code: per image +
+    text pair of full-width towers 51 K1 and 22 K2 (the last block of each
+    tower takes the explicit path) forward and backward, the forward twice
+    under ``remat``; one K3 pass each per 1,024-query chunk of a ``valid``."""
     import math
 
-    import numpy as np
-    import scipy.io as scio
-    import yaml
-
-    from cmh_torch.ops.map_bucketed import calc_map_k_4dir
     from cmh_torch.ops.map_kernel import query_chunk
-    from cmh_torch.ops.metrics import calc_map_k_numpy
 
-    with open(TRAIN_CONFIG) as f:
-        cfg = yaml.safe_load(f)
     run = cfg["run"]
     steps = math.ceil(run["train_num"] / run["batch_size"]) * run["epochs"]
     retrieval = cfg["dataset"].get("num_items", run["query_num"] + 2 * run["train_num"]) \
@@ -711,18 +737,30 @@ def train_main_path(torch, counters, root):
     eval_batches = (math.ceil(run["query_num"] / eval_b) + math.ceil(retrieval / eval_b)) \
         * run["epochs"]
     chunks = math.ceil(run["query_num"] / query_chunk(run["output_dim"])) * run["epochs"]
-    ln, attn = 12 * 2 + 2 + 12 * 2 + 1, 11 + 11      # per image + text pair of towers
-    expect = {"layernorm": ln * (steps + eval_batches), "layernorm_bwd": ln * steps,
-              "attention": attn * (steps + eval_batches), "attention_bwd": attn * steps,
-              "hamming": 0, "map_hist": chunks, "map_ap": chunks}
+    ln, attn = 12 * 2 + 2 + 12 * 2 + 1, 11 + 11
+    fwd = steps * (2 if remat else 1) + eval_batches
+    return steps, {"layernorm": ln * fwd, "layernorm_bwd": ln * steps,
+                   "attention": attn * fwd, "attention_bwd": attn * steps,
+                   "hamming": 0, "map_hist": chunks, "map_ap": chunks}
 
-    for c in counters.values():
-        c.launches = 0
+
+def train_main_path(torch, counters, root):
+    """8a: configs/DCMHT/synthetic_tpu.yaml as it stands, through the CLI."""
+    import numpy as np
+    import scipy.io as scio
+    import yaml
+
+    with open(TRAIN_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    run = cfg["run"]
+    steps, expect = expected_launches(cfg)
+
+    reset_counts(counters)
     # ---- the main path: python -m cmh_torch.main, in-process
     t0 = time.perf_counter()
     trainer = train_cli(TRAIN_CONFIG, os.path.join(root, "main"))
     torch.cuda.synchronize()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = read_counts(counters)
     t_main = time.perf_counter() - t0
     # ---- end of the main path
     hist = trainer.history
@@ -757,21 +795,33 @@ def train_main_path(torch, counters, root):
         for key in ("q_img", "q_txt", "r_img", "r_txt"):
             if not set(np.unique(mat[key])) <= {-1.0, 1.0}:
                 raise AssertionError(f"{name}.mat {key} is not ±1")
-    mat = scio.loadmat(os.path.join(save, "mat_files", "last.mat"))
+    check_last_maps(torch, trainer, "[train]")
+    stats = {"steps": steps, "train_s": train_s, "pairs": pairs, "main_s": t_main}
+    return launches, stats, trainer
+
+
+def check_last_maps(torch, trainer, tag):
+    """The last ``valid``'s four mAPs against the plain counting rank and the
+    numpy oracle on ``last.mat``."""
+    import numpy as np
+    import scipy.io as scio
+
+    from cmh_torch.ops.map_bucketed import calc_map_k_4dir
+    from cmh_torch.ops.metrics import calc_map_k_numpy
+
+    mat = scio.loadmat(os.path.join(trainer.save_dir, "mat_files", "last.mat"))
     args = [mat[k].astype(np.float32) for k in ("q_img", "q_txt", "r_img", "r_txt", "q_l", "r_l")]
     plain = calc_map_k_4dir(*(torch.from_numpy(a) for a in args))
     oracle = [calc_map_k_numpy(a, b, args[4], args[5])
               for a, b in ((args[0], args[3]), (args[1], args[2]),
                            (args[0], args[2]), (args[1], args[3]))]
-    got = hist[-1]["maps"]
-    print(f"[train] last valid mAPs {got}; plain {plain}; numpy {oracle}", flush=True)
+    got = trainer.history[-1]["maps"]
+    print(f"{tag} last valid mAPs {got}; plain {plain}; numpy {oracle}", flush=True)
     # K3 and the plain version add the same fp32 quotients in fp64; numpy
     # divides in fp64 (one fp32 rounding a term)
     if not (np.allclose(got, plain, rtol=0, atol=1e-12)
             and np.allclose(got, oracle, rtol=0, atol=1e-7)):
-        raise AssertionError("the last valid's mAPs differ from the recomputation")
-    stats = {"steps": steps, "train_s": train_s, "pairs": pairs, "main_s": t_main}
-    return launches, stats, trainer
+        raise AssertionError(f"{tag} the last valid's mAPs differ from the recomputation")
 
 
 def trackers(tr):
@@ -780,23 +830,35 @@ def trackers(tr):
 
 
 def same_state(torch, a, b):
-    """Names of the model tensors and optimizer vectors that differ."""
+    """Names of the model tensors, optimizer vectors and other optimizers'
+    state tensors (SGD momentum buffers) that differ."""
     sa, sb = a.model.state_dict(), b.model.state_dict()
     bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
     for i, (ga, gb) in enumerate(zip(a.optimizer.state_dict()["groups"],
                                      b.optimizer.state_dict()["groups"])):
         bad += [f"group {i} {k}" for k in ("m", "v") if not torch.equal(ga[k], gb[k])]
+    if a.extra_optimizers.keys() != b.extra_optimizers.keys():
+        return bad + ["extra optimizers"]
+    for name in a.extra_optimizers:
+        xa = a.extra_optimizers[name].state_dict()
+        xb = b.extra_optimizers[name].state_dict()
+        if xa["param_groups"] != xb["param_groups"] or xa["state"].keys() != xb["state"].keys():
+            bad.append(f"{name} groups")
+            continue
+        for i, st in xa["state"].items():
+            bad += [f"{name} {k}" for k, v in st.items()
+                    if not ((v is None and xb["state"][i][k] is None)
+                            or torch.equal(v, xb["state"][i][k]))]
     return bad
 
 
 def check_resume(torch, counters, trainer, root):
     """8b: the same command again resumes at epoch 3 and trains nothing."""
-    for c in counters.values():
-        c.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     again = train_cli(TRAIN_CONFIG, os.path.join(root, "main"))
     torch.cuda.synchronize()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = read_counts(counters)
     bad = same_state(torch, trainer, again)
     print(f"[resume] {time.perf_counter() - t0:.1f} s; epochs trained {len(again.history)}; "
           f"launches {sum(launches.values())}; step, step_count and best tracking "
@@ -1026,8 +1088,7 @@ def serving(torch, counters):
     rng = np.random.RandomState(7)
     nblocks = -(-INDEX_ITEMS // _DEVICE_BLOCK)
 
-    for c in counters.values():
-        c.launches = 0
+    reset_counts(counters)
     # ---- the main path: gallery encode, index, HTTP requests
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1094,7 +1155,7 @@ def serving(torch, counters):
                 raise AssertionError(f"{path} -> {status}: {out}")
             answers.append(out)
         torch.cuda.synchronize()
-        launches = {k: c.launches for k, c in counters.items()}
+        launches = read_counts(counters)
     finally:
         server.shutdown()
         server.server_close()
@@ -1150,6 +1211,314 @@ def search_split(torch, gallery, rng):
     print(f"[serving] one search of 4 queries over {n} items, device ms: K4 on the "
           f"{len(blocks)} blocks {k4:.5f}; topk_blocked whole {whole:.5f}; keys and "
           f"merge {whole - k4:.5f}", flush=True)
+
+
+def code_bits_agree(torch, card, cpu, what):
+    """The bf16-step rule applied to ±1 codes: at most 1% of the code bits
+    (at least one) may differ between the card and the CPU, each where the
+    CPU's continuous output is within 0.05 of the decision boundary (the
+    pair's probability gap for pair-argmax codes, |h| for sign codes).
+    ``card`` and ``cpu`` are (codes, continuous outputs)."""
+    (codes_g, h_g), (codes_c, h_c) = ((c.float().cpu(), h.float().cpu()) for c, h in (card, cpu))
+    pairs = h_c.reshape(*codes_c.shape, -1)
+    margin = (pairs[..., 1] - pairs[..., 0]).abs() if pairs.shape[-1] == 2 else pairs[..., 0].abs()
+    differ = codes_g != codes_c
+    n, far = int(differ.sum()), int((differ & (margin >= 0.05)).sum())
+    print(f"[pretrained] {what}: {n} of {differ.numel()} code bits differ card/CPU "
+          f"({far} with a CPU margin >= 0.05); head outputs max abs diff "
+          f"{(h_g - h_c).abs().max().item():.3e}", flush=True)
+    if far or n > max(1, differ.numel() // 100):
+        raise AssertionError(f"{what}: {n} code bits differ card/CPU, {far} decided ones")
+
+
+def pretrained_load(torch, counters):
+    """Phase 9: a seeded ViT-B/32 CLIP in OpenAI's layout (fp16 tensors and
+    the three integer entries), written as a plain state dict and as a
+    TorchScript archive, read by the DCMHT trainer through ``model.clip_path``."""
+    import yaml
+
+    from cmh_torch.config import config_from_dict
+    from cmh_torch.models.clip.loader import save_torchscript_archive
+    from cmh_torch.models.clip.model import CLIP, CLIPConfig
+    from cmh_torch.runners.dcmht import DCMHTTrainer
+
+    root = tempfile.mkdtemp(prefix="cmh_smoke_clip_")
+    launches = {}
+    try:
+        clip = CLIP(CLIPConfig())
+        clip.init_weights(torch.Generator().manual_seed(12))
+        half = {k: v.detach().half() for k, v in clip.state_dict().items()}
+        del clip
+        ints = {"input_resolution": torch.tensor(224), "context_length": torch.tensor(77),
+                "vocab_size": torch.tensor(49408)}
+        files = {"fp16 state dict": os.path.join(root, "ViT-B-32-sd.pt"),
+                 "TorchScript archive": os.path.join(root, "ViT-B-32.pt")}
+        torch.save({**half, **ints}, files["fp16 state dict"])
+        save_torchscript_archive({**half, **ints}, files["TorchScript archive"])
+        with open(TRAIN_CONFIG) as f:
+            cfg = yaml.safe_load(f)
+        batch = device_batch(torch, torch.Generator(device="cuda").manual_seed(8), B)
+        first = None
+        for what, path in files.items():
+            cfg["model"]["clip_path"] = path
+            cfg["run"].update(save_dir=os.path.join(root, "run"), log_dir=os.path.join(root, "log"))
+            t0 = time.perf_counter()
+            tr = DCMHTTrainer.from_config(cfg=config_from_dict(cfg), device="cuda", auto_run=False)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            if tr.model.backbone.cfg != CLIPConfig():
+                raise AssertionError(f"{what}: inferred {tr.model.backbone.cfg}, not ViT-B/32")
+            sd = tr.model.state_dict()
+            bad = [k for k, v in half.items() if not torch.equal(sd["backbone." + k].cpu(), v.float())]
+            n_backbone = sum(1 for k in sd if k.startswith("backbone."))
+            if bad or n_backbone != len(half):
+                raise AssertionError(f"{what}: backbone tensors differ from the file: {bad[:5]}")
+            reset_counts(counters)
+            tr.model.eval()
+            with torch.no_grad():
+                h_img = tr.model.encode_image(batch["image"])
+                h_txt = tr.model.encode_text(batch["text"], batch["key_padding_mask"])
+                card = [(tr.method.make_hash_code(h), h) for h in (h_img, h_txt)]
+            torch.cuda.synchronize()
+            launches[what] = read_counts(counters)
+            print(f"[pretrained] {what}: {os.path.getsize(path)} bytes, trainer built and "
+                  f"backbone loaded in {load_s:.2f} s; config ViT-B/32 bf16; {len(half)} "
+                  f"backbone tensors equal the file's; eval of {B} pairs launches "
+                  f"{launches[what]}", flush=True)
+            if first is None:
+                first = card
+                # the CPU model read from the same file, in the same dtype
+                cpu_tr = DCMHTTrainer.from_config(cfg=config_from_dict(cfg), device="cpu",
+                                                  auto_run=False)
+                cpu_tr.model.eval()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    hc_img = cpu_tr.model.encode_image(batch["image"].cpu())
+                    hc_txt = cpu_tr.model.encode_text(batch["text"].cpu(),
+                                                      batch["key_padding_mask"].cpu())
+                print(f"[pretrained] CPU reference forward {time.perf_counter() - t0:.1f} s",
+                      flush=True)
+                for name, got, h in (("image", card[0], hc_img), ("text", card[1], hc_txt)):
+                    code_bits_agree(torch, got, (cpu_tr.method.make_hash_code(h), h), name)
+                del cpu_tr
+            elif not all(torch.equal(a[0], b[0]) for a, b in zip(card, first)):
+                raise AssertionError(f"{what}: codes differ from the first file's")
+            del tr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = {k: sum(l[k] for l in launches.values()) for k in counters}
+    expect = {k: 0 for k in counters}
+    expect.update(layernorm=2 * 51, attention=2 * 22)
+    if total != expect:
+        raise AssertionError(f"pretrained eval launches {total} != {expect}")
+    return total
+
+
+METHOD_CONFIGS = {"DSPH": os.path.join(ROOT, "configs", "DSPH", "config.yaml"),
+                  "DNPH": os.path.join(ROOT, "configs", "DNPH", "config.yaml")}
+
+
+def method_config(arch):
+    """Phase 10's YAML: ``configs/{arch}/config.yaml`` (Baseline has none:
+    DSPH's optimizer and run sections, with Baseline's model) with the
+    dataset of ``configs/DCMHT/synthetic_tpu.yaml`` and 8 classes; 2 epochs
+    of 2 steps at batch 100, a checkpoint after each, auto-resume; DSPH
+    with ``run.remat``."""
+    import yaml
+
+    with open(TRAIN_CONFIG) as f:
+        synthetic = yaml.safe_load(f)
+    with open(METHOD_CONFIGS.get(arch, METHOD_CONFIGS["DSPH"])) as f:
+        cfg = yaml.safe_load(f)
+    if arch == "Baseline":
+        cfg["model"] = {"arch": "Baseline", "clip_path": "./ViT-B-32.pt", "hash_func": "tanh",
+                        "quan_alpha": 0.001}
+        cfg["optimizer"].pop("hyp")
+        cfg["run"]["arch"] = "BaselineTrainer"
+    cfg["model"]["numclass"] = synthetic["dataset"]["num_classes"]
+    cfg["dataset"] = synthetic["dataset"]
+    cfg["run"].update(epochs=2, train_num=200, query_num=100, batch_size=100, display_step=1,
+                      checkpoint_every=1, auto_resume=True, remat=arch == "DSPH")
+    return cfg
+
+
+def train_methods(torch, counters):
+    """Phase 10: Baseline, DSPH and DNPH through the CLI at full width, each
+    run twice on one save root (the rerun resumes at epoch 2 and trains
+    nothing); after DSPH, phase 7's search on its exported encoders."""
+    import numpy as np
+    import yaml
+
+    from cmh_torch.ops.hungarian import assign_noise
+
+    by_path = {}
+    for arch in ("Baseline", "DSPH", "DNPH"):
+        root = tempfile.mkdtemp(prefix=f"cmh_smoke_{arch.lower()}_")
+        try:
+            cfg = method_config(arch)
+            cfg_path = os.path.join(root, "config.yaml")
+            with open(cfg_path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            steps, expect = expected_launches(cfg, remat=cfg["run"]["remat"])
+            reset_counts(counters)
+            calls0, host0, solve0 = (assign_noise.calls, assign_noise.host_seconds,
+                                     assign_noise.solve_seconds)
+            # ---- the main path: python -m cmh_torch.main, in-process
+            t0 = time.perf_counter()
+            tr = train_cli(cfg_path, os.path.join(root, "run"))
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+            t_main = time.perf_counter() - t0
+            # ---- end of the main path
+            by_path[arch] = launches
+            hist = tr.history
+            train_s = sum(h["seconds"] for h in hist)
+            wait_s = sum(h["data_wait_s"] for h in hist)
+            print(f"[{arch}] {steps} steps: {train_s / steps * 1e3:.1f} ms a step on the host "
+                  f"clock, {(train_s - wait_s) / steps * 1e3:.1f} ms without the data waits; "
+                  f"main path {t_main:.1f} s; epoch losses {[h['loss'] for h in hist]}; "
+                  f"mAPs {[h['maps'] for h in hist]}", flush=True)
+            print(f"[{arch}] launches {launches} expected {expect}", flush=True)
+            if launches != expect:
+                raise AssertionError(f"{arch}: launch counts {launches} != expected {expect}")
+            if len(hist) != 2 or not all(np.isfinite(h["loss"]) for h in hist):
+                raise AssertionError(f"{arch}: non-finite or missing epoch losses: {hist}")
+            check_last_maps(torch, tr, f"[{arch}]")
+            if arch == "DNPH":
+                calls = assign_noise.calls - calls0
+                print(f"[DNPH] Hungarian solves: {calls} ({calls // steps} a step), "
+                      f"{(assign_noise.host_seconds - host0) / steps * 1e3:.3f} ms a step on "
+                      f"the host, the device-to-host copy of the cost included (it waits for "
+                      f"the forward), of which the solves "
+                      f"{(assign_noise.solve_seconds - solve0) / steps * 1e3:.3f} ms", flush=True)
+                if calls != 2 * steps:
+                    raise AssertionError(f"DNPH: {calls} Hungarian solves in {steps} steps")
+            reset_counts(counters)
+            again = train_cli(cfg_path, os.path.join(root, "run"))
+            torch.cuda.synchronize()
+            relaunched = sum(read_counts(counters).values())
+            bad = same_state(torch, tr, again)
+            print(f"[{arch}] rerun: epochs trained {len(again.history)}, launches {relaunched}; "
+                  f"{len(again.model.state_dict())} model tensors, BertAdam and "
+                  f"{sorted(again.extra_optimizers) or 'no other optimizer'}: {len(bad)} differ",
+                  flush=True)
+            if again.history or relaunched:
+                raise AssertionError(f"{arch}: the rerun trained: {again.history}")
+            if trackers(again) != trackers(tr) or bad:
+                raise AssertionError(f"{arch}: the resumed state differs: {bad[:8]}")
+            del again
+            if arch == "DSPH":
+                by_path["DSPH serving"] = dsph_search(torch, counters, tr)
+                remat_memory(torch, tr)
+            steady_steps(torch, tr, arch)
+            del tr
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    return by_path
+
+
+def steady_steps(torch, tr, arch, n=3):
+    """Host clock of ``n`` more train steps on a batch made on the card,
+    each ended by a synchronise, after the run's warm-up (outside the main
+    path's counts); for DNPH with its Hungarian step split into the
+    device→host copy of the cost (which waits for the forward) and the
+    solves."""
+    from cmh_torch.ops.hungarian import assign_noise
+
+    batch = device_batch(torch, torch.Generator(device="cuda").manual_seed(10), TRAIN_B)
+    tr.train_step(batch)
+    torch.cuda.synchronize()
+    host0, solve0 = assign_noise.host_seconds, assign_noise.solve_seconds
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    line = (f"[{arch}] steady train steps at batch {TRAIN_B}, host clock: "
+            f"{[round(t, 3) for t in times]} ms" + (" (remat)" if tr.remat else ""))
+    if arch == "DNPH":
+        host = (assign_noise.host_seconds - host0) / n * 1e3
+        solve = (assign_noise.solve_seconds - solve0) / n * 1e3
+        line += (f"; Hungarian step {host:.3f} ms a step: copy of the cost {host - solve:.3f}, "
+                 f"two solves {solve:.3f}")
+    print(line, flush=True)
+
+
+def remat_memory(torch, tr):
+    """Peak device memory of one DSPH train step at batch 100, with
+    ``run.remat`` and without (the same trainer; two steps outside the main
+    path's counts). Printed, not checked: the recompute of one segment that
+    spans the whole forward brings its activations back at once."""
+    batch = device_batch(torch, torch.Generator(device="cuda").manual_seed(9), TRAIN_B)
+    peaks = {}
+    for remat in (True, False):
+        tr.remat = remat
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated(), before)
+    tr.remat = True
+    print(f"[DSPH] peak device memory of one train step (torch.cuda.max_memory_allocated): "
+          f"remat {peaks[True][0] / 2**30:.3f} GiB, without {peaks[False][0] / 2**30:.3f} GiB "
+          f"({(peaks[True][0] - peaks[True][1]) / 2**30:.3f} and "
+          f"{(peaks[False][0] - peaks[False][1]) / 2**30:.3f} GiB above the "
+          f"{peaks[True][1] / 2**30:.3f} GiB held before the step)", flush=True)
+
+
+def dsph_search(torch, counters, trainer):
+    """Phase 7, DSPH: encoders exported from phase 10's trained model and
+    reloaded encode 256 images (codes equal to the trainer's model's) into
+    a 16-bit index filled past 2^20 items; one search of 4 captions runs
+    through K4 and equals a CPU copy of the index."""
+    import numpy as np
+
+    from cmh_torch.export import load_encoders, save_encoders
+    from cmh_torch.models.clip.tokenizer import SimpleTokenizer, tokenize_caption
+    from cmh_torch.serving import _DEVICE_BLOCK, RetrievalIndex
+
+    os.makedirs(WORK, exist_ok=True)
+    enc_path = os.path.join(WORK, "dsph_enc.pt")
+    save_encoders(trainer.model, trainer.cfg, enc_path)
+    enc = load_encoders(enc_path, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    imgs = torch.randn((B, 224, 224, 3), generator=gen, device="cuda")
+    tok = SimpleTokenizer()
+    ids, masks = (np.stack(a) for a in zip(*(tokenize_caption(tok, c, MAX_WORDS)
+                                              for c in CAPTIONS[:4])))
+    reset_counts(counters)
+    # ---- the main path: encode, index, search
+    codes = enc.encode_image(imgs)
+    index = RetrievalIndex(CODE_BITS, device="cuda")
+    index.add(codes)
+    index.add(torch.randint(0, 2, (INDEX_ITEMS - B, CODE_BITS), generator=gen,
+                            device="cuda").float() * 2 - 1)
+    queries = enc.encode_text(ids, masks)
+    dist, idx = index.search(queries, topk=10)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    # ---- end of the main path
+    trainer.model.eval()
+    with torch.no_grad():
+        want = trainer.method.make_hash_code(trainer.model.encode_image(imgs)).cpu().numpy()
+    if not np.array_equal(codes, want):
+        raise AssertionError("DSPH: exported encoders' codes differ from the trainer's")
+    path = os.path.join(WORK, "dsph_index.npz")
+    index.save(path)
+    want_d, want_i = RetrievalIndex.load(path, device="cpu").search(queries, topk=10)
+    if not (np.array_equal(np.asarray(dist), np.asarray(want_d))
+            and np.array_equal(np.asarray(idx), np.asarray(want_i))):
+        raise AssertionError("DSPH: the search differs from the plain top-k")
+    expect = {k: 0 for k in counters}
+    expect.update(layernorm=51, attention=22, hamming=-(-INDEX_ITEMS // _DEVICE_BLOCK))
+    print(f"[serving-DSPH] {B} images encoded by the exported encoders (codes equal the "
+          f"trainer's), index {len(index)} items, 4 caption queries: results equal the plain "
+          f"top-k; launches {launches} expected {expect}", flush=True)
+    if launches != expect:
+        raise AssertionError(f"DSPH search launches {launches} != expected {expect}")
+    return launches
 
 
 def main() -> int:
@@ -1210,9 +1579,15 @@ def main() -> int:
         by_path["training"], _ = training(torch, counters)
         preemption(torch)
         flat_optimizer(torch)
+        by_path["pretrained"] = pretrained_load(torch, counters)
+        by_path.update(train_methods(torch, counters))
+        train_kernels = ("layernorm", "layernorm_bwd", "attention", "attention_bwd",
+                         "map_hist", "map_ap")
         for path, need in (("serving", ("layernorm", "attention", "hamming")),
-                           ("training", ("layernorm", "layernorm_bwd", "attention",
-                                         "attention_bwd", "map_hist", "map_ap"))):
+                           ("training", train_kernels), ("pretrained", ("layernorm", "attention")),
+                           ("Baseline", train_kernels), ("DSPH", train_kernels),
+                           ("DNPH", train_kernels),
+                           ("DSPH serving", ("layernorm", "attention", "hamming"))):
             idle = [k for k in need if by_path[path][k] == 0]
             if idle:
                 raise AssertionError(f"{path}: kernels {idle} were never launched")

@@ -1,7 +1,9 @@
 """cmh_torch: PyTorch/CUDA port of the cmh_tpu cross-modal hashing package.
 
-The serving path is ported: text or image query → CLIP ViT-B/32 tower →
-DCMHT hash head → ±1 codes → packed index → exact top-k. Every Pallas
+Training (DCMHT, Baseline, DSPH, DNPH, from random init or a pretrained
+CLIP checkpoint) and serving are ported: text or image query → CLIP
+ViT-B/32 tower → the method's hash head → ±1 codes → packed index → exact
+top-k. Every Pallas
 kernel on that path has a hand-written CUDA C++ kernel for Hopper under
 ``cmh_torch/csrc/`` (built at first use by ``ops/_build.py``) and a plain
 PyTorch version beside it that runs on CPU tensors.

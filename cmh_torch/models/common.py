@@ -2,8 +2,13 @@
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 from torch import nn
+
+from ..utils.seed import derived_seed
 
 
 class SingleTokenAttention(nn.Module):
@@ -70,3 +75,78 @@ class BatchNorm1d(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+
+def kaiming_uniform_fan_out_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """The reference heads' ``kaiming_uniform_(mode='fan_out')``: uniform
+    ±√2·√(3 / out_features) (cmh_tpu ``ops/hashing.py:kaiming_uniform_fan_out``)."""
+    bound = (2.0**0.5) * (3.0 / weight.shape[0]) ** 0.5
+    weight.copy_((torch.rand(weight.shape, generator=generator) * 2 - 1) * bound)
+
+
+def torch_default_linear_(lin: nn.Linear, generator: torch.Generator) -> None:
+    """``nn.Linear``'s default init, weight and bias uniform ±1/√in_features
+    (cmh_tpu ``models/common.py:torch_default_dense``)."""
+    bound = 1.0 / lin.in_features**0.5
+    for t in (lin.weight, lin.bias):
+        t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
+
+
+class LinearHash(nn.Module):
+    """Linear → dropout → tanh in fp32, the DSPH and DNPH heads (reference
+    ``hash/hash.py`` of each; their inits differ and live in the models)."""
+
+    def __init__(self, width: int, output_dim: int, dropout: float = 0.2):
+        super().__init__()
+        self.fc = nn.Linear(width, output_dim)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.drop(self.fc(x.float())))
+
+
+class _Scope(threading.local):
+    seed = None
+    step = 0
+    position = 0
+
+
+_SCOPE = _Scope()
+
+
+@contextlib.contextmanager
+def dropout_rng(seed: int, step: int):
+    """Inside the block, the n-th ``Dropout`` call in train mode draws its
+    mask from a generator seeded by (``seed``, ``step``, n), the role of
+    cmh_tpu's ``fold_in(dropout_key, step)``: a step draws the same masks when
+    it is run again, after a resume or in ``run.remat``'s recompute."""
+    saved = (_SCOPE.seed, _SCOPE.step, _SCOPE.position)
+    _SCOPE.seed, _SCOPE.step, _SCOPE.position = int(seed), int(step), 0
+    try:
+        yield
+    finally:
+        _SCOPE.seed, _SCOPE.step, _SCOPE.position = saved
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (flax ``nn.Dropout``: keep with probability 1 − p,
+    scale the kept by 1/(1 − p)) whose masks come from ``dropout_rng``, never
+    from the global RNG. The mask is drawn on the CPU, so it is the same
+    whatever the device. Identity in eval mode or at p = 0; in train mode
+    outside ``dropout_rng`` it raises."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if _SCOPE.seed is None:
+            raise RuntimeError("Dropout in train mode needs a dropout_rng(seed, step) block")
+        gen = torch.Generator().manual_seed(
+            derived_seed(_SCOPE.seed, _SCOPE.step, _SCOPE.position))
+        _SCOPE.position += 1
+        keep = (torch.rand(x.shape, generator=gen) >= self.p).to(x.device)
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
+                                                                  device=x.device))

@@ -1,10 +1,11 @@
-"""Carry cmh_tpu DCMHT weights into the port.
+"""Carry cmh_tpu method weights into the port.
 
-``dcmht_state_from_jax(params, batch_stats)`` turns cmh_tpu's flax trees
-(nested dicts of numpy arrays) into the port's ``state_dict``, which uses
-the reference torch names. It is the exact inverse of cmh_tpu's
-``models/torch_import.py:dcmht_from_torch_state`` (and, for the backbone,
-``models/clip/loader.py:params_from_state_dict``): flax Dense kernels
+``dcmht_state_from_jax(params, batch_stats)``, ``baseline_state_from_jax``,
+``dsph_state_from_jax`` and ``dnph_state_from_jax`` (``params``) turn
+cmh_tpu's flax trees (nested dicts of numpy arrays) into the port's
+``state_dict``, which uses the reference torch names. Each is the exact
+inverse of its cmh_tpu ``models/torch_import.py:*_from_torch_state`` (and,
+for the backbone, ``models/clip/loader.py:params_from_state_dict``): flax Dense kernels
 (in, out) become torch weights (out, in), the patch kernel HWIO becomes
 (out, in, kh, kw), and LayerNorm/BatchNorm scale becomes ``weight``.
 """
@@ -91,4 +92,37 @@ def dcmht_state_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]
     sd.update(_attention(txt["atten"], "hash.txt_hash.atten"))
     sd.update(_norm(txt["norm"], "hash.txt_hash.norm"))
     sd.update(_linear(txt["fc2"], "hash.txt_hash.fc2"))
+    return sd
+
+
+def baseline_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """cmh_tpu Baseline ``params`` → the port's ``BaselineModel`` state_dict
+    (inverse of ``baseline_from_torch_state``)."""
+    sd = clip_state_from_jax(params["backbone"])
+    for side in ("img", "txt"):
+        head = params[f"hash_{side}"]
+        sd.update(_linear(head["fc1"], f"hash.{side}_hash.0"))
+        sd.update(_linear(head["fc2"], f"hash.{side}_hash.3"))
+    return sd
+
+
+def dsph_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """cmh_tpu DSPH ``params`` → the port's ``DSPHModel`` state_dict
+    (inverse of ``dsph_from_torch_state``)."""
+    sd = clip_state_from_jax(params["backbone"])
+    sd.update(_linear(params["hash_img"]["fc"], "hash.img_hash.fc"))
+    sd.update(_linear(params["hash_txt"]["fc"], "hash.txt_hash.fc"))
+    sd["hyp.proxies"] = _t(params["proxies"])
+    return sd
+
+
+def dnph_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """cmh_tpu DNPH ``params`` → the port's ``DNPHModel`` state_dict
+    (inverse of ``dnph_from_torch_state``)."""
+    sd = clip_state_from_jax(params["backbone"])
+    sd.update(_linear(params["hash_img"]["fc"], "hash.image_hash.fc"))
+    sd.update(_linear(params["hash_txt"]["fc"], "hash.text_hash.fc"))
+    sd.update(_linear(params["pre_img"], "hash.image_pre.fc"))
+    sd.update(_linear(params["pre_txt"], "hash.text_pre.fc"))
+    sd["loss.proxies"] = _t(params["proxies"])
     return sd

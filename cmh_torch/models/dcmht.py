@@ -1,5 +1,4 @@
-"""DCMHT model, loss and method bundle (counterpart of
-``cmh_tpu/models/dcmht.py`` and the method contract of ``models/base.py``).
+"""DCMHT model, loss and method (counterpart of ``cmh_tpu/models/dcmht.py``).
 
 Per-modality head = single-token attention → norm (BatchNorm for images,
 LayerNorm for text) → Linear(embed → 2K) → relu → pairwise softmax (or
@@ -13,7 +12,7 @@ The eval code is pair-argmax → ±1.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,12 +21,9 @@ from ..ops.hashing import pair_argmax_code, sign_code, softmax_hash, tanh_hash
 from ..ops.layernorm import layernorm_plain
 from ..ops.metrics import calc_label_sim, cosine_similarity, euclidean_similarity
 from ..registry import registry
+from .base import Method, resolve_clip_cfg
 from .clip.model import CLIP, CLIPConfig
-from .common import BatchNorm1d, SingleTokenAttention
-
-# the matmul dtypes the kernels take (cmh_tpu also allows float16)
-_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
-           "float32": torch.float32, "fp32": torch.float32}
+from .common import BatchNorm1d, SingleTokenAttention, kaiming_uniform_fan_out_
 
 
 class TextNorm(nn.Module):
@@ -63,10 +59,7 @@ class ModalityHash(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         self.atten.init_weights(generator)
         # kaiming-uniform over fan_out = 2K, zero bias
-        fan_out = self.fc2.out_features
-        bound = (2.0**0.5) * (3.0 / fan_out) ** 0.5
-        w = self.fc2.weight
-        w.copy_((torch.rand(w.shape, generator=generator) * 2 - 1) * bound)
+        kaiming_uniform_fan_out_(self.fc2.weight, generator)
         self.fc2.bias.zero_()
 
 
@@ -118,27 +111,16 @@ class DCMHTModel(nn.Module):
 
     @classmethod
     def from_config(cls, cfg) -> "DCMHTModel":
-        """Build from a config tree (``configs/DCMHT/*.yaml``): ``model.
-        clip_variant: tiny`` picks the test geometry, else ViT-B/32;
-        ``model.clip_dtype`` the matmul dtype (default bf16);
-        ``model.hash_func`` and ``run.output_dim`` the head. Pretrained
-        CLIP checkpoints are not read: weights come from ``init_weights``
-        or a state dict."""
+        """Build from a config tree (``configs/DCMHT/*.yaml``): the CLIP
+        geometry by ``models.base.resolve_clip_cfg`` (``model.clip_variant:
+        tiny``, then the checkpoint at ``model.clip_path``, then ViT-B/32),
+        ``model.hash_func`` and ``run.output_dim`` the head. Weights come
+        from ``init_weights``, a state dict or
+        ``DCMHTMethod.load_pretrained_backbone``."""
         m = cfg.get("model") or {}
         run = cfg.get("run") or {}
-        return cls(clip_config(m), output_dim=int(run.get("output_dim", 16)),
+        return cls(resolve_clip_cfg(m), output_dim=int(run.get("output_dim", 16)),
                    hash_func=m.get("hash_func", "softmax"))
-
-
-def clip_config(cfg_model) -> CLIPConfig:
-    """``clip_variant: tiny`` picks the test geometry (fp32 unless
-    ``clip_dtype`` says otherwise, as cmh_tpu's ``resolve_clip_cfg``), else
-    ViT-B/32 with ``clip_dtype`` matmuls (default bf16)."""
-    m = cfg_model or {}
-    dtype = _DTYPES[str(m.get("clip_dtype", "bfloat16"))]
-    if m.get("clip_variant", None) == "tiny":
-        return CLIPConfig.tiny(dtype=dtype if m.get("clip_dtype") else torch.float32)
-    return CLIPConfig(dtype=dtype)
 
 
 def _similarity_loss(a, b, label_sim, *, output_dim, vartheta, threshold,
@@ -164,11 +146,12 @@ def soft_argmax_hash_loss(code: torch.Tensor) -> torch.Tensor:
 
 def dcmht_loss_fn(*, output_dim, vartheta=0.75, threshold=0.1,
                   quan_alpha=0.001, similarity_function="euclidean"):
-    """The DCMHT loss: ``loss(outputs, labels) -> (total, loss_dict)`` with
-    cmh_tpu's loss-dict layout."""
+    """The DCMHT loss, ``loss(outputs, batch, method_state, step) -> (total,
+    loss_dict, method_state)`` with cmh_tpu's loss-dict layout."""
 
-    def loss(outputs, labels) -> Tuple[torch.Tensor, Dict]:
+    def loss(outputs, batch, method_state, step) -> Tuple[torch.Tensor, Dict, Dict]:
         img_hash, txt_hash = outputs
+        labels = batch["label"]
         label_sim = calc_label_sim(labels, labels)
         kw = dict(output_dim=output_dim, vartheta=vartheta, threshold=threshold,
                   similarity_function=similarity_function)
@@ -188,42 +171,30 @@ def dcmht_loss_fn(*, output_dim, vartheta=0.75, threshold=0.1,
             },
             "Quan": {"Image": quan_img, "Text": quan_txt},
         }
-        return total, loss_dict
+        return total, loss_dict, method_state
 
     return loss
 
 
 @registry.register_model("DCMHT")
-class DCMHTMethod:
-    """What the trainer needs of the method: ``model`` (the module, with
-    parameters under ``backbone.`` and ``hash.``), ``loss``,
-    ``make_hash_code`` and ``eval_code_dims`` (cmh_tpu ``models/base.py:53-130``)."""
+class DCMHTMethod(Method):
+    """DCMHT on the method contract: pair-argmax codes, no extra optimizer."""
 
     arch = "DCMHT"
 
-    def __init__(self, model: DCMHTModel, loss, cfg_model=None) -> None:
-        self.model = model
-        self.loss = loss
-        self.cfg_model = cfg_model
-
-    @property
-    def output_dim(self) -> int:
-        return self.model.output_dim
-
-    def make_hash_code(self, code: torch.Tensor) -> torch.Tensor:
-        return self.model.make_hash_code(code)
-
-    def eval_code_dims(self) -> int:
-        return self.output_dim
+    def __init__(self, model: DCMHTModel, loss, cfg_model=None, train_num: int = 10000):
+        super().__init__(model, loss, cfg_model, train_num)
+        self.code_mode = "pair_argmax" if model.hash_func == "softmax" else "sign"
 
     @classmethod
-    def from_config(cls, cfg_model, output_dim: int = 16, **_) -> "DCMHTMethod":
+    def from_config(cls, cfg_model, output_dim: int = 16, train_num: int = 10000,
+                    clip_cfg: Optional[CLIPConfig] = None) -> "DCMHTMethod":
         m = cfg_model or {}
-        model = DCMHTModel(clip_config(m), output_dim=output_dim,
+        model = DCMHTModel(resolve_clip_cfg(m, clip_cfg), output_dim=output_dim,
                            hash_func=m.get("hash_func", "softmax"))
         loss = dcmht_loss_fn(
             output_dim=output_dim, vartheta=m.get("vartheta", 0.75),
             threshold=m.get("threshold", 0.1),
             quan_alpha=m.get("quan_alpha", 0.001),
             similarity_function=m.get("similarity_function", "euclidean"))
-        return cls(model, loss, cfg_model)
+        return cls(model, loss, cfg_model, train_num)

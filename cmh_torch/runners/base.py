@@ -1,9 +1,13 @@
 """Trainer: the train/eval lifecycle (counterpart of the parts of
 ``cmh_tpu/runners/base.py`` on the training path).
 
-build dataset → loaders → model → optimizer; then per epoch ``train_epoch``
-(one optimizer step per batch: forward in train mode, the method's loss,
-backward through kernels K1-bwd and K2-bwd on the card, BertAdam) and
+build dataset → loaders → model (the method's, from the registry; its
+backbone read from ``model.clip_path`` when that file exists) → optimizers
+(BertAdam, and SGD for the parameters a method keeps apart, such as DSPH's
+and DNPH's proxies); then per epoch ``train_epoch`` (one step per batch:
+forward in train mode with dropout masks drawn from (``run.seed``, step),
+the method's loss, backward through kernels K1-bwd and K2-bwd on the card,
+every optimizer) and
 ``valid`` (±1 codes for the query and retrieval sets, 4-direction mAP
 through kernels K3-hist and K3-ap on the card, best tracking, the ``.mat``
 dumps and the model file). Everything runs on ``device``, which defaults to
@@ -17,9 +21,11 @@ one; ``run.auto_resume`` takes the newest checkpoint under the save root
 whose config fingerprint matches this run's; SIGTERM, or a crash, writes
 an emergency checkpoint of the interrupted epoch (``runners/checkpoint.py``
 holds the file format). ``run.profile_dir`` traces ``run.profile_steps``
-train steps with ``torch.profiler``; ``run.remat`` is ignored with a
-warning, as cmh_tpu ignores it, because the model's BatchNorm keeps
-running statistics.
+train steps with ``torch.profiler``. ``run.remat`` recomputes the forward in
+the backward (``torch.utils.checkpoint`` around the forward and the loss,
+cmh_tpu's ``jax.checkpoint``) on a model without running statistics, and is
+ignored with a warning, as cmh_tpu ignores it, on one with them (DCMHT's
+BatchNorm).
 
 Run keys that this port does not carry yet raise ``NotImplementedError``
 rather than being ignored (see ``UNPORTED_RUN_KEYS``).
@@ -35,11 +41,15 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from .. import resolve_device
 from ..config import ConfigNode
 from ..data.builder import build_dataloader
 from ..data.loader import HostDataLoader
+from ..models.base import existing_clip_path, resolve_clip_cfg
+from ..models.clip.loader import read_torch_state_dict
+from ..models.common import dropout_rng
 from ..optim.bert_adam import BertAdam
 from ..optim.partition import param_groups
 from ..registry import load_components, registry
@@ -81,7 +91,8 @@ class BaseTrainer:
         load_components()
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.generator = set_seed(cfg.run.get("seed", 1814))
+        self.seed = int(cfg.run.get("seed", 1814))
+        self.generator = set_seed(self.seed)
         self.logger = logger or get_color_logger(
             cfg.run.get("log_dir"),
             str(cfg.dataset.get("name", "dataset")) + "-" + self.device.type)
@@ -177,17 +188,21 @@ class BaseTrainer:
     # ----------------------------------------------------------------- model
     def build_model(self, cfg_model, output_dim=16):
         arch = cfg_model.get("arch", "DCMHT")
+        clip_path = existing_clip_path(cfg_model)
+        # the checkpoint is read once, for its geometry and its weights
+        sd = read_torch_state_dict(clip_path) if clip_path else None
         self.method = registry.require_model_class(arch).from_config(
-            cfg_model, output_dim=output_dim, train_num=self.train_num)
+            cfg_model, output_dim=output_dim, train_num=self.train_num,
+            clip_cfg=resolve_clip_cfg(cfg_model, None, sd))
         self.model = self.method.model
+        self.method_state = self.method.init_method_state()
         self.model.init_weights(self.generator)
-        clip_path = cfg_model.get("clip_path", "./ViT-B-32.pt")
-        if clip_path and os.path.exists(clip_path):
-            raise NotImplementedError(
-                f"model.clip_path {clip_path!r} exists, but reading a pretrained "
-                "CLIP checkpoint is not ported to cmh_torch yet (ROADMAP.md "
-                "Queue 1, 'Pretrained weights'); remove the file or the key")
-        self.logger.info(f"backbone: random init ({clip_path} not found)")
+        if sd is not None:
+            self.method.load_pretrained_backbone(sd)
+            self.logger.info(f"backbone: loaded {clip_path}")
+        else:
+            self.logger.info("backbone: random init "
+                             f"({cfg_model.get('clip_path', './ViT-B-32.pt')} not found)")
         if self.model_state:
             if not os.path.isfile(self.model_state):
                 raise FileNotFoundError(
@@ -196,25 +211,25 @@ class BaseTrainer:
             self.logger.info("loading model...")
             self.model.load_state_dict(self.load_model_file(self.model_state))
         self.model.to(self.device)
-        if self.cfg.run.get("remat", False):
-            self._check_remat()
+        self.remat = bool(self.cfg.run.get("remat", False)) and self._check_remat()
         self.logger.info("Building model!")
         self.logger.info(f"Output dim: {self.output_dim}")
 
-    def _check_remat(self):
-        """cmh_tpu's rule (``runners/base.py:302-311``): a model with mutable
-        state, here buffers that a train-mode forward updates (BatchNorm's
-        running statistics), cannot be recomputed in the backward without
-        updating them twice, so ``run.remat`` is ignored with a warning and
+    def _check_remat(self) -> bool:
+        """Whether ``run.remat`` can apply, by cmh_tpu's rule
+        (``runners/base.py:302-311``): a model with mutable state, here
+        buffers that a train-mode forward updates (BatchNorm's running
+        statistics), cannot be recomputed in the backward without updating
+        them twice, so ``run.remat`` is ignored with a warning and
         activations are stored."""
         stateful = sorted({name.rsplit(".", 1)[0] for name, _ in self.model.named_buffers()})
         if not stateful:
-            raise NotImplementedError(
-                "run.remat on a model without running statistics is not ported to "
-                "cmh_torch yet (ROADMAP.md Queue 1, 'The other seven methods')")
+            self.logger.info("run.remat: the forward is recomputed in the backward")
+            return True
         self.logger.warning(
             f"run.remat ignored: the model carries running statistics ({stateful}) "
             "that a recomputed forward would update twice — activations will be stored")
+        return False
 
     # ------------------------------------------------------------- optimizer
     def build_optimizer(self, cfg_optimizer):
@@ -232,9 +247,16 @@ class BaseTrainer:
             max_grad_norm=cfg_optimizer.get("max_grad_norm", 1.0))
         # what the run fingerprint hashes, built as cmh_tpu builds it
         self._opt_cfg = dict(common, lr=lr, backbone_lr=backbone_lr)
+        # parameters a method trains apart (cmh_tpu's extra_optimizers): one
+        # SGD each, and out of BertAdam's groups
+        extra = self.method.extra_param_groups(cfg_optimizer)
+        self.extra_optimizers = {g["name"]: torch.optim.SGD([dict(g)], lr=g["lr"])
+                                 for g in extra}
         # the flat path by default, as cmh_tpu runs it off a mesh
-        self.optimizer = BertAdam(param_groups(self.model, lr, backbone_lr), lr=lr,
-                                  flat=bool(cfg_optimizer.get("flat", True)), **common)
+        self.optimizer = BertAdam(
+            param_groups(self.model, lr, backbone_lr,
+                         exclude=[p for g in extra for p in g["params"]]),
+            lr=lr, flat=bool(cfg_optimizer.get("flat", True)), **common)
         self._lrs = (lr, backbone_lr)
         self.logger.info("Building optimizer!")
 
@@ -295,9 +317,7 @@ class BaseTrainer:
         for cand in self._resume_candidates():
             # copies of all that a load changes: one that fails may have
             # changed some of it before it raised
-            pristine = pristine or (copy.deepcopy(self.model.state_dict()),
-                                    copy.deepcopy(self.optimizer.state_dict()),
-                                    self._checkpoint_meta(0))
+            pristine = pristine or copy.deepcopy(self._state_blob(0))
             try:
                 return self.load_checkpoint(cand)
             except Exception as e:
@@ -305,9 +325,8 @@ class BaseTrainer:
                 # say) must not stop the restart: try the next, or start fresh
                 self.logger.warning(f"auto_resume: {cand} unreadable "
                                     f"({type(e).__name__}: {e}) — trying next candidate")
-                self.model.load_state_dict(pristine[0])
-                self.optimizer.load_state_dict(pristine[1])
-                self._restore_meta(pristine[2])
+                self._load_state_blob(pristine)
+                self._restore_meta(pristine["meta"])
         return 0
 
     def train(self):
@@ -372,16 +391,35 @@ class BaseTrainer:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
+    def _optimizers(self):
+        return [self.optimizer, *self.extra_optimizers.values()]
+
     def train_step(self, batch):
-        """One optimizer step on a host batch; returns (loss, loss_dict) as
-        device tensors."""
+        """One step of every optimizer on a host batch; returns (loss,
+        loss_dict) as device tensors. Dropout masks and a method's per-step
+        randomness are functions of (``run.seed``, step), where step is the
+        optimizer step count (cmh_tpu's ``state.step``)."""
         self.model.train()
         b = self._to_device(batch)
-        outputs = self.model(b["image"], b["text"], b["key_padding_mask"])
-        loss, loss_dict = self.method.loss(outputs, b["label"])
-        self.optimizer.zero_grad(set_to_none=True)
+        step = self.optimizer.step_count
+
+        def forward_and_loss(image, text, kpm):
+            with dropout_rng(self.seed, step):
+                outputs = self.model(image, text, kpm)
+            return self.method.loss(outputs, b, self.method_state, step)
+
+        args = (b["image"], b["text"], b["key_padding_mask"])
+        if self.remat:
+            loss, loss_dict, method_state = torch.utils.checkpoint.checkpoint(
+                forward_and_loss, *args, use_reentrant=False)
+        else:
+            loss, loss_dict, method_state = forward_and_loss(*args)
+        for opt in self._optimizers():
+            opt.zero_grad(set_to_none=True)
         loss.backward()
-        self.optimizer.step()
+        for opt in self._optimizers():
+            opt.step()
+        self.method_state = method_state
         return loss.detach(), loss_dict
 
     def train_epoch(self, epoch: int):
@@ -593,13 +631,32 @@ class BaseTrainer:
         self.best_epoch_i = int(meta["best_epoch_i"])
         self.best_epoch_t = int(meta["best_epoch_t"])
 
-    def save_checkpoint(self, path: str, epoch: int = 0):
+    def _state_blob(self, epoch: int) -> dict:
         """The full training state: the model's state dict (parameters and
-        BatchNorm statistics), the optimizer's moments and step count, and
-        the trainer's bookkeeping."""
-        checkpoint.write(path, {"model": self.model.state_dict(),
-                                "optimizer": self.optimizer.state_dict(),
-                                "meta": self._checkpoint_meta(epoch)})
+        BatchNorm statistics), BertAdam's moments and step count, the other
+        optimizers' state dicts (SGD momentum buffers) and the trainer's
+        bookkeeping. The method state is not saved: no ported method has
+        one."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "extra_optimizers": {k: o.state_dict() for k, o in self.extra_optimizers.items()},
+                "meta": self._checkpoint_meta(epoch)}
+
+    def _load_state_blob(self, blob: dict) -> bool:
+        """Load the state of ``_state_blob``; returns whether BertAdam's
+        state format was converted (flat↔tree)."""
+        self.model.load_state_dict(blob["model"])
+        converted = self.optimizer.load_state_dict(blob["optimizer"])
+        extra = blob.get("extra_optimizers", {})
+        if set(extra) != set(self.extra_optimizers):
+            raise KeyError(f"extra optimizers {sorted(extra)} != {sorted(self.extra_optimizers)}")
+        for name, opt in self.extra_optimizers.items():
+            opt.load_state_dict(extra[name])
+        return converted
+
+    def save_checkpoint(self, path: str, epoch: int = 0):
+        """``_state_blob`` written to ``path`` with its sidecar."""
+        checkpoint.write(path, self._state_blob(epoch))
         self.logger.info(f"checkpoint saved to {path}")
 
     def load_checkpoint(self, path: str) -> int:
@@ -610,8 +667,7 @@ class BaseTrainer:
         blob = checkpoint.read(path)
         try:
             meta = blob["meta"]
-            self.model.load_state_dict(blob["model"])
-            converted = self.optimizer.load_state_dict(blob["optimizer"])
+            converted = self._load_state_blob(blob)
         except (KeyError, TypeError, ValueError, RuntimeError) as e:
             raise ValueError(
                 f"checkpoint at {path} does not match this trainer's state structure "

@@ -2,7 +2,9 @@
 (counterpart of ``cmh_tpu/runners/base.py:461-582`` and ``:1070-1096``).
 
 A checkpoint is one ``torch.save`` file holding ``{"model", "optimizer",
-"meta"}`` (read back with ``torch.load(weights_only=True)``) and a JSON
+"extra_optimizers", "meta"}`` (the optimizers beside
+BertAdam, such as the proxies' SGD, by name; read back with
+``torch.load(weights_only=True)``) and a JSON
 sidecar ``<file>.meta.json`` with ``{"epoch", "fingerprint"}``, so a
 restart can tell which run wrote a file without reading a multi-GB state.
 Both are written to a temporary file and moved into place with

@@ -9,6 +9,7 @@ same as cmh_tpu's under one seed. Weight init draws from the returned
 
 from __future__ import annotations
 
+import hashlib
 import random
 
 import numpy as np
@@ -22,3 +23,13 @@ def set_seed(seed: int = DEFAULT_SEED) -> torch.Generator:
     random.seed(seed)
     np.random.seed(seed)
     return torch.Generator().manual_seed(seed)
+
+
+def derived_seed(*parts: int) -> int:
+    """A 63-bit seed that is a pure function of the integers ``parts``: the
+    first 8 bytes of their sha256. Per-step randomness (dropout masks, DNPH's
+    noise) draws from generators seeded by (run seed, step, …), the role of
+    cmh_tpu's ``jax.random.fold_in``, so a resumed or recomputed step draws
+    what the uninterrupted one drew."""
+    digest = hashlib.sha256(",".join(str(int(p)) for p in parts).encode()).digest()
+    return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)

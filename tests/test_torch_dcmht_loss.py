@@ -62,7 +62,7 @@ def test_loss_and_gradients_match(sim):
         jnp.asarray(img), jnp.asarray(txt))
     ti = torch.from_numpy(img).requires_grad_()
     tt = torch.from_numpy(txt).requires_grad_()
-    total, ld = dcmht_loss_fn(**kw)((ti, tt), torch.from_numpy(labels))
+    total, ld, _ = dcmht_loss_fn(**kw)((ti, tt), {"label": torch.from_numpy(labels)}, {}, 0)
     total.backward()
     np.testing.assert_allclose(float(total.detach()), float(jtotal), rtol=1e-5)
     want, got = _flat(jax.tree_util.tree_map(float, jld)), _flat(

@@ -23,13 +23,17 @@ print(" ".join(names))
 print(bad)
 """
 
-# the modules of the training slice, each of which must import on its own
+# the modules of the training slices, each of which must import on its own
 TRAINING_MODULES = {
     "cmh_torch.main", "cmh_torch.registry", "cmh_torch.utils.seed",
     "cmh_torch.utils.logger", "cmh_torch.data.dataset", "cmh_torch.data.builder",
     "cmh_torch.data.loader", "cmh_torch.ops.metrics", "cmh_torch.ops.map_bucketed",
     "cmh_torch.ops.map_kernel", "cmh_torch.optim.bert_adam", "cmh_torch.optim.partition",
-    "cmh_torch.runners.base", "cmh_torch.runners.checkpoint", "cmh_torch.runners.dcmht"}
+    "cmh_torch.runners.base", "cmh_torch.runners.checkpoint", "cmh_torch.runners.dcmht",
+    "cmh_torch.models.base", "cmh_torch.models.clip.loader", "cmh_torch.models.losses",
+    "cmh_torch.models.baseline", "cmh_torch.models.dsph", "cmh_torch.models.dnph",
+    "cmh_torch.ops.hungarian", "cmh_torch.runners.baseline", "cmh_torch.runners.dsph",
+    "cmh_torch.runners.dnph"}
 
 
 def test_import_pulls_in_no_jax_and_no_cmh_tpu():

@@ -168,3 +168,74 @@ def test_server_without_encoders_rejects_text(setup):
     assert app.healthz()["text"] is False
     with pytest.raises(ValueError, match="search_text"):
         app.search_text({"text": ["hi"]})
+
+
+def _dsph_trainer(tmp_path):
+    from cmh_torch.runners.dsph import DSPHTrainer
+
+    cfg = {"model": {"arch": "DSPH", "clip_path": "/nonexistent.pt", "clip_variant": "tiny",
+                     "numclass": 4},
+           "optimizer": {"arch": "BertAdam", "lr": 0.002, "hyp": {"lr": 0.02}},
+           "dataset": {"arch": "synthetic_dataset", "name": "synthetic", "num_classes": 4,
+                       "image_resolution": 32, "max_word": W},
+           "run": {"arch": "DSPHTrainer", "save_dir": str(tmp_path),
+                   "log_dir": str(tmp_path / "log"), "output_dim": BITS, "batch_size": 16,
+                   "train_num": 32, "query_num": 16, "epochs": 1, "display_step": 1000}}
+    tr = DSPHTrainer.from_config(cfg=config_from_dict(cfg), device="cpu", auto_run=False)
+    tr.train()
+    return tr
+
+
+def test_dsph_encoders_give_the_trainers_eval_codes_and_search(tmp_path):
+    """A trained DSPH model exported and reloaded: its codes equal the
+    trainer's eval codes, and a search of its retrieval codes through the
+    port's index equals cmh_tpu's index on the same codes."""
+    tr = _dsph_trainer(tmp_path)
+    path = str(tmp_path / "dsph_enc.pt")
+    save_encoders(tr.model, tr.cfg, path)
+    enc = load_encoders(path, device="cpu")
+    assert type(enc.model).__name__ == "DSPHModel" and enc.method.arch == "DSPH"
+    q_img, q_txt = (c.numpy() for c in tr.get_code(tr.query_loader, tr.query_num))
+    r_img, r_txt = (c.numpy() for c in tr.get_code(tr.retrieval_loader, tr.retrieval_num))
+    got_img, got_txt = np.zeros_like(q_img), np.zeros_like(q_txt)
+    for batch in tr.query_loader:
+        idx = batch["index"][batch["valid"]]
+        got_img[idx] = enc.encode_image(batch["image"])[batch["valid"]]
+        got_txt[idx] = enc.encode_text(batch["text"], batch["key_padding_mask"])[batch["valid"]]
+    np.testing.assert_array_equal(got_img, q_img)
+    np.testing.assert_array_equal(got_txt, q_txt)
+    index, ref = RetrievalIndex(BITS, device="cpu"), JaxIndex(BITS)
+    index.add(r_img)
+    ref.add(r_img)
+    dist, idx = index.search(got_txt, topk=10)
+    want_d, want_i = ref.search(got_txt, topk=10)
+    np.testing.assert_array_equal(np.asarray(dist), np.asarray(want_d))
+    np.testing.assert_array_equal(np.asarray(idx), np.asarray(want_i))
+
+
+def test_export_cli_fills_the_backbone_from_clip_path(tmp_path):
+    """``python -m cmh_torch.export --clip-path``: the encoder file's
+    backbone is the checkpoint's, its DSPH head the seeded init."""
+    import torch
+
+    from cmh_torch.export import main as export_main
+    from cmh_torch.models.clip.loader import save_torchscript_archive
+    from cmh_torch.models.clip.model import CLIP, CLIPConfig
+
+    clip = CLIP(CLIPConfig.tiny())
+    clip.init_weights(torch.Generator().manual_seed(21))
+    ckpt = str(tmp_path / "clip.pt")
+    save_torchscript_archive({k: v.half() for k, v in clip.state_dict().items()}, ckpt)
+    cfg = tmp_path / "dsph.yaml"
+    cfg.write_text("model: {arch: DSPH, numclass: 4, clip_variant: tiny}\nrun: {output_dim: 8}\n")
+    outs = {}
+    for name, extra in (("loaded", ["--clip-path", ckpt]), ("random", [])):
+        out = str(tmp_path / f"{name}.pt")
+        export_main(["--config-file", str(cfg), "--out", out, "--seed", "2",
+                     "--device", "cpu"] + extra)
+        outs[name] = load_encoders(out, device="cpu").model.state_dict()
+    for k, v in clip.state_dict().items():
+        assert torch.equal(outs["loaded"]["backbone." + k], v.half().float()), k
+    for k, v in outs["loaded"].items():
+        if not k.startswith("backbone."):
+            assert torch.equal(v, outs["random"][k]), k
