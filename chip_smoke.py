@@ -18,9 +18,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    (batch 256), K1-fwd also at the training step's, the backward kernels
    at the training step's (batch 100), K4 at 64 queries against 2^20 + 777
    items (16 and 64 bits), a request's 4 queries against 2^20 (16 bits)
-   and 64 against 2^18 at 1,024 bits (int32), and the mAP
-   kernels at coco scale (4 directions of 1,024-query chunks against
-   110,000 items, 80 classes, 16 and 64 bits, and 1,024 bits at 20,000);
+   and 64 against 2^18 at 1,024 and 512 bits (int32), and the mAP
+   kernels at coco scale (4 directions of query chunks against 110,000
+   items, 80 classes, 16, 64 and 512 bits (int16 words), and 1,024 bits at
+   20,000); K1 and K2 also in fp32 at MITH's concept transformer's shapes
+   (100 × 16 tokens of width 512; (100, 8, 16, 64)), with the largest
+   concept count the fp32 attention kernels hold in shared memory;
 4. the full-width ViT-B/32 DCMHT model in fp32 on the card (kernels) and on
    the CPU (plain versions) from one seed: head outputs and codes must agree;
 5. one full-width fp32 train step's gradients on 8 pairs, card against CPU;
@@ -73,7 +76,23 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    and without ``remat``, DNPH's host milliseconds a step in the Hungarian
    solve. After DSPH, phase 7's search once more on its exported encoders:
    256 images encoded (codes equal the trainer's) into an index past 2^20
-   items, one search through K4 equal to a CPU copy's.
+   items, one search through K4 equal to a CPU copy's;
+11. MITH and TwDH through the CLI at full width in bf16, as phase 10 runs
+   its methods (``configs/{MITH,TwDH}/config.yaml``, TwDH's ``numclass`` 8):
+   the launch counts (MITH's fp32 K1 and K2 apart: 8 and 2 a forward and a
+   backward), finite losses, every code width's mAPs against the
+   recomputation (TwDH: the 512-bit long code and the 16-bit short one), a
+   rerun that resumes at epoch 2, trains nothing and holds the model,
+   BertAdam, MITH's banks and TwDH's per-width best tracking bit for bit;
+   each method's steady step time (host clock) and the fp32 kernels' share
+   of a MITH step (torch.profiler);
+12. a full-width TwDH ``model-3.msgpack`` in cmh_tpu's layout, written
+   from seeded weights by the port's encoder half (the card's machine has
+   no flax), read through ``run.resume_model`` in test mode: the eval codes
+   of 256 pairs equal those of the model it was written from, the file's
+   bytes and the load seconds printed; then ``search_cpu`` for 4 queries on
+   phase 7's 16-bit index and on a 512-bit TwDH index of 2^18 items, equal
+   to ``search`` through K4, with its host ms and thread count.
 
 The last lines are the card's name and power limit, one JSON object with a
 ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -107,6 +126,7 @@ TRAIN_B = 100                    # configs/DCMHT/synthetic_tpu.yaml batch
 MAX_WORDS, CODE_BITS = 32, 16    # configs/DCMHT/config.yaml
 COCO_N, COCO_Q, COCO_CLASSES = 110_000, 5_000, 80   # bench.py's coco-scale eval
 GALLERY_IMAGES = 2048
+MITH_K = 16                      # configs/MITH/config.yaml: 16 concept tokens a pair
 INDEX_ITEMS = (1 << 20) + 4096   # two gallery blocks of the blocked search
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -203,10 +223,17 @@ def entry(name, source, replaces, shape, err, ms, plain_ms, lib_ms, nbytes, ops,
 def reset_counts(counters):
     for c in counters.values():
         c.launches = 0
+        if hasattr(c, "launches_fp32"):
+            c.launches_fp32 = 0
 
 
 def read_counts(counters):
     return {k: c.launches for k, c in counters.items()}
+
+
+def read_fp32(counters):
+    """Of the launches, those of the fp32 K1 and K2 kernels."""
+    return {k: c.launches_fp32 for k, c in counters.items() if hasattr(c, "launches_fp32")}
 
 
 def check_layernorm(torch, gen):
@@ -237,6 +264,21 @@ def check_layernorm(torch, gen):
             cuda_ms(lambda: F.layer_norm(x, (d,), gb, bb, 1e-5)),
             2 * n * d * 2 + 2 * d * 4, 8 * n * d, "fp32"))
         rows[-1]["cold_ms"] = cold_ms(fused_layernorm, (x, g, b))
+    # MITH's fp32 concept transformer: K = 16 concept tokens a pair, width 512
+    n, d = TRAIN_B * MITH_K, 512
+    x = torch.randn(n, d, generator=gen, device="cuda").mul_(3).add_(1)
+    g, b = (torch.randn(d, generator=gen, device="cuda") for _ in range(2))
+    out, ref = fused_layernorm(x, g, b), layernorm_plain(x, g, b)
+    torch.cuda.synchronize()
+    # fp32 in both: only the order of the sums differs
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    rows.append(entry(
+        "layernorm_fwd", "cmh_torch/csrc/layernorm.cu", "cmh_tpu/ops/layernorm_pallas.py:30",
+        f"({n},{d}) fp32 (MITH)", (out - ref).abs().max().item(),
+        cuda_ms(lambda: fused_layernorm(x, g, b)), cuda_ms(lambda: layernorm_plain(x, g, b)),
+        cuda_ms(lambda: F.layer_norm(x, (d,), g, b, 1e-5)),
+        2 * n * d * 4 + 2 * d * 4, 8 * n * d, "fp32"))
+    rows[-1]["cold_ms"] = cold_ms(fused_layernorm, (x, g, b))
     return rows
 
 
@@ -300,6 +342,21 @@ def check_attention(torch, gen):
                 q, k, v, attn_mask=sdpa_mask, scale=scale)),
             nbytes, 4 * B * h * s * s * 64, "bf16"))
         rows[-1]["head_views_ms"] = cuda_ms(lambda: fused_attention(qp, kp, vp, scale, mask, kpm))
+    # MITH's fp32 concept transformer, block 0: (B, 8, K, 64), no mask
+    q, k, v = (torch.randn(TRAIN_B, 8, MITH_K, 64, generator=gen, device="cuda")
+               for _ in range(3))
+    scale = 64**-0.5
+    out, ref = fused_attention(q, k, v, scale), attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    rows.append(entry(
+        "attention_fwd", "cmh_torch/csrc/attention.cu", "cmh_tpu/ops/attention_pallas.py:60",
+        f"MITH concepts ({TRAIN_B},8,{MITH_K},64) fp32", (out - ref).abs().max().item(),
+        cuda_ms(lambda: fused_attention(q, k, v, scale)),
+        cuda_ms(lambda: attention_plain(q, k, v, scale)),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+        4 * TRAIN_B * 8 * MITH_K * 64 * 4, 4 * TRAIN_B * 8 * MITH_K * MITH_K * 64, "fp32"))
+    rows[-1]["cold_ms"] = cold_ms(lambda a, b, c: fused_attention(a, b, c, scale), (q, k, v))
     return rows
 
 
@@ -324,7 +381,7 @@ def check_hamming(torch, gen):
     # chip_smoke's two K4 shapes first, then a serving request's (4 queries
     # against a 2^20 block) and the int32 path at 1,024 bits
     for nq, ng, bits in ((64, (1 << 20) + 777, 16), (64, (1 << 20) + 777, 64),
-                         (4, 1 << 20, 16), (64, 1 << 18, 1024)):
+                         (4, 1 << 20, 16), (64, 1 << 18, 1024), (64, 1 << 18, 512)):
         def codes(n):
             return torch.randint(0, 2, (n, bits), generator=gen, device="cuda").float() * 2 - 1
         qf, gf = codes(nq), codes(ng)
@@ -380,12 +437,32 @@ def check_layernorm_bwd(torch, gen):
             cuda_ms(lambda: torch.autograd.grad(y, (xl, gl, bl), do, retain_graph=True)),
             3 * n * d * 2 + 3 * d * 4, 12 * n * d, "fp32"))
         rows[-1]["cold_ms"] = cold_ms(layernorm_bwd, (x, g, do))
+    n, d = TRAIN_B * MITH_K, 512           # MITH's fp32 concept transformer
+    x = torch.randn(n, d, generator=gen, device="cuda").mul_(3).add_(1)
+    do = torch.randn(n, d, generator=gen, device="cuda")
+    g = torch.randn(d, generator=gen, device="cuda")
+    got, want = layernorm_bwd(x, g, do), layernorm_bwd_plain(x, g, do)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+    xl, gl, bl = (t.clone().requires_grad_() for t in (x, g, torch.zeros_like(g)))
+    y = F.layer_norm(xl, (d,), gl, bl, 1e-5)
+    rows.append(entry(
+        "layernorm_bwd", "cmh_torch/csrc/layernorm.cu", "cmh_tpu/ops/layernorm_pallas.py:44",
+        f"({n},{d}) fp32 (MITH)", max((a - b).abs().max().item() for a, b in zip(got, want)),
+        cuda_ms(lambda: layernorm_bwd(x, g, do)), cuda_ms(lambda: layernorm_bwd_plain(x, g, do)),
+        cuda_ms(lambda: torch.autograd.grad(y, (xl, gl, bl), do, retain_graph=True)),
+        3 * n * d * 4 + 3 * d * 4, 12 * n * d, "fp32"))
+    rows[-1]["cold_ms"] = cold_ms(layernorm_bwd, (x, g, do))
     return rows
 
 
 def check_attention_bwd(torch, gen):
     import torch.nn.functional as F
 
+    from cmh_torch.ops.attention import _MAX_SMEM as ATTN_MAX_SMEM
+    from cmh_torch.ops.attention import _lib as attention_lib
     from cmh_torch.ops.attention import attention_bwd, attention_bwd_plain
 
     rows = []
@@ -427,6 +504,33 @@ def check_attention_bwd(torch, gen):
             nbytes, 10 * TRAIN_B * h * s * s * 64, "bf16"))
         rows[-1]["head_views_ms"] = cuda_ms(
             lambda: attention_bwd(qp, kp, vp, scale, mask, bias, dop))
+    q, k, v, do = (torch.randn(TRAIN_B, 8, MITH_K, 64, generator=gen, device="cuda")
+                   for _ in range(4))
+    scale = 64**-0.5
+    got = attention_bwd(q, k, v, scale, None, None, do)
+    want = attention_bwd_plain(q, k, v, scale, None, None, do)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    rows.append(entry(
+        "attention_bwd", "cmh_torch/csrc/attention.cu", "cmh_tpu/ops/attention_pallas.py:84",
+        f"MITH concepts ({TRAIN_B},8,{MITH_K},64) fp32",
+        max((a - b).abs().max().item() for a, b in zip(got, want)),
+        cuda_ms(lambda: attention_bwd(q, k, v, scale, None, None, do)),
+        cuda_ms(lambda: attention_bwd_plain(q, k, v, scale, None, None, do)),
+        cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)),
+        7 * TRAIN_B * 8 * MITH_K * 64 * 4, 10 * TRAIN_B * 8 * MITH_K * MITH_K * 64, "fp32"))
+    rows[-1]["cold_ms"] = cold_ms(
+        lambda a, b, c, e: attention_bwd(a, b, c, scale, None, None, e), (q, k, v, do))
+    # the largest K each fp32 kernel holds in shared memory at head dim 64
+    lib = attention_lib()
+    limit = {w: max(s for s in range(1, 257) if getattr(lib, f)(s, 64) <= ATTN_MAX_SMEM)
+             for w, f in (("fwd", "cmh_attention_smem_bytes"),
+                          ("bwd", "cmh_attention_bwd_smem_bytes"))}
+    print(f"[kernel] fp32 attention at head dim 64 holds S <= {limit['fwd']} forward and "
+          f"S <= {limit['bwd']} backward (MITH's K concept tokens)", flush=True)
     return rows
 
 
@@ -452,7 +556,7 @@ def check_map(torch, gen):
     from cmh_torch.ops.metrics import calc_label_sim
 
     rows, runs = [], []
-    for bits, n in ((16, COCO_N), (64, COCO_N), (1024, 20_000)):
+    for bits, n in ((16, COCO_N), (64, COCO_N), (1024, 20_000), (512, COCO_N)):
         chunk, seg = query_chunk(bits), segment_len(bits)
         qi, qt, ri, rt, ql, rl = coco_codes(torch, gen, chunk, n, bits)
         gnd = calc_label_sim(ql, rl)
@@ -584,7 +688,8 @@ def device_batch(torch, gen, n):
     """A training batch made on the card (no loader): 224 px NHWC images,
     token ids laid out as the tokenizer's ([SOT] … [EOT], zero-padded to
     32, lengths 2..32) with their key-padding mask, and multi-hot labels
-    over the synthetic config's 8 classes."""
+    over the synthetic config's 8 classes, and item indices 0..n-1 (MITH's
+    banks)."""
     pos = torch.arange(MAX_WORDS, device="cuda")
     lengths = torch.randint(2, MAX_WORDS + 1, (n,), generator=gen, device="cuda")
     ids = torch.randint(1, 49406, (n, MAX_WORDS), generator=gen, device="cuda")
@@ -595,7 +700,7 @@ def device_batch(torch, gen, n):
     label[torch.arange(n, device="cuda"), torch.randint(0, 8, (n,), generator=gen, device="cuda")] = True
     return {"image": torch.randn(n, 224, 224, 3, generator=gen, device="cuda"),
             "text": ids.int(), "key_padding_mask": pos[None] >= lengths[:, None],
-            "label": label.float()}
+            "label": label.float(), "index": torch.arange(n, device="cuda")}
 
 
 def tower_times(torch):
@@ -719,12 +824,16 @@ def training(torch, counters):
     return launches, stats
 
 
-def expected_launches(cfg, remat=False):
+def expected_launches(cfg, remat=False, fp32=(0, 0), widths=None):
     """(train steps, kernel launches) of a training run of the config
     ``cfg`` (a dict) through the CLI, worked out from the code: per image +
     text pair of full-width towers 51 K1 and 22 K2 (the last block of each
     tower takes the explicit path) forward and backward, the forward twice
-    under ``remat``; one K3 pass each per 1,024-query chunk of a ``valid``."""
+    under ``remat``, and ``fp32`` (K1, K2) more in fp32 (MITH's concept
+    transformers: 2 blocks of 2 LayerNorms and one K2 block a modality);
+    one K3 pass each per query chunk of a ``valid`` for each code width
+    (``widths``, default ``run.output_dim``). With ``fp32`` a third dict
+    gives the fp32 launches alone."""
     import math
 
     from cmh_torch.ops.map_kernel import query_chunk
@@ -736,12 +845,17 @@ def expected_launches(cfg, remat=False):
     eval_b = run.get("eval_batch_size", run["batch_size"])
     eval_batches = (math.ceil(run["query_num"] / eval_b) + math.ceil(retrieval / eval_b)) \
         * run["epochs"]
-    chunks = math.ceil(run["query_num"] / query_chunk(run["output_dim"])) * run["epochs"]
-    ln, attn = 12 * 2 + 2 + 12 * 2 + 1, 11 + 11
+    chunks = sum(math.ceil(run["query_num"] / query_chunk(w))
+                 for w in (widths or [run["output_dim"]])) * run["epochs"]
+    ln, attn = 12 * 2 + 2 + 12 * 2 + 1 + fp32[0], 11 + 11 + fp32[1]
     fwd = steps * (2 if remat else 1) + eval_batches
-    return steps, {"layernorm": ln * fwd, "layernorm_bwd": ln * steps,
-                   "attention": attn * fwd, "attention_bwd": attn * steps,
-                   "hamming": 0, "map_hist": chunks, "map_ap": chunks}
+    expect = {"layernorm": ln * fwd, "layernorm_bwd": ln * steps,
+              "attention": attn * fwd, "attention_bwd": attn * steps,
+              "hamming": 0, "map_hist": chunks, "map_ap": chunks}
+    if fp32 == (0, 0):
+        return steps, expect
+    return steps, expect, {"layernorm": fp32[0] * fwd, "layernorm_bwd": fp32[0] * steps,
+                           "attention": fp32[1] * fwd, "attention_bwd": fp32[1] * steps}
 
 
 def train_main_path(torch, counters, root):
@@ -1314,16 +1428,16 @@ def pretrained_load(torch, counters):
     return total
 
 
-METHOD_CONFIGS = {"DSPH": os.path.join(ROOT, "configs", "DSPH", "config.yaml"),
-                  "DNPH": os.path.join(ROOT, "configs", "DNPH", "config.yaml")}
+METHOD_CONFIGS = {arch: os.path.join(ROOT, "configs", arch, "config.yaml")
+                  for arch in ("DSPH", "DNPH", "MITH", "TwDH")}
 
 
 def method_config(arch):
-    """Phase 10's YAML: ``configs/{arch}/config.yaml`` (Baseline has none:
-    DSPH's optimizer and run sections, with Baseline's model) with the
-    dataset of ``configs/DCMHT/synthetic_tpu.yaml`` and 8 classes; 2 epochs
-    of 2 steps at batch 100, a checkpoint after each, auto-resume; DSPH
-    with ``run.remat``."""
+    """Phase 10's and 11's YAML: ``configs/{arch}/config.yaml`` (Baseline
+    has none: DSPH's optimizer and run sections, with Baseline's model) with
+    the dataset of ``configs/DCMHT/synthetic_tpu.yaml`` and 8 classes (a
+    method's ``numclass``); 2 epochs of 2 steps at batch 100, a checkpoint
+    after each, auto-resume; DSPH with ``run.remat``."""
     import yaml
 
     with open(TRAIN_CONFIG) as f:
@@ -1521,6 +1635,243 @@ def dsph_search(torch, counters, trainer):
     return launches
 
 
+def check_width_maps(torch, trainer, tag):
+    """TwDH: each code width's best-i→t ``.mat`` (``i2t-long.mat``,
+    ``i2t-short-<k>.mat``) recomputed by the plain counting rank and the
+    numpy oracle equals the four mAPs that width's ``valid`` gave in the
+    epoch that wrote it."""
+    import numpy as np
+    import scipy.io as scio
+
+    from cmh_torch.ops.map_bucketed import calc_map_k_4dir
+    from cmh_torch.ops.metrics import calc_map_k_numpy
+
+    epochs = {"long": trainer.best_epoch_i,
+              **{k: v["i2t"] for k, v in trainer.best_epoch_short.items()}}
+    for width, epoch in epochs.items():
+        name = "i2t-long" if width == "long" else f"i2t-short-{width}"
+        mat = scio.loadmat(os.path.join(trainer.save_dir, "mat_files", f"{name}.mat"))
+        args = [mat[k].astype(np.float32)
+                for k in ("q_img", "q_txt", "r_img", "r_txt", "q_l", "r_l")]
+        plain = calc_map_k_4dir(*(torch.from_numpy(a) for a in args))
+        oracle = [calc_map_k_numpy(a, b, args[4], args[5])
+                  for a, b in ((args[0], args[3]), (args[1], args[2]),
+                               (args[0], args[2]), (args[1], args[3]))]
+        got = [h for h in trainer.history if h["epoch"] == epoch][0]["maps_by_width"][width]
+        print(f"{tag} {name}.mat ({args[0].shape[1]} bits, epoch {epoch}): mAPs {list(got)}; "
+              f"plain {plain}; numpy {oracle}", flush=True)
+        if not (np.allclose(got, plain, rtol=0, atol=1e-12)
+                and np.allclose(got, oracle, rtol=0, atol=1e-7)):
+            raise AssertionError(f"{tag} {name}: the mAPs differ from the recomputation")
+
+
+def fp32_share(torch, tr):
+    """torch.profiler over one more MITH train step on a batch made on the
+    card: the device time of the fp32 K1 and K2 kernels (MITH's concept
+    transformers) against all the step's kernel time. Printed, not checked."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = device_batch(torch, torch.Generator(device="cuda").manual_seed(11), TRAIN_B)
+    tr.train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+    kernels = kernel_events(torch, prof)
+    total = sum(_device_us(e) for e in kernels) / 1e3
+    fp32 = [e for e in kernels if ("layernorm" in e.key or "attention" in e.key)
+            and "kernel<float" in e.key]
+    ms = sum(_device_us(e) for e in fp32) / 1e3
+    print(f"[MITH] one train step: fp32 K1/K2 kernels {ms:.4f} ms of {total:.3f} ms kernel "
+          f"time ({ms / max(total, 1e-9):.2%}), {sum(e.count for e in fp32)} launches: "
+          f"{[(e.key[:60], round(_device_us(e) / 1e3, 4), e.count) for e in fp32]}", flush=True)
+
+
+def train_mith_twdh(torch, counters):
+    """Phase 11: MITH and TwDH through the CLI at full width, each run twice
+    on one save root (the rerun resumes at epoch 2 and trains nothing)."""
+    import numpy as np
+    import yaml
+
+    by_path, fp32_by_path = {}, {}
+    for arch in ("MITH", "TwDH"):
+        root = tempfile.mkdtemp(prefix=f"cmh_smoke_{arch.lower()}_")
+        try:
+            cfg = method_config(arch)
+            cfg_path = os.path.join(root, "config.yaml")
+            with open(cfg_path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            if arch == "MITH":
+                steps, expect, expect32 = expected_launches(cfg, fp32=(8, 2))
+            else:
+                m = cfg["model"]
+                steps, expect = expected_launches(cfg, widths=[m["long_dim"], *m["short_dims"]])
+                expect32 = {k: 0 for k in read_fp32(counters)}
+            reset_counts(counters)
+            # ---- the main path: python -m cmh_torch.main, in-process
+            t0 = time.perf_counter()
+            tr = train_cli(cfg_path, os.path.join(root, "run"))
+            torch.cuda.synchronize()
+            launches, fp32 = read_counts(counters), read_fp32(counters)
+            t_main = time.perf_counter() - t0
+            # ---- end of the main path
+            by_path[arch], fp32_by_path[arch] = launches, fp32
+            hist = tr.history
+            train_s = sum(h["seconds"] for h in hist)
+            wait_s = sum(h["data_wait_s"] for h in hist)
+            print(f"[{arch}] {steps} steps: {train_s / steps * 1e3:.1f} ms a step on the host "
+                  f"clock, {(train_s - wait_s) / steps * 1e3:.1f} ms without the data waits; "
+                  f"main path {t_main:.1f} s; epoch losses {[h['loss'] for h in hist]}; "
+                  f"mAPs {[h.get('maps_by_width', h['maps']) for h in hist]}", flush=True)
+            print(f"[{arch}] launches {launches} expected {expect}; fp32 {fp32} expected "
+                  f"{expect32}", flush=True)
+            if launches != expect or fp32 != expect32:
+                raise AssertionError(f"{arch}: launch counts {launches} (fp32 {fp32}) != "
+                                     f"expected {expect} (fp32 {expect32})")
+            if len(hist) != 2 or not all(np.isfinite(h["loss"]) for h in hist):
+                raise AssertionError(f"{arch}: non-finite or missing epoch losses: {hist}")
+            if arch == "MITH":
+                check_last_maps(torch, tr, "[MITH]")
+            else:
+                check_width_maps(torch, tr, "[TwDH]")
+            reset_counts(counters)
+            again = train_cli(cfg_path, os.path.join(root, "run"))
+            torch.cuda.synchronize()
+            relaunched = sum(read_counts(counters).values())
+            bad = same_state(torch, tr, again) + same_tree(torch, tr.method_state,
+                                                           again.method_state, "method state")
+            if arch == "TwDH" and (again.max_short != tr.max_short
+                                   or again.best_epoch_short != tr.best_epoch_short):
+                bad.append("max_short")
+            print(f"[{arch}] rerun: epochs trained {len(again.history)}, launches {relaunched}; "
+                  f"{len(again.model.state_dict())} model tensors, BertAdam, the method state "
+                  f"({sorted(again.method_state)})"
+                  + (f" and max_short {again.max_short}" if arch == "TwDH" else "")
+                  + f": {len(bad)} differ", flush=True)
+            if again.history or relaunched:
+                raise AssertionError(f"{arch}: the rerun trained: {again.history}")
+            if trackers(again) != trackers(tr) or bad:
+                raise AssertionError(f"{arch}: the resumed state differs: {bad[:8]}")
+            del again
+            steady_steps(torch, tr, arch)
+            if arch == "MITH":
+                fp32_share(torch, tr)
+            del tr
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    return by_path, fp32_by_path
+
+
+def same_tree(torch, a, b, what):
+    """Names of the tensors of two nested dicts that differ (or the whole
+    tree when their keys differ)."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return [what]
+        return [x for k in a for x in same_tree(torch, a[k], b[k], f"{what}/{k}")]
+    return [] if torch.equal(a, b) else [what]
+
+
+def msgpack_and_search_cpu(torch, counters, index_path):
+    """Phase 12: a full-width TwDH ``model-N.msgpack`` in cmh_tpu's layout,
+    written from seeded weights with the port's encoder half, read through
+    ``run.resume_model`` in test mode (eval codes of 256 pairs equal the
+    source model's); then ``search_cpu`` against ``search`` through K4 on
+    phase 7's 16-bit index and on a 512-bit TwDH index of 2^18 items."""
+    import numpy as np
+
+    from cmh_torch.config import config_from_dict
+    from cmh_torch.models import convert
+    from cmh_torch.native import hash_ops
+    from cmh_torch.registry import load_components
+    from cmh_torch.serving import RetrievalIndex
+    from cmh_torch.utils import flax_msgpack
+
+    cfg = method_config("TwDH")
+    root = tempfile.mkdtemp(prefix="cmh_smoke_msgpack_")
+    try:
+        method = load_components().require_model_class("TwDH").from_config(
+            config_from_dict(cfg).model, output_dim=cfg["run"]["output_dim"])
+        method.model.init_weights(torch.Generator().manual_seed(14))
+        with torch.no_grad():   # BatchNorm statistics off their init
+            method.model.hash.img_hash.norm.running_mean.normal_(0, 0.1)
+            method.model.hash.img_hash.norm.running_var.uniform_(0.5, 2.0)
+        params, model_state = convert.twdh_state_to_jax(method.model.state_dict())
+        path = os.path.join(root, "model-3.msgpack")
+        t0 = time.perf_counter()
+        with open(path, "wb") as f:
+            nbytes = f.write(flax_msgpack.dumps({"params": params, "model_state": model_state}))
+        write_s = time.perf_counter() - t0
+        del params, model_state
+        method.model.to("cuda").eval()
+        batch = device_batch(torch, torch.Generator(device="cuda").manual_seed(15), B)
+        with torch.no_grad():
+            want = [method.make_codes(f(*a)) for f, a in (
+                (method.encode_image, (batch["image"],)),
+                (method.encode_text, (batch["text"], batch["key_padding_mask"])))]
+        cfg["run"].update(is_train=False, resume_model=path, save_dir=os.path.join(root, "test"),
+                          log_dir=os.path.join(root, "log"))
+        runner = load_components().require_runner_class("TwDHTrainer")
+
+        reset_counts(counters)
+        # ---- the main path: test mode from the file, eval codes, two searches
+        t0 = time.perf_counter()
+        tr = runner.from_config(cfg=config_from_dict(cfg), device="cuda", auto_run=False)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        maps = tr.test()
+        tr.model.eval()
+        with torch.no_grad():
+            got = [tr.method.make_codes(f(*a)) for f, a in (
+                (tr.method.encode_image, (batch["image"],)),
+                (tr.method.encode_text, (batch["text"], batch["key_padding_mask"])))]
+        small = RetrievalIndex.load(index_path, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        q16 = torch.randint(0, 2, (4, CODE_BITS), generator=gen, device="cuda").float() * 2 - 1
+        wide = RetrievalIndex(method.model.output_dim, device="cuda")
+        wide.add(got[0][0])
+        wide.add(torch.randint(0, 2, ((1 << 18) - B, wide.bits), generator=gen,
+                               device="cuda").float() * 2 - 1)
+        q512 = got[1][0][:4]
+        dev = [small.search(q16, topk=10), wide.search(q512, topk=10)]
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        # ---- end of the main path
+        print(f"[msgpack] model-3.msgpack {nbytes} bytes ({os.path.getsize(path)} on disk), "
+              f"written in {write_s:.2f} s; trainer built and file read in {load_s:.2f} s; "
+              f"test mAPs (long code) {maps}; launches {launches}", flush=True)
+        for name, a, b in (("image long", got[0][0], want[0][0]),
+                           ("text long", got[1][0], want[1][0]),
+                           *((f"{m} short {k}", got[i][1][k], want[i][1][k])
+                             for i, m in enumerate(("image", "text")) for k in want[i][1])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"msgpack: {name} codes differ from the source model's")
+        if not np.all(np.isfinite(maps)):
+            raise AssertionError(f"msgpack: test mAPs {maps}")
+        # 5 eval batches of the test (100 queries, 400 items) and the 256 pairs;
+        # one K3 chunk of the long code; K4 on the 2 + 1 gallery blocks
+        expect = {k: 0 for k in counters}
+        expect.update(layernorm=51 * 6, attention=22 * 6, hamming=3, map_hist=1, map_ap=1)
+        if launches != expect:
+            raise AssertionError(f"msgpack + search launches {launches} != expected {expect}")
+        threads = hash_ops.default_threads()
+        for name, index, q, (dd, di) in (("16-bit", small, q16, dev[0]),
+                                         ("512-bit TwDH", wide, q512, dev[1])):
+            index.search_cpu(q.cpu(), topk=10)       # the build and the host copy
+            t0 = time.perf_counter()
+            cd, ci = index.search_cpu(q.cpu(), topk=10)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            equal = np.array_equal(cd, dd) and np.array_equal(ci, di)
+            print(f"[search_cpu] {name} index of {len(index)} items, 4 queries: {host_ms:.3f} ms "
+                  f"on the host clock, {threads} threads; equal to search through K4: {equal}",
+                  flush=True)
+            if not equal:
+                raise AssertionError(f"search_cpu differs from search on the {name} index")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1581,16 +1932,26 @@ def main() -> int:
         flat_optimizer(torch)
         by_path["pretrained"] = pretrained_load(torch, counters)
         by_path.update(train_methods(torch, counters))
+        phase11, fp32_by_path = train_mith_twdh(torch, counters)
+        by_path.update(phase11)
+        by_path["msgpack + search"] = msgpack_and_search_cpu(
+            torch, counters, os.path.join(WORK, "index.npz"))
         train_kernels = ("layernorm", "layernorm_bwd", "attention", "attention_bwd",
                          "map_hist", "map_ap")
         for path, need in (("serving", ("layernorm", "attention", "hamming")),
                            ("training", train_kernels), ("pretrained", ("layernorm", "attention")),
                            ("Baseline", train_kernels), ("DSPH", train_kernels),
                            ("DNPH", train_kernels),
-                           ("DSPH serving", ("layernorm", "attention", "hamming"))):
+                           ("DSPH serving", ("layernorm", "attention", "hamming")),
+                           ("MITH", train_kernels), ("TwDH", train_kernels),
+                           ("msgpack + search", ("layernorm", "attention", "hamming",
+                                                 "map_hist", "map_ap"))):
             idle = [k for k in need if by_path[path][k] == 0]
             if idle:
                 raise AssertionError(f"{path}: kernels {idle} were never launched")
+        idle = [k for k, n in fp32_by_path["MITH"].items() if n == 0]
+        if idle:
+            raise AssertionError(f"MITH: the fp32 kernels {idle} were never launched")
 
         key = {"layernorm_fwd": "layernorm", "attention_fwd": "attention", "hamming": "hamming",
                "layernorm_bwd": "layernorm_bwd", "attention_bwd": "attention_bwd",
@@ -1601,6 +1962,8 @@ def main() -> int:
             # launches over both main-path runs, and per path
             r["launches"] = sum(p[k] for p in by_path.values())
             r["launches_by_path"] = {p: c[k] for p, c in by_path.items()}
+            if k in fp32_by_path["MITH"]:
+                r["fp32_launches_by_path"] = {p: c[k] for p, c in fp32_by_path.items()}
             if r["name"] in seen:
                 seen[r["name"]].setdefault("shapes", []).append(
                     {k: r[k] for k in ("shape", "max_abs_err", "ms", "cold_ms", "plain_ms",

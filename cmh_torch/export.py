@@ -2,22 +2,30 @@
 
 cmh_tpu serializes its encode paths as StableHLO; that has no counterpart
 here. An encoder file is a ``torch.save`` of the config tree, the method's
-arch, the CLIP geometry and the model's ``state_dict``; ``load_encoders``
-rebuilds the model of any registered method (``model.arch``: DCMHT,
-Baseline, DSPH, DNPH) on the asked device and wraps its eval path (encode →
-the method's ``make_hash_code`` → ±1 codes):
+arch, the CLIP geometry, the model's ``state_dict`` and the constants the
+method folds into its eval codes (TwDH's ``trans``, from
+``Method.eval_method_state``); ``load_encoders`` rebuilds the model of any
+registered method (``model.arch``: DCMHT, Baseline, DSPH, DNPH, MITH, TwDH)
+on the asked device and wraps its eval path (the method's encode → its
+``make_hash_code`` → ±1 codes):
 
-    save_encoders(model, cfg, "enc.pt")
+    save_encoders(model, cfg, "enc.pt", method.eval_method_state())
     enc = load_encoders("enc.pt", device="cuda")
     img_codes = enc.encode_image(images)          # (B, H, W, 3) → (B, K) ±1
     txt_codes = enc.encode_text(tokens, kpm)
 
-CLI, writing a seeded random-init model of a config, its backbone read from
-the CLIP checkpoint that ``--clip-path`` (or the config's ``model.clip_path``)
-names, when that file exists:
+TwDH's encoders return, as cmh_tpu's exported ones do, the tree (long codes,
+{short width: codes}); an index is built over the long codes.
+
+CLI, writing the encoders of a config: the weights of ``--model`` (a
+``model-N.pt`` of the port or a cmh_tpu ``model-N.msgpack``), or else a
+seeded random init whose backbone is read from the CLIP checkpoint that
+``--clip-path`` (or the config's ``model.clip_path``) names, when that file
+exists:
 
     python -m cmh_torch.export --config-file configs/DSPH/config.yaml \
-        --out enc.pt [--seed 0] [--device cuda|cpu] [--clip-path ViT-B-32.pt]
+        --out enc.pt [--model model-9.msgpack] [--seed 0] [--device cuda|cpu] \
+        [--clip-path ViT-B-32.pt]
 """
 
 from __future__ import annotations
@@ -47,19 +55,22 @@ def _method(cfg, clip_cfg: Optional[CLIPConfig] = None, state_dict=None) -> Meth
         clip_cfg=resolve_clip_cfg(m, clip_cfg, state_dict))
 
 
-def save_encoders(model: torch.nn.Module, cfg, path: str) -> None:
-    """Write the config tree, the CLIP geometry and ``model``'s weights (the
-    model of the method ``cfg.model.arch`` names) to ``path``."""
+def save_encoders(model: torch.nn.Module, cfg, path: str,
+                  eval_state: Optional[dict] = None) -> None:
+    """Write the config tree, the CLIP geometry, ``model``'s weights (the
+    model of the method ``cfg.model.arch`` names) and the method's
+    ``eval_state`` (``Method.eval_method_state()``) to ``path``."""
     cfg_dict = cfg.to_dict() if isinstance(cfg, ConfigNode) else dict(cfg)
     clip = dataclasses.asdict(model.backbone.cfg)
     clip["dtype"] = _DTYPE_NAMES[clip["dtype"]]
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save({"magic": _MAGIC, "config": cfg_dict, "clip": clip, "state_dict": state},
-               path)
+    torch.save({"magic": _MAGIC, "config": cfg_dict, "clip": clip, "state_dict": state,
+                "eval_state": eval_state or {}}, path)
 
 
 class LoadedEncoders:
-    """The eval-time encode paths of a method's model, returning ±1 codes."""
+    """The eval-time encode paths of a method's model, returning ±1 codes
+    (a tree of them for TwDH)."""
 
     def __init__(self, method: Method, device: torch.device):
         self.method = method
@@ -70,17 +81,25 @@ class LoadedEncoders:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     @torch.no_grad()
-    def encode_image(self, image) -> np.ndarray:
+    def encode_image(self, image):
         """(B, H, W, 3) float32 NHWC → (B, K) ±1 float32 codes."""
-        h = self.model.encode_image(self._tensor(image, torch.float32))
-        return self.method.make_hash_code(h).cpu().numpy()
+        h = self.method.encode_image(self._tensor(image, torch.float32))
+        return _numpy(self.method.make_codes(h))
 
     @torch.no_grad()
-    def encode_text(self, text, key_padding_mask) -> np.ndarray:
+    def encode_text(self, text, key_padding_mask):
         """(B, W) int token ids and (B, W) bool pad mask → (B, K) ±1 codes."""
-        h = self.model.encode_text(self._tensor(text, torch.int64),
-                                   self._tensor(key_padding_mask, torch.bool))
-        return self.method.make_hash_code(h).cpu().numpy()
+        h = self.method.encode_text(self._tensor(text, torch.int64),
+                                    self._tensor(key_padding_mask, torch.bool))
+        return _numpy(self.method.make_codes(h))
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_numpy(v) for v in tree)
+    return tree.cpu().numpy()
 
 
 def load_encoders(path: str, device="cuda") -> LoadedEncoders:
@@ -94,6 +113,7 @@ def load_encoders(path: str, device="cuda") -> LoadedEncoders:
     clip["dtype"] = DTYPES[clip["dtype"]]
     method = _method(config_from_dict(blob["config"]), CLIPConfig(**clip))
     method.model.load_state_dict(blob["state_dict"])
+    method.load_eval_state(blob.get("eval_state") or {})
     method.model.to(dev)
     return LoadedEncoders(method, dev)
 
@@ -102,9 +122,12 @@ def main(argv: Optional[list] = None) -> None:
     import argparse
 
     ap = argparse.ArgumentParser(
-        description="write a seeded random-init encoder file of a method config")
+        description="write the encoder file of a method config: trained weights "
+                    "(--model) or a seeded random init")
     ap.add_argument("--config-file", required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--model", default=None,
+                    help="weights: a model-N.pt of cmh_torch or a cmh_tpu model-N.msgpack")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device the model is built on")
@@ -124,13 +147,17 @@ def main(argv: Optional[list] = None) -> None:
     clip_path = existing_clip_path(cfg.model)
     sd = read_torch_state_dict(clip_path) if clip_path else None
     method = _method(cfg, state_dict=sd)
-    method.model.init_weights(torch.Generator().manual_seed(args.seed))
-    if sd is not None:
-        method.load_pretrained_backbone(sd)
+    if args.model:
+        method.model.load_state_dict(method.read_model_file(args.model))
+        source = f" (weights from {args.model})"
+    else:
+        method.model.init_weights(torch.Generator().manual_seed(args.seed))
+        if sd is not None:
+            method.load_pretrained_backbone(sd)
+        source = f" (backbone from {clip_path})" if sd is not None else ""
     method.model.to(dev)
-    save_encoders(method.model, cfg, args.out)
-    print(f"wrote {cfg.model.get('arch', 'DCMHT')} encoders to {args.out}"
-          + (f" (backbone from {clip_path})" if sd is not None else ""))
+    save_encoders(method.model, cfg, args.out, method.eval_method_state())
+    print(f"wrote {cfg.model.get('arch', 'DCMHT')} encoders to {args.out}{source}")
 
 
 if __name__ == "__main__":

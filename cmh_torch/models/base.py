@@ -11,9 +11,17 @@ names), its ``loss``, and how codes are binarized at eval.
   nested loss dict, new method_state)``, cmh_tpu's contract
   (``cmh_tpu/runners/base.py:642``). ``batch`` holds the device tensors of
   one loader batch (``label``, ``index``, …) and ``step`` is the optimizer
-  step count; ``method_state`` carries training state outside the model,
-  empty for the methods ported so far.
-- ``method.make_hash_code`` binarizes (``sign`` or ``pair_argmax``).
+  step count; ``method_state`` carries training state outside the model
+  (MITH's memory banks, TwDH's centers and transforms), made by
+  ``init_method_state(seed)`` after the trainer has set
+  ``method.train_labels``.
+- ``method.make_hash_code`` binarizes (``sign`` or ``pair_argmax``);
+  ``method.encode_image`` / ``encode_text`` give the eval path's continuous
+  codes, one matrix or, for TwDH, a tree (the long code and one code per
+  short width) whose leaves ``make_codes`` binarizes.
+- ``method.read_model_file(path)``: a ``model-N.pt`` of the port or a
+  cmh_tpu ``model-N.msgpack`` (through ``utils/flax_msgpack.py`` and the
+  method's ``state_from_jax``) as the model's ``state_dict``.
 - ``method.extra_param_groups(cfg_optimizer)``: parameters that leave
   BertAdam for an optimizer of their own (cmh_tpu's runner hook
   ``extra_optimizers``), as ``torch.optim.SGD`` param groups.
@@ -26,12 +34,13 @@ then ViT-B/32. ``load_pretrained_backbone`` overwrites the backbone only.
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
 
 from ..ops.hashing import pair_argmax_code, sign_code
+from ..utils import flax_msgpack
 from .clip.loader import infer_config, load_backbone_state, read_torch_state_dict
 from .clip.model import CLIPConfig
 
@@ -85,13 +94,57 @@ class Method:
     def output_dim(self) -> int:
         return self.model.output_dim
 
-    def init_method_state(self) -> Dict:
+    #: the train set's label matrix, set by the trainer before
+    #: ``init_method_state`` (MITH's bank similarity)
+    train_labels: Any = None
+
+    def init_method_state(self, seed: int = 0) -> Dict:
+        """Training state outside the model, a nested dict of tensors on the
+        CPU (the trainer moves it); ``seed`` is the run seed."""
         return {}
 
     def make_hash_code(self, code: torch.Tensor) -> torch.Tensor:
         if self.code_mode == "pair_argmax":
             return pair_argmax_code(code)
         return sign_code(code)
+
+    def make_codes(self, tree):
+        """``make_hash_code`` over every matrix of an eval output tree."""
+        if isinstance(tree, dict):
+            return {k: self.make_codes(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(self.make_codes(v) for v in tree)
+        return self.make_hash_code(tree)
+
+    def encode_image(self, image: torch.Tensor):
+        """The eval path's continuous image codes."""
+        return self.model.encode_image(image)
+
+    def encode_text(self, text: torch.Tensor, key_padding_mask=None):
+        return self.model.encode_text(text, key_padding_mask)
+
+    def eval_method_state(self) -> Dict:
+        """Constants the eval path folds into its codes, carried by encoder
+        files (TwDH's ``trans``); default none."""
+        return {}
+
+    def load_eval_state(self, state: Dict) -> None:
+        """Take the constants of ``eval_method_state`` from an encoder file."""
+
+    def state_from_jax(self, params: Dict, model_state: Dict) -> Dict[str, torch.Tensor]:
+        """cmh_tpu's ``params`` and ``model_state`` trees (a
+        ``model-N.msgpack``) → this model's ``state_dict``."""
+        raise NotImplementedError(f"{self.arch} has no cmh_tpu weight converter")
+
+    def read_model_file(self, path: str) -> Dict[str, torch.Tensor]:
+        """The weights of a ``model-N.pt`` (the port's) or a
+        ``model-N.msgpack`` (cmh_tpu's ``save_model``) as a ``state_dict``."""
+        if path.endswith(".msgpack"):
+            tree = flax_msgpack.load(path)
+            if not isinstance(tree, dict) or "params" not in tree:
+                raise ValueError(f"{path!r} holds no 'params' tree: not a cmh_tpu model file")
+            return self.state_from_jax(tree["params"], tree.get("model_state") or {})
+        return torch.load(path, map_location="cpu", weights_only=True)
 
     def eval_code_dims(self) -> int:
         """Width of the binarized eval codes."""

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..ops.metrics import calc_label_sim
 from ..registry import registry
+from . import convert
 from .base import Method, resolve_clip_cfg
 from .clip.model import CLIP, CLIPConfig
 from .common import Dropout, kaiming_uniform_fan_out_
@@ -82,6 +83,9 @@ def baseline_loss_fn(*, quan_alpha: float):
 class BaselineMethod(Method):
     arch = "Baseline"
     code_mode = "sign"
+
+    def state_from_jax(self, params, model_state):
+        return convert.baseline_state_from_jax(params)
 
     @classmethod
     def from_config(cls, cfg_model, output_dim: int = 16, train_num: int = 10000,

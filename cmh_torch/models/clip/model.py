@@ -185,6 +185,26 @@ class Transformer(nn.Module):
         return x, attn_weight
 
 
+@torch.no_grad()
+def init_transformer_(tr: Transformer, width: int, generator: torch.Generator) -> None:
+    """A tower's seeded init: normal(width^-½) attention projections,
+    lecun-normal MLP kernels, zero biases, unit LayerNorms."""
+    def normal_(t, std):
+        t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+    for blk in tr.resblocks:
+        normal_(blk.attn.in_proj_weight, width**-0.5)
+        blk.attn.in_proj_bias.zero_()
+        normal_(blk.attn.out_proj.weight, width**-0.5)
+        blk.attn.out_proj.bias.zero_()
+        for ln in (blk.ln_1, blk.ln_2):
+            ln.weight.fill_(1.0)
+            ln.bias.zero_()
+        for lin in (blk.mlp.c_fc, blk.mlp.c_proj):
+            normal_(lin.weight, lin.in_features**-0.5)
+            lin.bias.zero_()
+
+
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
@@ -287,17 +307,7 @@ class CLIP(nn.Module):
             t.copy_(torch.randn(t.shape, generator=generator) * std)
 
         def tower(tr: Transformer, width: int):
-            for blk in tr.resblocks:
-                normal_(blk.attn.in_proj_weight, width**-0.5)
-                blk.attn.in_proj_bias.zero_()
-                normal_(blk.attn.out_proj.weight, width**-0.5)
-                blk.attn.out_proj.bias.zero_()
-                for ln in (blk.ln_1, blk.ln_2):
-                    ln.weight.fill_(1.0)
-                    ln.bias.zero_()
-                for lin in (blk.mlp.c_fc, blk.mlp.c_proj):
-                    normal_(lin.weight, lin.in_features**-0.5)
-                    lin.bias.zero_()
+            init_transformer_(tr, width, generator)
 
         vw, p = cfg.vision_width, cfg.vision_patch_size
         v = self.visual

@@ -8,7 +8,22 @@ import threading
 import torch
 from torch import nn
 
+from ..ops.layernorm import layernorm_plain
 from ..utils.seed import derived_seed
+
+
+class FlaxLayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm`` (fast variance, eps 1e-5, fp32), as the DCMHT
+    text head and MITH's residual MLPs use it. It sits outside any kernel in
+    cmh_tpu, so it is plain PyTorch here."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(width))
+        self.bias = nn.Parameter(torch.zeros(width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm_plain(x.float(), self.weight, self.bias)
 
 
 class SingleTokenAttention(nn.Module):

@@ -1,13 +1,19 @@
 """Carry cmh_tpu method weights into the port.
 
 ``dcmht_state_from_jax(params, batch_stats)``, ``baseline_state_from_jax``,
-``dsph_state_from_jax`` and ``dnph_state_from_jax`` (``params``) turn
-cmh_tpu's flax trees (nested dicts of numpy arrays) into the port's
-``state_dict``, which uses the reference torch names. Each is the exact
-inverse of its cmh_tpu ``models/torch_import.py:*_from_torch_state`` (and,
-for the backbone, ``models/clip/loader.py:params_from_state_dict``): flax Dense kernels
-(in, out) become torch weights (out, in), the patch kernel HWIO becomes
-(out, in, kh, kw), and LayerNorm/BatchNorm scale becomes ``weight``.
+``dsph_state_from_jax``, ``dnph_state_from_jax``, ``mith_state_from_jax``
+and ``twdh_state_from_jax`` (``params``, and TwDH's ``batch_stats``) turn
+cmh_tpu's flax trees (nested dicts of numpy arrays, as ``utils/flax_msgpack``
+reads them from a ``model-N.msgpack``) into the port's ``state_dict``, which
+uses the reference torch names. Each is the exact inverse of its cmh_tpu
+``models/torch_import.py:*_from_torch_state`` (and, for the backbone,
+``models/clip/loader.py:params_from_state_dict``): flax Dense kernels (in,
+out) become torch weights (out, in), the patch kernel HWIO becomes (out, in,
+kh, kw), and LayerNorm/BatchNorm scale becomes ``weight``.
+
+``dcmht_state_to_jax`` (= ``twdh_state_to_jax``) goes the other way, for the
+tests and for ``chip_smoke.py``, which write cmh_tpu's file layout from the
+port's weights on a machine without flax.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import torch
 
 
 def _t(a) -> torch.Tensor:
+    if torch.is_tensor(a):          # a bfloat16 array of flax_msgpack
+        return a.detach().float().clone()
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
@@ -126,3 +134,106 @@ def dnph_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     sd.update(_linear(params["pre_txt"], "hash.text_pre.fc"))
     sd["loss.proxies"] = _t(params["proxies"])
     return sd
+
+
+def mith_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """cmh_tpu MITH ``params`` → the port's ``MITHModel`` state_dict
+    (inverse of ``mith_from_torch_state``). The global concept learner is one
+    module under two names, ``hash.gcl_i`` and ``hash.gcl_t``, as in the
+    reference; the per-bit heads are K ``Linear(d, 1)`` rows."""
+    sd = clip_state_from_jax(params["backbone"])
+    gcl = params["gcl"]
+    for name in ("gcl_i", "gcl_t"):
+        pre = f"hash.{name}"
+        mlp = gcl.get("mlp", {})
+        for i in sorted(int(k.split("_")[1]) for k in mlp if k.startswith("fc1_")):
+            sd.update(_linear(mlp[f"fc1_{i}"], f"{pre}.mlp.mlps.{i}.0"))
+            sd.update(_linear(mlp[f"fc2_{i}"], f"{pre}.mlp.mlps.{i}.3"))
+            sd.update(_norm(mlp[f"ln_{i}"], f"{pre}.mlp.lns.{i}"))
+        sd[f"{pre}.common_concept_embedding.weight"] = _t(np.asarray(gcl["concept"]["kernel"]).T)
+    for side in ("lct_i", "lct_t"):
+        lct = params[side]
+        sd.update(_tower(lct["transformer"], f"hash.{side}.transformer"))
+        kernel, bias = np.asarray(lct["hashing"]["kernel"]), np.asarray(lct["hashing"]["bias"])
+        for k in range(kernel.shape[0]):
+            sd[f"hash.{side}.hashing.fc_list.{k}.weight"] = _t(kernel[k:k + 1])
+            sd[f"hash.{side}.hashing.fc_list.{k}.bias"] = _t(bias[k:k + 1])
+    sd.update(_linear(params["img_concept_proj"], "hash.img_concept_proj"))
+    sd.update(_linear(params["txt_concept_proj"], "hash.txt_concept_proj"))
+    return sd
+
+
+# TwDH's model is DCMHT's heads at long_dim (cmh_tpu torch_import.py:348)
+twdh_state_from_jax = dcmht_state_from_jax
+
+
+def _a(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().float().numpy().copy()
+
+
+def _linear_to(sd, prefix: str) -> Dict[str, np.ndarray]:
+    return {"kernel": _a(sd[f"{prefix}.weight"]).T.copy(), "bias": _a(sd[f"{prefix}.bias"])}
+
+
+def _norm_to(sd, prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _a(sd[f"{prefix}.weight"]), "bias": _a(sd[f"{prefix}.bias"])}
+
+
+def _attention_to(sd, prefix: str) -> Dict[str, np.ndarray]:
+    return {"in_proj_kernel": _a(sd[f"{prefix}.in_proj_weight"]).T.copy(),
+            "in_proj_bias": _a(sd[f"{prefix}.in_proj_bias"]),
+            "out_proj_kernel": _a(sd[f"{prefix}.out_proj.weight"]).T.copy(),
+            "out_proj_bias": _a(sd[f"{prefix}.out_proj.bias"])}
+
+
+def _tower_to(sd, prefix: str) -> Dict[str, Any]:
+    layers = sorted({int(k[len(prefix) + 11:].split(".")[0]) for k in sd
+                     if k.startswith(f"{prefix}.resblocks.")})
+    return {f"resblocks_{i}": {
+        "attn": _attention_to(sd, f"{prefix}.resblocks.{i}.attn"),
+        "ln_1": {"ln": _norm_to(sd, f"{prefix}.resblocks.{i}.ln_1")},
+        "ln_2": {"ln": _norm_to(sd, f"{prefix}.resblocks.{i}.ln_2")},
+        "c_fc": _linear_to(sd, f"{prefix}.resblocks.{i}.mlp.c_fc"),
+        "c_proj": _linear_to(sd, f"{prefix}.resblocks.{i}.mlp.c_proj")} for i in layers}
+
+
+def clip_state_to_jax(sd: Dict[str, torch.Tensor], prefix: str = "backbone") -> Dict[str, Any]:
+    """The inverse of ``clip_state_from_jax``."""
+    v = f"{prefix}.visual"
+    return {
+        "visual": {
+            "conv1": {"kernel": _a(sd[f"{v}.conv1.weight"]).transpose(2, 3, 1, 0).copy()},
+            "class_embedding": _a(sd[f"{v}.class_embedding"]),
+            "positional_embedding": _a(sd[f"{v}.positional_embedding"]),
+            "proj": _a(sd[f"{v}.proj"]),
+            "ln_pre": {"ln": _norm_to(sd, f"{v}.ln_pre")},
+            "ln_post": {"ln": _norm_to(sd, f"{v}.ln_post")},
+            "transformer": _tower_to(sd, f"{v}.transformer"),
+        },
+        "token_embedding": {"embedding": _a(sd[f"{prefix}.token_embedding.weight"])},
+        "positional_embedding": _a(sd[f"{prefix}.positional_embedding"]),
+        "text_projection": _a(sd[f"{prefix}.text_projection"]),
+        "logit_scale": _a(sd[f"{prefix}.logit_scale"]),
+        "ln_final": {"ln": _norm_to(sd, f"{prefix}.ln_final")},
+        "transformer": _tower_to(sd, f"{prefix}.transformer"),
+    }
+
+
+def dcmht_state_to_jax(sd: Dict[str, torch.Tensor]):
+    """The port's DCMHT (or TwDH) ``state_dict`` → cmh_tpu's ``(params,
+    model_state)``, the tree ``save_model`` writes: the inverse of
+    ``dcmht_state_from_jax``."""
+    params = {"backbone": clip_state_to_jax(sd)}
+    for side in ("img", "txt"):
+        pre = f"hash.{side}_hash"
+        head = {"atten": _attention_to(sd, f"{pre}.atten"),
+                "fc2": _linear_to(sd, f"{pre}.fc2")}
+        head["norm"] = ({"bn": _norm_to(sd, f"{pre}.norm")} if side == "img"
+                        else _norm_to(sd, f"{pre}.norm"))
+        params[f"hash_{side}"] = head
+    stats = {"mean": _a(sd["hash.img_hash.norm.running_mean"]),
+             "var": _a(sd["hash.img_hash.norm.running_var"])}
+    return params, {"batch_stats": {"hash_img": {"norm": {"bn": stats}}}}
+
+
+twdh_state_to_jax = dcmht_state_to_jax

@@ -18,25 +18,12 @@ import torch
 from torch import nn
 
 from ..ops.hashing import pair_argmax_code, sign_code, softmax_hash, tanh_hash
-from ..ops.layernorm import layernorm_plain
 from ..ops.metrics import calc_label_sim, cosine_similarity, euclidean_similarity
 from ..registry import registry
+from . import convert
 from .base import Method, resolve_clip_cfg
 from .clip.model import CLIP, CLIPConfig
-from .common import BatchNorm1d, SingleTokenAttention, kaiming_uniform_fan_out_
-
-
-class TextNorm(nn.Module):
-    """The text head's flax ``nn.LayerNorm`` (fast variance, eps 1e-5, fp32).
-    It sits outside any kernel in cmh_tpu, so it is plain PyTorch here."""
-
-    def __init__(self, width: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(width))
-        self.bias = nn.Parameter(torch.zeros(width))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layernorm_plain(x.float(), self.weight, self.bias)
+from .common import BatchNorm1d, FlaxLayerNorm, SingleTokenAttention, kaiming_uniform_fan_out_
 
 
 class ModalityHash(nn.Module):
@@ -47,7 +34,7 @@ class ModalityHash(nn.Module):
         super().__init__()
         self.hash_func = hash_func
         self.atten = SingleTokenAttention(input_dim)
-        self.norm = TextNorm(input_dim) if layernorm else BatchNorm1d(input_dim)
+        self.norm = FlaxLayerNorm(input_dim) if layernorm else BatchNorm1d(input_dim)
         self.fc2 = nn.Linear(input_dim, output_dim * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -185,6 +172,9 @@ class DCMHTMethod(Method):
     def __init__(self, model: DCMHTModel, loss, cfg_model=None, train_num: int = 10000):
         super().__init__(model, loss, cfg_model, train_num)
         self.code_mode = "pair_argmax" if model.hash_func == "softmax" else "sign"
+
+    def state_from_jax(self, params, model_state):
+        return convert.dcmht_state_from_jax(params, model_state["batch_stats"])
 
     @classmethod
     def from_config(cls, cfg_model, output_dim: int = 16, train_num: int = 10000,

@@ -30,6 +30,7 @@ from torch import nn
 from ..ops.hungarian import assign_noise, rand_unit_rect
 from ..registry import registry
 from ..utils.seed import derived_seed
+from . import convert
 from .base import Method, resolve_clip_cfg
 from .clip.model import CLIP, CLIPConfig
 from .common import LinearHash, kaiming_uniform_fan_out_
@@ -127,6 +128,9 @@ def dnph_loss_fn(*, mrg: float, noise_alpha: float, noise_seed: int):
 class DNPHMethod(Method):
     arch = "DNPH"
     code_mode = "sign"
+
+    def state_from_jax(self, params, model_state):
+        return convert.dnph_state_from_jax(params)
 
     def extra_param_groups(self, cfg_optimizer) -> List[dict]:
         """The proxies on plain SGD at ``optimizer.loss.lr`` (cmh_tpu

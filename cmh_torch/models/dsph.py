@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops.metrics import matmul_fp32
 from ..registry import registry
+from . import convert
 from .base import Method, resolve_clip_cfg
 from .clip.model import CLIP, CLIPConfig
 from .common import LinearHash, torch_default_linear_
@@ -122,6 +123,9 @@ def dsph_loss_fn(*, threshold: float, alpha: float):
 class DSPHMethod(Method):
     arch = "DSPH"
     code_mode = "sign"
+
+    def state_from_jax(self, params, model_state):
+        return convert.dsph_state_from_jax(params)
 
     def extra_param_groups(self, cfg_optimizer) -> List[dict]:
         """The proxies on SGD(lr, momentum, weight_decay) from

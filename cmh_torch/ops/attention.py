@@ -186,6 +186,7 @@ def _launch(q, k, v, scale, mask, bias) -> torch.Tensor:
             out.data_ptr(), b, h, s, hd, float(scale), *_stream(q))
     _build.check(rc, "attention_fwd")
     fused_attention.launches += 1
+    fused_attention.launches_fp32 += q.dtype == torch.float32
     return out
 
 
@@ -212,6 +213,7 @@ def _launch_bwd(q, k, v, scale, mask, bias, dout):
             hd, float(scale), *_stream(q))
     _build.check(rc, "attention_bwd")
     attention_bwd.launches += 1
+    attention_bwd.launches_fp32 += q.dtype == torch.float32
     return dq, dk, dv
 
 
@@ -253,7 +255,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``attn_mask`` is (S, S) additive; ``key_padding_mask`` (B, S) bool with
     True at pads. Differentiable in q, k and v. On a CUDA tensor this
-    launches the kernel (counted in ``fused_attention.launches``); on a CPU
+    launches the kernel (counted in ``fused_attention.launches``, an fp32
+    one also in ``launches_fp32``); on a CPU
     tensor it runs ``attention_plain``. Outside autograd nothing is saved
     for a backward."""
     if k.shape != q.shape or v.shape != q.shape:
@@ -268,5 +271,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _forward(q, k, v, scale, attn_mask, bias)
 
 
-fused_attention.launches = 0
-attention_bwd.launches = 0
+# launches, and of them those of the fp32 kernels
+fused_attention.launches = fused_attention.launches_fp32 = 0
+attention_bwd.launches = attention_bwd.launches_fp32 = 0

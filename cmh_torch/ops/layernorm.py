@@ -129,6 +129,7 @@ def _launch(x2d: torch.Tensor, gamma: torch.Tensor,
         _stream(x2d))
     _build.check(rc, "layernorm_fwd")
     fused_layernorm.launches += 1
+    fused_layernorm.launches_fp32 += x2d.dtype == torch.float32
     return out
 
 
@@ -150,6 +151,7 @@ def _launch_bwd(x2d: torch.Tensor, gamma: torch.Tensor, dout: torch.Tensor):
         x2d.device.index or 0, _stream(x2d))
     _build.check(rc, "layernorm_bwd")
     layernorm_bwd.launches += 1
+    layernorm_bwd.launches_fp32 += x2d.dtype == torch.float32
     return dx, dgb[0], dgb[1]
 
 
@@ -187,8 +189,8 @@ def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor,
 
     Any leading shape; differentiable in all three arguments. On a CUDA
     tensor this launches the kernel (and counts the launch in
-    ``fused_layernorm.launches``); on a CPU tensor it runs
-    ``layernorm_plain``. Outside autograd (no input needs a gradient, or
+    ``fused_layernorm.launches``, an fp32 one also in ``launches_fp32``);
+    on a CPU tensor it runs ``layernorm_plain``. Outside autograd (no input needs a gradient, or
     ``torch.no_grad()``) nothing is saved for a backward."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no layernorm kernel for device {x.device}")
@@ -201,5 +203,6 @@ def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor,
     return out.reshape(shape)
 
 
-fused_layernorm.launches = 0
-layernorm_bwd.launches = 0
+# launches, and of them those of the fp32 kernels
+fused_layernorm.launches = fused_layernorm.launches_fp32 = 0
+layernorm_bwd.launches = layernorm_bwd.launches_fp32 = 0

@@ -15,12 +15,13 @@ the card; without one the trainer raises unless it is given ``"cpu"``.
 
 Around the loop, as in cmh_tpu (``cmh_tpu/runners/base.py:461-692``,
 ``:1047-1167``): ``run.checkpoint_every`` writes a full-state checkpoint
-(model with BatchNorm statistics, optimizer moments and step count,
-trainer bookkeeping) after every N epochs; ``run.resume_checkpoint`` loads
-one; ``run.auto_resume`` takes the newest checkpoint under the save root
-whose config fingerprint matches this run's; SIGTERM, or a crash, writes
-an emergency checkpoint of the interrupted epoch (``runners/checkpoint.py``
-holds the file format). ``run.profile_dir`` traces ``run.profile_steps``
+(model with BatchNorm statistics, optimizer moments and step count, the
+method state such as MITH's memory banks, trainer bookkeeping with a
+runner's own ``extra`` meta) after every N epochs;
+``run.resume_checkpoint`` loads one; ``run.auto_resume`` takes the newest
+checkpoint under the save root whose config fingerprint matches this run's;
+SIGTERM, or a crash, writes an emergency checkpoint of the interrupted
+epoch (``runners/checkpoint.py`` holds the file format). ``run.profile_dir`` traces ``run.profile_steps``
 train steps with ``torch.profiler``. ``run.remat`` recomputes the forward in
 the backward (``torch.utils.checkpoint`` around the forward and the loss,
 cmh_tpu's ``jax.checkpoint``) on a model without running statistics, and is
@@ -195,7 +196,10 @@ class BaseTrainer:
             cfg_model, output_dim=output_dim, train_num=self.train_num,
             clip_cfg=resolve_clip_cfg(cfg_model, None, sd))
         self.model = self.method.model
-        self.method_state = self.method.init_method_state()
+        # methods with train-set-sized state (MITH's memory banks) need the
+        # label matrix before init_method_state (cmh_tpu runners/base.py:217-219)
+        self.method.train_labels = self.train_labels
+        self.method_state = _tree_to(self.method.init_method_state(self.seed), self.device)
         self.model.init_weights(self.generator)
         if sd is not None:
             self.method.load_pretrained_backbone(sd)
@@ -209,7 +213,7 @@ class BaseTrainer:
                     f"run.resume_model points at {self.model_state!r}, which "
                     "does not exist")
             self.logger.info("loading model...")
-            self.model.load_state_dict(self.load_model_file(self.model_state))
+            self.model.load_state_dict(self.method.read_model_file(self.model_state))
         self.model.to(self.device)
         self.remat = bool(self.cfg.run.get("remat", False)) and self._check_remat()
         self.logger.info("Building model!")
@@ -561,9 +565,10 @@ class BaseTrainer:
         self.logger.info("Test.")
         save_dir = os.path.join(self.save_dir, "mat_files")
         os.makedirs(save_dir, exist_ok=True)
-        query_img, query_txt = self.get_code(self.query_loader, self.query_num)
+        # the first two buffers: TwDH's get_code gives its long codes there
+        query_img, query_txt = self.get_code(self.query_loader, self.query_num)[:2]
         retrieval_img, retrieval_txt = self.get_code(self.retrieval_loader,
-                                                     self.retrieval_num)
+                                                     self.retrieval_num)[:2]
         maps = self.calc_map_4dir(query_img, query_txt, retrieval_img,
                                   retrieval_txt, self.top_k)
         self.save_mat(query_img, query_txt, self.query_labels_np, retrieval_img,
@@ -601,15 +606,13 @@ class BaseTrainer:
 
     def save_model(self, save_dir, epoch, other=""):
         """Weights only: the model's state dict (parameters and the image
-        BatchNorm's running statistics) as ``model-<epoch>.pt``."""
+        BatchNorm's running statistics) as ``model-<epoch>.pt``.
+        ``run.resume_model`` reads it back, or a cmh_tpu
+        ``model-<epoch>.msgpack`` (``Method.read_model_file``)."""
         path = os.path.join(save_dir, "model-" + other + str(epoch) + ".pt")
         state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
         torch.save(state, path)
         self.logger.info("save mode to {}".format(path))
-
-    @staticmethod
-    def load_model_file(path):
-        return torch.load(path, map_location="cpu", weights_only=True)
 
     def _checkpoint_meta(self, epoch: int) -> dict:
         """Trainer bookkeeping beside the state: ``epoch`` is the next epoch
@@ -622,7 +625,16 @@ class BaseTrainer:
             "best_epoch_i": int(self.best_epoch_i),
             "best_epoch_t": int(self.best_epoch_t),
             "fingerprint": self._config_fingerprint(),
+            "extra": self._extra_checkpoint_meta(),
         }
+
+    def _extra_checkpoint_meta(self) -> dict:
+        """A runner's own bookkeeping beside the base trainer's (TwDH's
+        per-short-width best tracking), JSON-able scalars only; none here."""
+        return {}
+
+    def _restore_extra_checkpoint_meta(self, extra: dict) -> None:
+        pass
 
     def _restore_meta(self, meta: dict) -> None:
         self.global_step = int(meta["global_step"])
@@ -630,21 +642,25 @@ class BaseTrainer:
         self.max_mapt2i = float(meta["max_mapt2i"])
         self.best_epoch_i = int(meta["best_epoch_i"])
         self.best_epoch_t = int(meta["best_epoch_t"])
+        self._restore_extra_checkpoint_meta(meta.get("extra") or {})
 
     def _state_blob(self, epoch: int) -> dict:
         """The full training state: the model's state dict (parameters and
         BatchNorm statistics), BertAdam's moments and step count, the other
-        optimizers' state dicts (SGD momentum buffers) and the trainer's
-        bookkeeping. The method state is not saved: no ported method has
-        one."""
+        optimizers' state dicts (SGD momentum buffers), the method state (a
+        nested dict of tensors: MITH's memory banks, TwDH's centers and
+        transforms; cmh_tpu saves ``state.method_state``) and the trainer's
+        bookkeeping."""
         return {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
                 "extra_optimizers": {k: o.state_dict() for k, o in self.extra_optimizers.items()},
+                "method_state": self.method_state,
                 "meta": self._checkpoint_meta(epoch)}
 
     def _load_state_blob(self, blob: dict) -> bool:
         """Load the state of ``_state_blob``; returns whether BertAdam's
-        state format was converted (flat↔tree)."""
+        state format was converted (flat↔tree). A checkpoint without a
+        method state loads only into a method that has none."""
         self.model.load_state_dict(blob["model"])
         converted = self.optimizer.load_state_dict(blob["optimizer"])
         extra = blob.get("extra_optimizers", {})
@@ -652,6 +668,10 @@ class BaseTrainer:
             raise KeyError(f"extra optimizers {sorted(extra)} != {sorted(self.extra_optimizers)}")
         for name, opt in self.extra_optimizers.items():
             opt.load_state_dict(extra[name])
+        state = blob.get("method_state", {})
+        if _tree_keys(state) != _tree_keys(self.method_state):
+            raise KeyError(f"method state {_tree_keys(state)} != {_tree_keys(self.method_state)}")
+        self.method_state = _tree_to(state, self.device)
         return converted
 
     def save_checkpoint(self, path: str, epoch: int = 0):
@@ -733,6 +753,21 @@ def _waited(loader, wait):
         if batch is None:
             return
         yield batch
+
+
+def _tree_to(tree, device):
+    """A nested dict of tensors, copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def _tree_keys(tree):
+    """The nested key structure of a dict of tensors, with each leaf's
+    shape and dtype."""
+    if isinstance(tree, dict):
+        return {k: _tree_keys(v) for k, v in tree.items()}
+    return (tuple(tree.shape), str(tree.dtype))
 
 
 def _floats(tree):

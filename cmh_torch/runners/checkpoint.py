@@ -2,14 +2,15 @@
 (counterpart of ``cmh_tpu/runners/base.py:461-582`` and ``:1070-1096``).
 
 A checkpoint is one ``torch.save`` file holding ``{"model", "optimizer",
-"extra_optimizers", "meta"}`` (the optimizers beside
-BertAdam, such as the proxies' SGD, by name; read back with
+"extra_optimizers", "method_state", "meta"}`` (the optimizers beside
+BertAdam, such as the proxies' SGD, by name; the method state, such as
+MITH's banks, as a nested dict of tensors; read back with
 ``torch.load(weights_only=True)``) and a JSON
 sidecar ``<file>.meta.json`` with ``{"epoch", "fingerprint"}``, so a
 restart can tell which run wrote a file without reading a multi-GB state.
 Both are written to a temporary file and moved into place with
 ``os.replace``: a kill mid-write never leaves a truncated file under a
-valid name. cmh_tpu's ``.msgpack`` checkpoints are not read.
+valid name. cmh_tpu's full-state ``.msgpack`` checkpoints are not read.
 """
 
 from __future__ import annotations

@@ -13,6 +13,12 @@ the final merge can never trade a lower-index tie for a higher one. The
 top-k itself is plain PyTorch, as cmh_tpu does it in XLA outside any
 kernel.
 
+``search_cpu`` answers the same top-k on the host CPU, for a deployment
+host without a card, through the port's copy of cmh_tpu's native scorer
+(``native/hash_ops.cpp``, built with g++ at first use; a failed build
+raises, nothing falls back). ``search_cpu_plain`` is cmh_tpu's numpy path,
+the plain version the tests hold it against.
+
 ``save``/``load`` use cmh_tpu's npz layout (uint32 ``packed``, ``bits``,
 ``count``), so an index written by either package loads in the other.
 """
@@ -31,6 +37,8 @@ from .ops.hashing import as_uint32, from_uint32, pack_bits
 
 # gallery block rows: bounds the live distance tile at (Q, block)
 _DEVICE_BLOCK = 1 << 20
+# gallery rows a block of the numpy search (cmh_tpu serving._FALLBACK_BLOCK)
+_PLAIN_BLOCK = 1 << 16
 
 
 def topk_blocked(q_packed: torch.Tensor, g_packed: torch.Tensor, topk: int,
@@ -59,6 +67,8 @@ class RetrievalIndex:
         self.device = resolve_device(device)
         self._chunks = []
         self._packed: Optional[torch.Tensor] = None
+        # the gallery's packed words on the host, for search_cpu
+        self._host_packed: Optional[np.ndarray] = None
         self._lock = threading.Lock()
         self._count = 0
 
@@ -75,6 +85,7 @@ class RetrievalIndex:
             self._chunks.append(pack_bits(codes))
             self._count += codes.shape[0]
             self._packed = None
+            self._host_packed = None
 
     def _gallery(self) -> torch.Tensor:
         with self._lock:
@@ -102,6 +113,31 @@ class RetrievalIndex:
         return (dist.to(torch.int32).cpu().numpy(),
                 idx.to(torch.int32).cpu().numpy())
 
+    def search_cpu(self, query_codes, topk: int = 10, n_threads: int = 0
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact top-k on the host CPU: (distances (Q, topk) int32, indices
+        (Q, topk) int64), the results and tie order of ``search``, from a
+        host copy of the packed gallery kept beside the device one. Scored
+        by the native scorer (``native/hash_ops.cpp``), threaded over
+        queries, or over the gallery when there are fewer queries than
+        threads; ``n_threads=0`` takes one per CPU."""
+        from .native import hash_ops
+
+        q = np.asarray(torch.as_tensor(query_codes, dtype=torch.float32).cpu())
+        if q.ndim != 2 or q.shape[1] != self.bits:
+            raise ValueError(f"queries must be (Q, {self.bits}), got {q.shape}")
+        if not 0 < topk <= self._count:
+            raise ValueError(f"topk={topk} outside (0, {self._count}]")
+        qp = as_uint32(pack_bits(torch.from_numpy(q)))
+        return hash_ops.hamming_topk(qp, self._host_gallery(), topk, n_threads)
+
+    def _host_gallery(self) -> np.ndarray:
+        gallery = self._gallery()
+        with self._lock:
+            if self._host_packed is None:
+                self._host_packed = np.ascontiguousarray(as_uint32(gallery))
+            return self._host_packed
+
     def save(self, path: str) -> None:
         np.savez(path, packed=as_uint32(self._gallery()), bits=self.bits,
                  count=self._count)
@@ -113,3 +149,30 @@ class RetrievalIndex:
         index._chunks = [from_uint32(data["packed"]).to(index.device)]
         index._count = int(data["count"])
         return index
+
+
+def search_cpu_plain(q_packed: np.ndarray, gallery: np.ndarray, topk: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """``search_cpu``'s function in numpy (cmh_tpu ``serving.py:630-656``):
+    a byte-table popcount, blocked over the gallery so the (Q, block, bytes)
+    intermediate stays bounded; candidates are ranked on the unique key
+    dist·N + index, so a block's selection never trades a lower-index tie
+    for a higher one. (dist int32, idx int64), each (Q, topk)."""
+    lut = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
+                        axis=1).sum(axis=1).astype(np.int32)
+    qb = np.ascontiguousarray(q_packed, np.uint32).view(np.uint8).reshape(len(q_packed), -1)
+    gallery = np.ascontiguousarray(gallery, np.uint32)
+    nq, n_total = qb.shape[0], gallery.shape[0]
+    block = max(topk, _PLAIN_BLOCK)
+    cand = np.empty((nq, 0), np.int64)
+    for start in range(0, n_total, block):
+        gb = gallery[start:start + block].view(np.uint8).reshape(
+            min(block, n_total - start), -1)
+        dist = lut[qb[:, None, :] ^ gb[None, :, :]].sum(axis=-1, dtype=np.int32)
+        key = dist.astype(np.int64) * n_total + np.arange(
+            start, start + dist.shape[1], dtype=np.int64)[None, :]
+        kk = min(topk, key.shape[1])
+        part = np.argpartition(key, kk - 1, axis=1)[:, :kk]
+        cand = np.concatenate([cand, np.take_along_axis(key, part, axis=1)], axis=1)
+    cand = np.sort(cand, axis=1)[:, :topk]
+    return (cand // n_total).astype(np.int32), cand % n_total

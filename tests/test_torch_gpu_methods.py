@@ -1,4 +1,4 @@
-"""The Baseline, DSPH and DNPH trainers on the card, tiny shapes
+"""The Baseline, DSPH, DNPH, MITH and TwDH trainers on the card, tiny shapes
 (``CLIPConfig.tiny()`` in fp32, TF32 off).
 
 Marked ``gpu``; each test skips inside itself when no CUDA device is
@@ -10,7 +10,14 @@ One train step on the card equals the same step on the CPU (the kernels
 against the plain versions: only the order of fp32 sums differs, 1e-4
 relative on the loss, 1e-3 on each gradient tensor). ``run.remat`` on the
 card launches K1-fwd and K2-fwd twice a step and gives the gradients of the
-step without it (the same kernels in the same order: bit-equal).
+step without it (the same kernels in the same order: bit-equal). MITH's
+concept transformer launches the fp32 K1 and K2 kernels (8 and 2 a step
+each way, beside the towers' 11 and 2); those kernels at its shapes equal
+their plain versions (1e-5 relative, fp32 sums in another order), and the
+fp32 attention backward holds K ≤ 117 concept tokens at head dim 64 in
+shared memory and refuses more. TwDH's ``valid`` at a 512-bit long code
+runs K3 on int16 words and its mAPs equal the plain counting rank's
+(1e-12); a 512-bit search through K4 equals ``search_cpu``.
 """
 
 import pytest
@@ -33,9 +40,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def trainer(tmp_path, arch, device, remat=False):
+def trainer(tmp_path, arch, device, remat=False, **model_extra):
     cfg = {"model": {"arch": arch, "clip_path": "/nonexistent.pt", "clip_variant": "tiny",
-                     "hash_func": "tanh", "numclass": 4, "noise_alpha": 0.1},
+                     "hash_func": "softmax" if arch == "TwDH" else "tanh", "numclass": 4,
+                     "noise_alpha": 0.1, **model_extra},
            "optimizer": {"arch": "BertAdam", "lr": 0.002, "hyp": {"lr": 0.02},
                          "loss": {"lr": 0.01}},
            "dataset": {"arch": "synthetic_dataset", "name": "synthetic", "num_classes": 4,
@@ -53,7 +61,7 @@ def _grads(tr):
             if p.grad is not None}
 
 
-@pytest.mark.parametrize("arch", ["Baseline", "DSPH", "DNPH"])
+@pytest.mark.parametrize("arch", ["Baseline", "DSPH", "DNPH", "MITH"])
 def test_train_step_on_the_card_equals_the_cpu(cuda, tmp_path, arch):
     card, cpu = trainer(tmp_path / "card", arch, "cuda"), trainer(tmp_path / "cpu", arch, "cpu")
     batch = next(iter(cpu.train_loader))
@@ -77,3 +85,70 @@ def test_remat_on_the_card_launches_the_forward_twice(cuda, tmp_path):
     assert runs[False][:2] == (11, 2) and runs[True][:2] == (22, 4)
     for n, g in runs[False][2].items():
         assert torch.equal(runs[True][2][n], g), n
+
+
+def test_mith_concept_transformer_launches_the_fp32_kernels(cuda, tmp_path):
+    from cmh_torch.ops.attention import attention_bwd
+    from cmh_torch.ops.layernorm import layernorm_bwd
+
+    tr = trainer(tmp_path, "MITH", "cuda")
+    batch = next(iter(tr.train_loader))
+    counters = (fused_layernorm, layernorm_bwd, fused_attention, attention_bwd)
+    for c in counters:
+        c.launches = c.launches_fp32 = 0
+    tr.train_step(batch)
+    torch.cuda.synchronize()
+    # the tiny towers are fp32 too: 11 and 2, then MITH's 8 and 2
+    assert [(c.launches, c.launches_fp32) for c in counters] == \
+        [(19, 19), (19, 19), (4, 4), (4, 4)]
+
+
+@pytest.mark.parametrize("k", [16, 64, 117, 128])
+def test_fp32_kernels_at_mith_concept_shapes(cuda, k):
+    from cmh_torch.ops.attention import attention_bwd, attention_bwd_plain, attention_plain
+    from cmh_torch.ops.layernorm import layernorm_bwd, layernorm_bwd_plain, layernorm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    x = torch.randn(8 * k, 512, generator=gen, device="cuda")
+    g, b = (torch.randn(512, generator=gen, device="cuda") for _ in range(2))
+    torch.testing.assert_close(fused_layernorm(x, g, b), layernorm_plain(x, g, b),
+                               rtol=1e-5, atol=1e-5)
+    for got, want in zip(layernorm_bwd(x, g, x), layernorm_bwd_plain(x, g, x)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    q, kk, v, do = (torch.randn(8, 8, k, 64, generator=gen, device="cuda") for _ in range(4))
+    scale = 64**-0.5
+    torch.testing.assert_close(fused_attention(q, kk, v, scale),
+                               attention_plain(q, kk, v, scale), rtol=1e-5, atol=1e-5)
+    if k > 117:
+        with pytest.raises(ValueError, match="shared memory"):
+            attention_bwd(q, kk, v, scale, None, None, do)
+        return
+    for got, want in zip(attention_bwd(q, kk, v, scale, None, None, do),
+                         attention_bwd_plain(q, kk, v, scale, None, None, do)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_twdh_512_bit_valid_and_search(cuda, tmp_path):
+    import numpy as np
+
+    from cmh_torch.ops.map_bucketed import calc_map_k_4dir
+    from cmh_torch.ops.map_kernel import map_hist
+    from cmh_torch.serving import RetrievalIndex
+
+    tr = trainer(tmp_path, "TwDH", "cuda", long_dim=512, short_dims=[16],
+                 long_center="/nonexistent", short_center="/nonexistent",
+                 trans_matrix="/nonexistent")
+    q = tr.get_code(tr.query_loader, tr.query_num)
+    r = tr.get_code(tr.retrieval_loader, tr.retrieval_num)
+    assert q[0].shape == (16, 512) and q[2]["16"].shape == (16, 16)
+    map_hist.launches = 0
+    got = tr.calc_map_4dir(q[0], q[1], r[0], r[1], None)
+    torch.cuda.synchronize()
+    assert map_hist.launches == 1
+    want = calc_map_k_4dir(*(t.cpu() for t in (q[0], q[1], r[0], r[1], tr.query_labels,
+                                               tr.retrieval_labels)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    index = RetrievalIndex(512, device="cuda")
+    index.add(r[0])
+    for a, b in zip(index.search(q[1], topk=10), index.search_cpu(q[1].cpu(), topk=10)):
+        np.testing.assert_array_equal(a, b)

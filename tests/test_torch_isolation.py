@@ -1,5 +1,6 @@
-"""The port's package rules: cmh_torch imports neither jax nor cmh_tpu, and
-no entry point runs on the CPU unless the caller asks for it."""
+"""The port's package rules: cmh_torch imports neither jax, flax, msgpack
+nor cmh_tpu, and no entry point runs on the CPU unless the caller asks for
+it."""
 
 import os
 import subprocess
@@ -18,7 +19,7 @@ names = [m.name for m in pkgutil.walk_packages(cmh_torch.__path__, "cmh_torch.")
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "cmh_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "cmh_tpu"))
 print(" ".join(names))
 print(bad)
 """
@@ -33,7 +34,10 @@ TRAINING_MODULES = {
     "cmh_torch.models.base", "cmh_torch.models.clip.loader", "cmh_torch.models.losses",
     "cmh_torch.models.baseline", "cmh_torch.models.dsph", "cmh_torch.models.dnph",
     "cmh_torch.ops.hungarian", "cmh_torch.runners.baseline", "cmh_torch.runners.dsph",
-    "cmh_torch.runners.dnph"}
+    "cmh_torch.runners.dnph", "cmh_torch.models.mith", "cmh_torch.models.twdh",
+    "cmh_torch.runners.mith", "cmh_torch.runners.twdh", "cmh_torch.ops.hash_centers",
+    "cmh_torch.native.hash_ops", "cmh_torch.native._build", "cmh_torch.utils.flax_msgpack",
+    "cmh_torch.models.convert", "cmh_torch.serving", "cmh_torch.export"}
 
 
 def test_import_pulls_in_no_jax_and_no_cmh_tpu():
