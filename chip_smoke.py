@@ -92,7 +92,24 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    of 256 pairs equal those of the model it was written from, the file's
    bytes and the load seconds printed; then ``search_cpu`` for 4 queries on
    phase 7's 16-bit index and on a 512-bit TwDH index of 2^18 items, equal
-   to ``search`` through K4, with its host ms and thread count.
+   to ``search`` through K4, with its host ms and thread count;
+13. DIMCH and UMoED through the CLI at full width in bf16, as phase 10 runs
+   its methods (``configs/{DIMCH,UMoED}/config.yaml``): the launch counts
+   (UMoED's fp32 K1 apart: 3 a decoder layer in each of the two head calls
+   a pair, 36 a forward and a backward), finite losses, the mAPs against the
+   recomputation, a rerun that resumes at epoch 2, trains nothing and holds
+   the model, BertAdam and UMoED's i→i and t→t best tracking bit for bit;
+   each method's steady step time (host clock) and its dropout masks drawn
+   on the host (masks, elements and host ms a step); UMoED's decoder device
+   time against a whole step's; then UMoED's exported encoders over a
+   64-bit index of 2^20 items, and phase 12's TwDH encoders (whose code
+   tree ``/search_text`` searches by its long code) over its 512-bit index,
+   each asked over HTTP with ``--backend device`` and ``--backend cpu``,
+   whose answers must be equal.
+
+Phase 3 holds K1 in fp32 at UMoED's decoder rows (6400, 512) too, and K2 on
+the text tower with the causal mask alone (DIMCH's and UMoED's text tower
+runs without the key-padding mask), forward and backward.
 
 The last lines are the card's name and power limit, one JSON object with a
 ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -127,6 +144,12 @@ MAX_WORDS, CODE_BITS = 32, 16    # configs/DCMHT/config.yaml
 COCO_N, COCO_Q, COCO_CLASSES = 110_000, 5_000, 80   # bench.py's coco-scale eval
 GALLERY_IMAGES = 2048
 MITH_K = 16                      # configs/MITH/config.yaml: 16 concept tokens a pair
+UMOED_SLOTS = 64                 # configs/UMoED/config.yaml: setDim, the decoder's rows a pair
+FP32_LN_ROWS = ((TRAIN_B * MITH_K, 512, "MITH"), (TRAIN_B * UMOED_SLOTS, 512, "UMoED decoder"))
+# (tower, heads, S, masks): the vision tower; the text tower with the key-padding
+# mask (six methods) and with the causal mask alone (DIMCH, UMoED)
+ATTENTION_CASES = (("vision", 12, 50, None), ("text", 8, MAX_WORDS, "causal+kpm"),
+                   ("text", 8, MAX_WORDS, "causal"))
 INDEX_ITEMS = (1 << 20) + 4096   # two gallery blocks of the blocked search
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -264,35 +287,41 @@ def check_layernorm(torch, gen):
             cuda_ms(lambda: F.layer_norm(x, (d,), gb, bb, 1e-5)),
             2 * n * d * 2 + 2 * d * 4, 8 * n * d, "fp32"))
         rows[-1]["cold_ms"] = cold_ms(fused_layernorm, (x, g, b))
-    # MITH's fp32 concept transformer: K = 16 concept tokens a pair, width 512
-    n, d = TRAIN_B * MITH_K, 512
-    x = torch.randn(n, d, generator=gen, device="cuda").mul_(3).add_(1)
-    g, b = (torch.randn(d, generator=gen, device="cuda") for _ in range(2))
-    out, ref = fused_layernorm(x, g, b), layernorm_plain(x, g, b)
-    torch.cuda.synchronize()
-    # fp32 in both: only the order of the sums differs
-    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
-    rows.append(entry(
-        "layernorm_fwd", "cmh_torch/csrc/layernorm.cu", "cmh_tpu/ops/layernorm_pallas.py:30",
-        f"({n},{d}) fp32 (MITH)", (out - ref).abs().max().item(),
-        cuda_ms(lambda: fused_layernorm(x, g, b)), cuda_ms(lambda: layernorm_plain(x, g, b)),
-        cuda_ms(lambda: F.layer_norm(x, (d,), g, b, 1e-5)),
-        2 * n * d * 4 + 2 * d * 4, 8 * n * d, "fp32"))
-    rows[-1]["cold_ms"] = cold_ms(fused_layernorm, (x, g, b))
+    # fp32: MITH's concept transformer (K = 16 concept tokens a pair) and
+    # UMoED's decoder (64 slots a pair), width 512
+    for n, d, who in FP32_LN_ROWS:
+        x = torch.randn(n, d, generator=gen, device="cuda").mul_(3).add_(1)
+        g, b = (torch.randn(d, generator=gen, device="cuda") for _ in range(2))
+        out, ref = fused_layernorm(x, g, b), layernorm_plain(x, g, b)
+        torch.cuda.synchronize()
+        # fp32 in both: only the order of the sums differs
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        rows.append(entry(
+            "layernorm_fwd", "cmh_torch/csrc/layernorm.cu", "cmh_tpu/ops/layernorm_pallas.py:30",
+            f"({n},{d}) fp32 ({who})", (out - ref).abs().max().item(),
+            cuda_ms(lambda: fused_layernorm(x, g, b)), cuda_ms(lambda: layernorm_plain(x, g, b)),
+            cuda_ms(lambda: F.layer_norm(x, (d,), g, b, 1e-5)),
+            2 * n * d * 4 + 2 * d * 4, 8 * n * d, "fp32"))
+        rows[-1]["cold_ms"] = cold_ms(fused_layernorm, (x, g, b))
     return rows
 
 
-def text_masks(torch, gen, n, s):
-    """The text tower's masks at batch n: the causal (S, S) mask, a random
-    key-padding mask (lengths 2..S), its fp32 bias, and the bool mask SDPA
-    takes for both."""
+def text_masks(torch, gen, n, s, masks="causal+kpm"):
+    """The text tower's masks at batch n: (the causal (S, S) mask, a random
+    key-padding mask (lengths 2..S), its fp32 bias, the bool mask SDPA takes
+    for both); ``masks`` "causal" (DIMCH's and UMoED's text tower) leaves
+    the key-padding mask out, None (the vision tower) both."""
     from cmh_torch.ops.attention import kpm_bias
 
+    if masks is None:
+        return None, None, None, None
     mask = torch.full((s, s), float("-inf"), device="cuda").triu(1)
+    causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()[None, None]
+    if masks == "causal":
+        return mask, None, None, causal
     lengths = torch.randint(2, s + 1, (n,), generator=gen, device="cuda")
     kpm = torch.arange(s, device="cuda")[None, :] >= lengths[:, None]
-    causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
-    return mask, kpm, kpm_bias(kpm), causal[None, None] & ~kpm[:, None, None, :]
+    return mask, kpm, kpm_bias(kpm), causal & ~kpm[:, None, None, :]
 
 
 def head_views(torch, gen, n, h, s, parts):
@@ -309,12 +338,11 @@ def check_attention(torch, gen):
     from cmh_torch.ops.attention import attention_plain, fused_attention
 
     rows = []
-    for tower, h, s in (("vision", 12, 50), ("text", 8, MAX_WORDS)):
+    for tower, h, s, masks in ATTENTION_CASES:
         q, k, v = (torch.randn(B, h, s, 64, generator=gen, device="cuda").bfloat16()
                    for _ in range(3))
-        mask = kpm = bias = sdpa_mask = None
-        if tower == "text":
-            mask, kpm, bias, sdpa_mask = text_masks(torch, gen, B, s)
+        mask, kpm, bias, sdpa_mask = text_masks(torch, gen, B, s, masks)
+        tower = tower + (f" {masks}" if masks else "")
         scale = 64**-0.5
         out = fused_attention(q, k, v, scale, mask, kpm)
         ref = attention_plain(q, k, v, scale, mask, bias)
@@ -330,12 +358,12 @@ def check_attention(torch, gen):
                                    attention_plain(qp, kp, vp, scale, mask, bias),
                                    f"attention_fwd {tower} head views")
         print(f"[kernel] attention_fwd {tower} head views: {steps}", flush=True)
-        nbytes = 4 * B * h * s * 64 * 2 + (s * s * 4 + B * s * 4 if mask is not None else 0)
+        nbytes = (4 * B * h * s * 64 * 2 + (s * s * 4 if mask is not None else 0)
+                  + (B * s * 4 if kpm is not None else 0))
         rows.append(entry(
             "attention_fwd", "cmh_torch/csrc/attention.cu",
             "cmh_tpu/ops/attention_pallas.py:60",
-            f"{tower} ({B},{h},{s},64) bf16" + (" causal+kpm" if mask is not None else ""),
-            err,
+            f"{tower} ({B},{h},{s},64) bf16", err,
             cuda_ms(lambda: fused_attention(q, k, v, scale, mask, kpm)),
             cuda_ms(lambda: attention_plain(q, k, v, scale, mask, bias)),
             cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -437,24 +465,26 @@ def check_layernorm_bwd(torch, gen):
             cuda_ms(lambda: torch.autograd.grad(y, (xl, gl, bl), do, retain_graph=True)),
             3 * n * d * 2 + 3 * d * 4, 12 * n * d, "fp32"))
         rows[-1]["cold_ms"] = cold_ms(layernorm_bwd, (x, g, do))
-    n, d = TRAIN_B * MITH_K, 512           # MITH's fp32 concept transformer
-    x = torch.randn(n, d, generator=gen, device="cuda").mul_(3).add_(1)
-    do = torch.randn(n, d, generator=gen, device="cuda")
-    g = torch.randn(d, generator=gen, device="cuda")
-    got, want = layernorm_bwd(x, g, do), layernorm_bwd_plain(x, g, do)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
-    for a, b in zip(got[1:], want[1:]):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
-    xl, gl, bl = (t.clone().requires_grad_() for t in (x, g, torch.zeros_like(g)))
-    y = F.layer_norm(xl, (d,), gl, bl, 1e-5)
-    rows.append(entry(
-        "layernorm_bwd", "cmh_torch/csrc/layernorm.cu", "cmh_tpu/ops/layernorm_pallas.py:44",
-        f"({n},{d}) fp32 (MITH)", max((a - b).abs().max().item() for a, b in zip(got, want)),
-        cuda_ms(lambda: layernorm_bwd(x, g, do)), cuda_ms(lambda: layernorm_bwd_plain(x, g, do)),
-        cuda_ms(lambda: torch.autograd.grad(y, (xl, gl, bl), do, retain_graph=True)),
-        3 * n * d * 4 + 3 * d * 4, 12 * n * d, "fp32"))
-    rows[-1]["cold_ms"] = cold_ms(layernorm_bwd, (x, g, do))
+    for n, d, who in FP32_LN_ROWS:          # MITH's concepts, UMoED's decoder
+        x = torch.randn(n, d, generator=gen, device="cuda").mul_(3).add_(1)
+        do = torch.randn(n, d, generator=gen, device="cuda")
+        g = torch.randn(d, generator=gen, device="cuda")
+        got, want = layernorm_bwd(x, g, do), layernorm_bwd_plain(x, g, do)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+        xl, gl, bl = (t.clone().requires_grad_() for t in (x, g, torch.zeros_like(g)))
+        y = F.layer_norm(xl, (d,), gl, bl, 1e-5)
+        rows.append(entry(
+            "layernorm_bwd", "cmh_torch/csrc/layernorm.cu", "cmh_tpu/ops/layernorm_pallas.py:44",
+            f"({n},{d}) fp32 ({who})",
+            max((a - b).abs().max().item() for a, b in zip(got, want)),
+            cuda_ms(lambda: layernorm_bwd(x, g, do)),
+            cuda_ms(lambda: layernorm_bwd_plain(x, g, do)),
+            cuda_ms(lambda: torch.autograd.grad(y, (xl, gl, bl), do, retain_graph=True)),
+            3 * n * d * 4 + 3 * d * 4, 12 * n * d, "fp32"))
+        rows[-1]["cold_ms"] = cold_ms(layernorm_bwd, (x, g, do))
     return rows
 
 
@@ -466,12 +496,11 @@ def check_attention_bwd(torch, gen):
     from cmh_torch.ops.attention import attention_bwd, attention_bwd_plain
 
     rows = []
-    for tower, h, s in (("vision", 12, 50), ("text", 8, MAX_WORDS)):
+    for tower, h, s, masks in ATTENTION_CASES:
         q, k, v, do = (torch.randn(TRAIN_B, h, s, 64, generator=gen, device="cuda").bfloat16()
                        for _ in range(4))
-        mask = bias = sdpa_mask = None
-        if tower == "text":
-            mask, _, bias, sdpa_mask = text_masks(torch, gen, TRAIN_B, s)
+        mask, _, bias, sdpa_mask = text_masks(torch, gen, TRAIN_B, s, masks)
+        tower = tower + (f" {masks}" if masks else "")
         scale = 64**-0.5
         got = attention_bwd(q, k, v, scale, mask, bias, do)
         want = attention_bwd_plain(q, k, v, scale, mask, bias, do)
@@ -492,11 +521,12 @@ def check_attention_bwd(torch, gen):
             print(f"[kernel] attention_bwd {tower} {name} head views: {steps}", flush=True)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask, scale=scale)
-        nbytes = 7 * TRAIN_B * h * s * 64 * 2 + (s * s * 4 + TRAIN_B * s * 4 if mask is not None else 0)
+        nbytes = (7 * TRAIN_B * h * s * 64 * 2 + (s * s * 4 if mask is not None else 0)
+                  + (TRAIN_B * s * 4 if bias is not None else 0))
         rows.append(entry(
             "attention_bwd", "cmh_torch/csrc/attention.cu",
             "cmh_tpu/ops/attention_pallas.py:84",
-            f"{tower} ({TRAIN_B},{h},{s},64) bf16" + (" causal+kpm" if mask is not None else ""),
+            f"{tower} ({TRAIN_B},{h},{s},64) bf16",
             err,
             cuda_ms(lambda: attention_bwd(q, k, v, scale, mask, bias, do)),
             cuda_ms(lambda: attention_bwd_plain(q, k, v, scale, mask, bias, do)),
@@ -1429,7 +1459,7 @@ def pretrained_load(torch, counters):
 
 
 METHOD_CONFIGS = {arch: os.path.join(ROOT, "configs", arch, "config.yaml")
-                  for arch in ("DSPH", "DNPH", "MITH", "TwDH")}
+                  for arch in ("DSPH", "DNPH", "MITH", "TwDH", "DIMCH", "UMoED")}
 
 
 def method_config(arch):
@@ -1781,6 +1811,7 @@ def msgpack_and_search_cpu(torch, counters, index_path):
     import numpy as np
 
     from cmh_torch.config import config_from_dict
+    from cmh_torch.export import save_encoders
     from cmh_torch.models import convert
     from cmh_torch.native import hash_ops
     from cmh_torch.registry import load_components
@@ -1796,6 +1827,9 @@ def msgpack_and_search_cpu(torch, counters, index_path):
         with torch.no_grad():   # BatchNorm statistics off their init
             method.model.hash.img_hash.norm.running_mean.normal_(0, 0.1)
             method.model.hash.img_hash.norm.running_var.uniform_(0.5, 2.0)
+        os.makedirs(WORK, exist_ok=True)    # phase 13 serves these encoders
+        save_encoders(method.model, config_from_dict(cfg), os.path.join(WORK, "twdh_enc.pt"),
+                      method.eval_method_state())
         params, model_state = convert.twdh_state_to_jax(method.model.state_dict())
         path = os.path.join(root, "model-3.msgpack")
         t0 = time.perf_counter()
@@ -1837,6 +1871,7 @@ def msgpack_and_search_cpu(torch, counters, index_path):
         torch.cuda.synchronize()
         launches = read_counts(counters)
         # ---- end of the main path
+        wide.save(os.path.join(WORK, "twdh_index.npz"))
         print(f"[msgpack] model-3.msgpack {nbytes} bytes ({os.path.getsize(path)} on disk), "
               f"written in {write_s:.2f} s; trainer built and file read in {load_s:.2f} s; "
               f"test mAPs (long code) {maps}; launches {launches}", flush=True)
@@ -1869,6 +1904,271 @@ def msgpack_and_search_cpu(torch, counters, index_path):
                 raise AssertionError(f"search_cpu differs from search on the {name} index")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def train_dimch_umoed(torch, counters):
+    """Phase 13: DIMCH and UMoED through the CLI at full width, each run
+    twice on one save root (the rerun resumes at epoch 2 and trains
+    nothing); after UMoED, its decoder's device time and its exported
+    encoders served over HTTP by both backends, and phase 12's TwDH
+    encoders behind /search_text."""
+    import numpy as np
+    import yaml
+
+    from cmh_torch.models.common import Dropout
+
+    by_path, fp32_by_path = {}, {}
+    for arch in ("DIMCH", "UMoED"):
+        root = tempfile.mkdtemp(prefix=f"cmh_smoke_{arch.lower()}_")
+        try:
+            cfg = method_config(arch)
+            cfg_path = os.path.join(root, "config.yaml")
+            with open(cfg_path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            if arch == "UMoED":
+                # 3 fp32 LayerNorms a decoder layer, in the image and the text head call
+                per_pair = 2 * 3 * cfg["model"]["decoder_layers"]
+                steps, expect, expect32 = expected_launches(cfg, fp32=(per_pair, 0))
+            else:
+                steps, expect = expected_launches(cfg)
+                expect32 = {k: 0 for k in read_fp32(counters)}
+            reset_counts(counters)
+            drawn0 = (Dropout.masks, Dropout.mask_elements, Dropout.host_seconds)
+            # ---- the main path: python -m cmh_torch.main, in-process
+            t0 = time.perf_counter()
+            tr = train_cli(cfg_path, os.path.join(root, "run"))
+            torch.cuda.synchronize()
+            launches, fp32 = read_counts(counters), read_fp32(counters)
+            t_main = time.perf_counter() - t0
+            # ---- end of the main path
+            drawn = [b - a for a, b in zip(drawn0, (Dropout.masks, Dropout.mask_elements,
+                                                    Dropout.host_seconds))]
+            by_path[arch], fp32_by_path[arch] = launches, fp32
+            hist = tr.history
+            train_s = sum(h["seconds"] for h in hist)
+            wait_s = sum(h["data_wait_s"] for h in hist)
+            print(f"[{arch}] {steps} steps: {train_s / steps * 1e3:.1f} ms a step on the host "
+                  f"clock, {(train_s - wait_s) / steps * 1e3:.1f} ms without the data waits; "
+                  f"main path {t_main:.1f} s; epoch losses {[h['loss'] for h in hist]}; "
+                  f"mAPs {[h['maps'] for h in hist]}", flush=True)
+            print(f"[{arch}] dropout masks drawn on the host: {drawn[0] / steps:.0f} a step, "
+                  f"{drawn[1] / steps / 1e6:.1f} M elements a step, "
+                  f"{drawn[2] / steps * 1e3:.1f} ms a step (host clock: the draws and their "
+                  f"copies to the card)", flush=True)
+            print(f"[{arch}] launches {launches} expected {expect}; fp32 {fp32} expected "
+                  f"{expect32}", flush=True)
+            if launches != expect or fp32 != expect32:
+                raise AssertionError(f"{arch}: launch counts {launches} (fp32 {fp32}) != "
+                                     f"expected {expect} (fp32 {expect32})")
+            if len(hist) != 2 or not all(np.isfinite(h["loss"]) for h in hist):
+                raise AssertionError(f"{arch}: non-finite or missing epoch losses: {hist}")
+            check_last_maps(torch, tr, f"[{arch}]")
+            reset_counts(counters)
+            again = train_cli(cfg_path, os.path.join(root, "run"))
+            torch.cuda.synchronize()
+            relaunched = sum(read_counts(counters).values())
+            bad = same_state(torch, tr, again)
+            if arch == "UMoED" and umoed_bests(again) != umoed_bests(tr):
+                bad.append("the i->i and t->t best tracking")
+            print(f"[{arch}] rerun: epochs trained {len(again.history)}, launches {relaunched}; "
+                  f"{len(again.model.state_dict())} model tensors and BertAdam"
+                  + (f", bests {umoed_bests(again)}" if arch == "UMoED" else "")
+                  + f": {len(bad)} differ", flush=True)
+            if again.history or relaunched:
+                raise AssertionError(f"{arch}: the rerun trained: {again.history}")
+            if trackers(again) != trackers(tr) or bad:
+                raise AssertionError(f"{arch}: the resumed state differs: {bad[:8]}")
+            del again
+            steady_steps(torch, tr, arch)
+            if arch == "UMoED":
+                decoder_time(torch, tr)
+                by_path["UMoED serving"] = serve_backends(torch, counters, tr)
+            del tr
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    by_path["TwDH serving"] = serve_twdh(torch, counters)
+    return by_path, fp32_by_path
+
+
+def umoed_bests(tr):
+    return (tr.max_mapi2i, tr.max_mapt2t, tr.best_epoch_i2i, tr.best_epoch_t2t)
+
+
+def decoder_time(torch, tr):
+    """UMoED's decoder alone: the image and the text head call, forward and
+    backward in train mode, on tokens made on the card at batch 100
+    (torch.profiler kernel time, after a warm call), beside one whole train
+    step's kernel time; and the host ms of that step's dropout masks.
+    Printed, not checked."""
+    from cmh_torch.models.common import Dropout, dropout_rng
+
+    head = tr.model.hash.hash_module
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tokens = [torch.randn(TRAIN_B, n, 512, generator=gen, device="cuda").bfloat16()
+              for n in (50, MAX_WORDS)]
+    tr.model.train()
+
+    def heads():
+        with dropout_rng(0, 0):
+            loss = sum(head(t)[0].float().square().mean() for t in tokens)
+        loss.backward()
+
+    decoder_ms = kernel_busy_ms(torch, heads)
+    batch = device_batch(torch, torch.Generator(device="cuda").manual_seed(13), TRAIN_B)
+    host0 = Dropout.host_seconds
+    step_ms = kernel_busy_ms(torch, lambda: tr.train_step(batch))
+    masks_ms = (Dropout.host_seconds - host0) / 2 * 1e3      # two steps: warm and profiled
+    tr.model.zero_grad(set_to_none=True)
+    print(f"[UMoED] decoder device time (two head calls at batch {TRAIN_B}, "
+          f"{UMOED_SLOTS} slots, forward and backward, fp32): {decoder_ms:.3f} ms of kernel "
+          f"time; one whole train step {step_ms:.3f} ms of kernel time "
+          f"({decoder_ms / max(step_ms, 1e-9):.1%}); its dropout masks {masks_ms:.1f} ms on "
+          f"the host", flush=True)
+
+
+def _serve(app):
+    from cmh_torch.server import make_server
+
+    server = make_server(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread
+
+
+def ask_both_backends(index, enc, asked):
+    """``asked`` (path, payload) pairs through one HTTP server a backend
+    (``device``: K4 on the card; ``cpu``: the host scorer) on the same index
+    and encoders: the answers of each, and /healthz's backend names."""
+    from cmh_torch.models.clip.tokenizer import SimpleTokenizer
+    from cmh_torch.server import RetrievalApp
+
+    answers, names = {}, []
+    for backend in ("device", "cpu"):
+        app = RetrievalApp(index, enc, SimpleTokenizer(), backend=backend,
+                           max_words=MAX_WORDS, image_size=224)
+        server, thread = _serve(app)
+        try:
+            port = server.server_address[1]
+            names.append(request(port, "GET", "/healthz")[1]["backend"])
+            answers[backend] = []
+            for path, payload in asked:
+                status, out = request(port, "POST", path, payload)
+                if status != 200:
+                    raise AssertionError(f"{backend} {path} -> {status}: {out}")
+                answers[backend].append(out)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    return answers, names
+
+
+def serve_backends(torch, counters, trainer):
+    """Phase 13, UMoED serving: encoders exported from the trained model
+    encode 256 images (codes equal the trainer's) into a 64-bit index of
+    2^20 items; the same text, code and image requests over HTTP with
+    ``--backend device`` and ``--backend cpu`` must give equal answers."""
+    import numpy as np
+
+    from cmh_torch.export import load_encoders, save_encoders
+    from cmh_torch.serving import _DEVICE_BLOCK, RetrievalIndex
+
+    os.makedirs(WORK, exist_ok=True)
+    enc_path = os.path.join(WORK, "umoed_enc.pt")
+    save_encoders(trainer.model, trainer.cfg, enc_path)
+    enc = load_encoders(enc_path, device="cuda")
+    bits = trainer.method.eval_code_dims()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    imgs = torch.randn((B, 224, 224, 3), generator=gen, device="cuda")
+    rng = np.random.RandomState(18)
+    asked = [("/search_text", {"text": CAPTIONS[i:i + 2], "topk": 10}) for i in (0, 2)]
+    asked.append(("/search", {"codes": rng.choice([-1.0, 1.0], (4, bits)).tolist(),
+                              "topk": 10}))
+    if importlib.util.find_spec("PIL") is not None:
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.fromarray(rng.randint(0, 255, (240, 320, 3), dtype=np.uint8)).save(buf, "PNG")
+        asked.append(("/search_image", {"image_b64": [base64.b64encode(buf.getvalue()).decode()],
+                                        "topk": 10}))
+    reset_counts(counters)
+    # ---- the main path: encode, index, HTTP requests to both backends
+    t0 = time.perf_counter()
+    codes = enc.encode_image(imgs)
+    index = RetrievalIndex(bits, device="cuda")
+    index.add(codes)
+    index.add(torch.randint(0, 2, ((1 << 20) - B, bits), generator=gen,
+                            device="cuda").float() * 2 - 1)
+    answers, names = ask_both_backends(index, enc, asked)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    t_main = time.perf_counter() - t0
+    # ---- end of the main path
+    trainer.model.eval()
+    with torch.no_grad():
+        want = trainer.method.make_hash_code(trainer.model.encode_image(imgs)).cpu().numpy()
+    if not np.array_equal(codes, want):
+        raise AssertionError("UMoED: exported encoders' codes differ from the trainer's")
+    # a pair's towers (51 K1, 22 K2) and its 18 decoder LayerNorms a head call
+    head_ln = 3 * len(trainer.model.hash.hash_module.decoder.layers)
+    n_text = sum(p == "/search_text" for p, _ in asked)
+    n_image = sum(p == "/search_image" for p, _ in asked)
+    blocks = -(-len(index) // _DEVICE_BLOCK)
+    expect = {k: 0 for k in counters}
+    expect.update(layernorm=(26 + head_ln) * (1 + 2 * n_image) + 2 * n_text * (25 + head_ln),
+                  attention=11 * (1 + 2 * n_image + 2 * n_text),
+                  hamming=blocks * len(asked))
+    equal = answers["device"] == answers["cpu"]
+    print(f"[serving-UMoED] {B} images encoded by the exported encoders (codes equal the "
+          f"trainer's), {bits}-bit index of {len(index)} items; {len(asked)} requests to each "
+          f"of the backends {names}: answers equal {equal}; main path {t_main:.2f} s; launches "
+          f"{launches} expected {expect}", flush=True)
+    if names != ["device", "cpu"] or not equal:
+        raise AssertionError("UMoED: the device and cpu backends answer differently")
+    if launches != expect:
+        raise AssertionError(f"UMoED serving launches {launches} != expected {expect}")
+    return launches
+
+
+def serve_twdh(torch, counters):
+    """Phase 13, TwDH behind /search_text: phase 12's encoders (a tree of
+    the long code and the short ones) over phase 12's 512-bit index; the
+    answers of both backends equal ``search`` on the encoders' long codes."""
+    import numpy as np
+
+    from cmh_torch.export import load_encoders
+    from cmh_torch.models.clip.tokenizer import SimpleTokenizer, tokenize_caption
+    from cmh_torch.serving import RetrievalIndex
+
+    enc = load_encoders(os.path.join(WORK, "twdh_enc.pt"), device="cuda")
+    index = RetrievalIndex.load(os.path.join(WORK, "twdh_index.npz"), device="cuda")
+    asked = [("/search_text", {"text": CAPTIONS[i:i + 4], "topk": 10}) for i in (0, 4)]
+    reset_counts(counters)
+    # ---- the main path: two text requests to each backend
+    answers, names = ask_both_backends(index, enc, asked)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    # ---- end of the main path
+    tok = SimpleTokenizer()
+    for (_, payload), out in zip(asked, answers["device"]):
+        ids, masks = zip(*(tokenize_caption(tok, c, MAX_WORDS) for c in payload["text"]))
+        long_codes, shorts = enc.encode_text(np.stack(ids), np.stack(masks))
+        d, i = index.search(long_codes, topk=10)
+        if out != {"dist": d.tolist(), "idx": i.tolist()}:
+            raise AssertionError("TwDH /search_text differs from search on the long codes")
+    equal = answers["device"] == answers["cpu"]
+    expect = {k: 0 for k in counters}
+    expect.update(layernorm=25 * 2 * len(asked), attention=11 * 2 * len(asked),
+                  hamming=len(asked))
+    print(f"[serving-TwDH] {index.bits}-bit index of {len(index)} items; {len(asked)} "
+          f"/search_text requests to each of the backends {names}: equal to search on the "
+          f"long codes ({sorted(shorts)} short widths beside them), backends equal {equal}; "
+          f"launches {launches} expected {expect}", flush=True)
+    if not equal:
+        raise AssertionError("TwDH: the device and cpu backends answer differently")
+    if launches != expect:
+        raise AssertionError(f"TwDH serving launches {launches} != expected {expect}")
     return launches
 
 
@@ -1936,6 +2236,9 @@ def main() -> int:
         by_path.update(phase11)
         by_path["msgpack + search"] = msgpack_and_search_cpu(
             torch, counters, os.path.join(WORK, "index.npz"))
+        phase13, fp32_13 = train_dimch_umoed(torch, counters)
+        by_path.update(phase13)
+        fp32_by_path.update(fp32_13)
         train_kernels = ("layernorm", "layernorm_bwd", "attention", "attention_bwd",
                          "map_hist", "map_ap")
         for path, need in (("serving", ("layernorm", "attention", "hamming")),
@@ -1945,13 +2248,18 @@ def main() -> int:
                            ("DSPH serving", ("layernorm", "attention", "hamming")),
                            ("MITH", train_kernels), ("TwDH", train_kernels),
                            ("msgpack + search", ("layernorm", "attention", "hamming",
-                                                 "map_hist", "map_ap"))):
+                                                 "map_hist", "map_ap")),
+                           ("DIMCH", train_kernels), ("UMoED", train_kernels),
+                           ("UMoED serving", ("layernorm", "attention", "hamming")),
+                           ("TwDH serving", ("layernorm", "attention", "hamming"))):
             idle = [k for k in need if by_path[path][k] == 0]
             if idle:
                 raise AssertionError(f"{path}: kernels {idle} were never launched")
-        idle = [k for k, n in fp32_by_path["MITH"].items() if n == 0]
-        if idle:
-            raise AssertionError(f"MITH: the fp32 kernels {idle} were never launched")
+        for path, need in (("MITH", ("layernorm", "layernorm_bwd", "attention", "attention_bwd")),
+                           ("UMoED", ("layernorm", "layernorm_bwd"))):
+            idle = [k for k in need if fp32_by_path[path][k] == 0]
+            if idle:
+                raise AssertionError(f"{path}: the fp32 kernels {idle} were never launched")
 
         key = {"layernorm_fwd": "layernorm", "attention_fwd": "attention", "hamming": "hamming",
                "layernorm_bwd": "layernorm_bwd", "attention_bwd": "attention_bwd",

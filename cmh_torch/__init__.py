@@ -1,10 +1,10 @@
 """cmh_torch: PyTorch/CUDA port of the cmh_tpu cross-modal hashing package.
 
-Training (DCMHT, Baseline, DSPH, DNPH, MITH, TwDH, from random init, a
-pretrained CLIP checkpoint or a cmh_tpu ``model-N.msgpack``) and serving
-are ported: text or image query → CLIP ViT-B/32 tower → the method's hash
-head → ±1 codes → packed index → exact top-k, on the card or, through
-``RetrievalIndex.search_cpu``, on the host. Every Pallas
+Training (all eight methods: DCMHT, Baseline, DSPH, DNPH, MITH, TwDH,
+DIMCH, UMoED, from random init, a pretrained CLIP checkpoint or a cmh_tpu
+``model-N.msgpack``) and serving are ported: text or image query → CLIP
+ViT-B/32 tower → the method's hash head → ±1 codes → packed index → exact
+top-k, on the card or, through ``RetrievalIndex.search_cpu``, on the host. Every Pallas
 kernel on that path has a hand-written CUDA C++ kernel for Hopper under
 ``cmh_torch/csrc/`` (built at first use by ``ops/_build.py``) and a plain
 PyTorch version beside it that runs on CPU tensors.

@@ -5,7 +5,8 @@ here. An encoder file is a ``torch.save`` of the config tree, the method's
 arch, the CLIP geometry, the model's ``state_dict`` and the constants the
 method folds into its eval codes (TwDH's ``trans``, from
 ``Method.eval_method_state``); ``load_encoders`` rebuilds the model of any
-registered method (``model.arch``: DCMHT, Baseline, DSPH, DNPH, MITH, TwDH)
+registered method (``model.arch``: DCMHT, Baseline, DSPH, DNPH, MITH, TwDH,
+DIMCH, UMoED)
 on the asked device and wraps its eval path (the method's encode → its
 ``make_hash_code`` → ±1 codes):
 
@@ -50,6 +51,10 @@ def _method(cfg, clip_cfg: Optional[CLIPConfig] = None, state_dict=None) -> Meth
     """The method that ``cfg`` (a config tree) names, with its model built."""
     m = cfg.get("model") or {}
     run = cfg.get("run") or {}
+    max_word = (cfg.get("dataset") or {}).get("max_word", None)
+    if max_word is not None and "txt_token_size" not in m:
+        # the text token set of DIMCH and UMoED, as their trainers size it
+        m = dict(m.to_dict() if isinstance(m, ConfigNode) else m, txt_token_size=max_word)
     return load_components().require_model_class(m.get("arch", "DCMHT")).from_config(
         m, output_dim=int(run.get("output_dim", 16)),
         clip_cfg=resolve_clip_cfg(m, clip_cfg, state_dict))

@@ -23,6 +23,7 @@ from torch import nn
 
 from ...ops.attention import fused_attention
 from ...ops.layernorm import fused_layernorm
+from ..common import Dropout
 
 EOT_TOKEN_ID = 49407
 
@@ -97,43 +98,73 @@ class LayerNormFp32(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Packed-QKV self-attention returning head-averaged weights."""
+    """Packed-QKV attention returning head-averaged weights.
 
-    def __init__(self, width: int, heads: int, dtype: torch.dtype):
+    Self-attention by default; with ``kv`` (B, S, D) it is cross-attention
+    (q from x, k and v from ``kv``, through the rows of the same packed
+    in-projection, as torch's ``nn.MultiheadAttention``). ``attn_dropout``
+    drops attention probabilities in training (a ``Dropout`` under
+    ``dropout_rng``). Kernel K2 is self-attention only and returns no
+    weights, so the explicit path runs whenever ``kv`` is given, dropout is
+    active or the weights are asked for (cmh_tpu ``models/clip/model.py:203``).
+    ``init_torch_`` is torch's default init (``torch_init`` in cmh_tpu)."""
+
+    def __init__(self, width: int, heads: int, dtype: torch.dtype,
+                 attn_dropout: float = 0.0):
         super().__init__()
         self.heads = heads
         self.dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = nn.Linear(width, width)
+        self.attn_drop = Dropout(attn_dropout)
+
+    @torch.no_grad()
+    def init_torch_(self, generator: torch.Generator) -> None:
+        """xavier-uniform on the packed (3d, d) in-projection (bound
+        √(6 / 4d)), out-projection uniform ±1/√d, zero biases."""
+        d = self.out_proj.in_features
+        for w, bound in ((self.in_proj_weight, (6.0 / (4 * d)) ** 0.5),
+                         (self.out_proj.weight, (1.0 / d) ** 0.5)):
+            w.copy_((torch.rand(w.shape, generator=generator) * 2 - 1) * bound)
+        self.in_proj_bias.zero_()
+        self.out_proj.bias.zero_()
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
                 key_padding_mask: Optional[torch.Tensor] = None,
-                need_weights: bool = True
+                need_weights: bool = True, kv: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         b, l, d = x.shape
         h, dt = self.heads, self.dtype
         hd = d // h
-        qkv = _dense(x, self.in_proj_weight, self.in_proj_bias, dt)
-        q, k, v = (t.reshape(b, l, h, hd).transpose(1, 2)
-                   for t in qkv.split(d, dim=-1))          # (B, H, L, hd)
+        if kv is None:
+            q, k, v = _dense(x, self.in_proj_weight, self.in_proj_bias, dt).split(d, dim=-1)
+        else:
+            w, bias = self.in_proj_weight, self.in_proj_bias
+            q = _dense(x, w[:d], bias[:d], dt)
+            k = _dense(kv, w[d:2 * d], bias[d:2 * d], dt)
+            v = _dense(kv, w[2 * d:], bias[2 * d:], dt)
+        q, k, v = (t.reshape(b, t.shape[1], h, hd).transpose(1, 2)
+                   for t in (q, k, v))                       # (B, H, L, hd)
         scale = hd**-0.5
+        dropping = self.attn_drop.p > 0.0 and self.training
 
-        if not need_weights:
+        if not (need_weights or kv is not None or dropping):
             out = fused_attention(q, k, v, scale, attn_mask, key_padding_mask)
             out = out.transpose(1, 2).reshape(b, l, d).to(dt)
             return _dense(out, self.out_proj.weight, self.out_proj.bias, dt), None
 
-        # explicit path (the last block): q scaled in the compute dtype
-        # before an fp32-accumulated dot, as cmh_tpu's einsum path does
+        # explicit path: q scaled in the compute dtype before an
+        # fp32-accumulated dot, as cmh_tpu's einsum path does
         logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
         if attn_mask is not None:
             logits = logits + attn_mask.float()
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :],
                                         float("-inf"))
-        weights = torch.softmax(logits, dim=-1)              # (B, H, L, L) fp32
-        out = torch.matmul(weights.to(dt).float(), v.float())
+        weights = torch.softmax(logits, dim=-1)              # (B, H, L, S) fp32
+        used = self.attn_drop(weights)
+        out = torch.matmul(used.to(dt).float(), v.float())
         out = out.transpose(1, 2).reshape(b, l, d).to(dt)
         out = _dense(out, self.out_proj.weight, self.out_proj.bias, dt)
         return out, weights.mean(dim=1)

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 
 import torch
 from torch import nn
@@ -148,7 +149,14 @@ class Dropout(nn.Module):
     scale the kept by 1/(1 − p)) whose masks come from ``dropout_rng``, never
     from the global RNG. The mask is drawn on the CPU, so it is the same
     whatever the device. Identity in eval mode or at p = 0; in train mode
-    outside ``dropout_rng`` it raises."""
+    outside ``dropout_rng`` it raises.
+
+    ``Dropout.masks``, ``Dropout.mask_elements`` and ``Dropout.host_seconds``
+    count the masks drawn, their elements and the host seconds spent drawing
+    them and copying them to the tensor's device."""
+
+    masks = mask_elements = 0
+    host_seconds = 0.0
 
     def __init__(self, p: float):
         super().__init__()
@@ -159,9 +167,13 @@ class Dropout(nn.Module):
             return x
         if _SCOPE.seed is None:
             raise RuntimeError("Dropout in train mode needs a dropout_rng(seed, step) block")
+        t0 = time.perf_counter()
         gen = torch.Generator().manual_seed(
             derived_seed(_SCOPE.seed, _SCOPE.step, _SCOPE.position))
         _SCOPE.position += 1
         keep = (torch.rand(x.shape, generator=gen) >= self.p).to(x.device)
+        Dropout.host_seconds += time.perf_counter() - t0
+        Dropout.masks += 1
+        Dropout.mask_elements += keep.numel()
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
                                                                   device=x.device))

@@ -1,19 +1,22 @@
 """Carry cmh_tpu method weights into the port.
 
 ``dcmht_state_from_jax(params, batch_stats)``, ``baseline_state_from_jax``,
-``dsph_state_from_jax``, ``dnph_state_from_jax``, ``mith_state_from_jax``
-and ``twdh_state_from_jax`` (``params``, and TwDH's ``batch_stats``) turn
+``dsph_state_from_jax``, ``dnph_state_from_jax``, ``mith_state_from_jax``,
+``twdh_state_from_jax``, ``dimch_state_from_jax`` and
+``umoed_state_from_jax`` (``params``, and TwDH's ``batch_stats``) turn
 cmh_tpu's flax trees (nested dicts of numpy arrays, as ``utils/flax_msgpack``
 reads them from a ``model-N.msgpack``) into the port's ``state_dict``, which
 uses the reference torch names. Each is the exact inverse of its cmh_tpu
 ``models/torch_import.py:*_from_torch_state`` (and, for the backbone,
 ``models/clip/loader.py:params_from_state_dict``): flax Dense kernels (in,
 out) become torch weights (out, in), the patch kernel HWIO becomes (out, in,
-kh, kw), and LayerNorm/BatchNorm scale becomes ``weight``.
+kh, kw), DIMCH's Conv kernel (k, in, out) becomes (out, in, k), and
+LayerNorm/BatchNorm scale becomes ``weight``.
 
-``dcmht_state_to_jax`` (= ``twdh_state_to_jax``) goes the other way, for the
-tests and for ``chip_smoke.py``, which write cmh_tpu's file layout from the
-port's weights on a machine without flax.
+``dcmht_state_to_jax`` (= ``twdh_state_to_jax``), ``dimch_state_to_jax`` and
+``umoed_state_to_jax`` go the other way, for the tests and for
+``chip_smoke.py``, which write cmh_tpu's file layout from the port's weights
+on a machine without flax.
 """
 
 from __future__ import annotations
@@ -167,6 +170,58 @@ def mith_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 twdh_state_from_jax = dcmht_state_from_jax
 
 
+def dimch_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """cmh_tpu DIMCH ``params`` → the port's ``DIMCHModel`` state_dict
+    (inverse of ``dimch_from_torch_state``)."""
+    sd = clip_state_from_jax(params["backbone"])
+    for side in ("img", "txt"):
+        head, pre = params[f"hash_{side}"], f"hash.{side}_token_hash"
+        sd[f"{pre}.token_layer.weight"] = _t(
+            np.asarray(head["token_layer"]["kernel"]).transpose(2, 1, 0))
+        sd[f"{pre}.token_layer.bias"] = _t(head["token_layer"]["bias"])
+        sd.update(_linear(head["fc1"], f"{pre}.hash_layer.0"))
+        sd.update(_linear(head["fc2"], f"{pre}.hash_layer.3"))
+    return sd
+
+
+def _umoed_head(head: Dict[str, Any], pre: str) -> Dict[str, torch.Tensor]:
+    """One UMoED token hash: slots, the decoder layers (Soft-MoE ones name
+    their first FFN linear ``linear``, plain ones ``linear1``, as the
+    reference; cmh_tpu calls both ``linear1``), the classifier."""
+    sd = {f"{pre}.decoder_learned_parameters": _t(head["slots"])}
+    sd.update(_linear(head["classifier"], f"{pre}.classifier"))
+    if "first_layer" in head:
+        sd.update(_linear(head["first_layer"], f"{pre}.first_layer"))
+    for i in sorted(int(k.split("_")[1]) for k in head if k.startswith("layer_")):
+        layer, lp = head[f"layer_{i}"], f"{pre}.decoder.layers.{i}"
+        sd.update(_attention(layer["self_attn"], f"{lp}.self_attn"))
+        sd.update(_attention(layer["cross_attn"], f"{lp}.multihead_attn"))
+        for n in ("norm1", "norm2", "norm3"):
+            sd.update(_norm(layer[n]["ln"], f"{lp}.{n}"))
+        if "moe" in layer:
+            sd.update(_linear(layer["linear1"], f"{lp}.linear"))
+            sd[f"{lp}.moe.phi"] = _t(layer["moe"]["phi"])
+            sd[f"{lp}.moe.experts.weight"] = _t(layer["moe"]["expert_kernel"])
+            sd[f"{lp}.moe.experts.bias"] = _t(layer["moe"]["expert_bias"])
+        else:
+            sd.update(_linear(layer["linear1"], f"{lp}.linear1"))
+            sd.update(_linear(layer["linear2"], f"{lp}.linear2"))
+    return sd
+
+
+def umoed_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """cmh_tpu UMoED ``params`` → the port's ``UMoEDModel`` state_dict
+    (inverse of ``umoed_from_torch_state``): one shared head under fusion,
+    else the image and the text heads."""
+    sd = clip_state_from_jax(params["backbone"])
+    if "hash_module" in params:
+        sd.update(_umoed_head(params["hash_module"], "hash.hash_module"))
+    else:
+        sd.update(_umoed_head(params["hash_img"], "hash.img_token_hash"))
+        sd.update(_umoed_head(params["hash_txt"], "hash.txt_token_hash"))
+    return sd
+
+
 def _a(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().float().numpy().copy()
 
@@ -237,3 +292,51 @@ def dcmht_state_to_jax(sd: Dict[str, torch.Tensor]):
 
 
 twdh_state_to_jax = dcmht_state_to_jax
+
+
+def dimch_state_to_jax(sd: Dict[str, torch.Tensor]):
+    """The port's DIMCH ``state_dict`` → cmh_tpu's ``(params, model_state)``."""
+    params = {"backbone": clip_state_to_jax(sd)}
+    for side in ("img", "txt"):
+        pre = f"hash.{side}_token_hash"
+        params[f"hash_{side}"] = {
+            "token_layer": {"kernel": _a(sd[f"{pre}.token_layer.weight"]).transpose(2, 1, 0).copy(),
+                            "bias": _a(sd[f"{pre}.token_layer.bias"])},
+            "fc1": _linear_to(sd, f"{pre}.hash_layer.0"),
+            "fc2": _linear_to(sd, f"{pre}.hash_layer.3")}
+    return params, {}
+
+
+def _umoed_head_to(sd, pre: str) -> Dict[str, Any]:
+    head = {"slots": _a(sd[f"{pre}.decoder_learned_parameters"]),
+            "classifier": _linear_to(sd, f"{pre}.classifier")}
+    if f"{pre}.first_layer.weight" in sd:
+        head["first_layer"] = _linear_to(sd, f"{pre}.first_layer")
+    layers = sorted({int(k[len(pre) + 16:].split(".")[0]) for k in sd
+                     if k.startswith(f"{pre}.decoder.layers.")})
+    for i in layers:
+        lp = f"{pre}.decoder.layers.{i}"
+        layer = {"self_attn": _attention_to(sd, f"{lp}.self_attn"),
+                 "cross_attn": _attention_to(sd, f"{lp}.multihead_attn"),
+                 **{n: {"ln": _norm_to(sd, f"{lp}.{n}")} for n in ("norm1", "norm2", "norm3")}}
+        if f"{lp}.moe.phi" in sd:
+            layer["linear1"] = _linear_to(sd, f"{lp}.linear")
+            layer["moe"] = {"phi": _a(sd[f"{lp}.moe.phi"]),
+                            "expert_kernel": _a(sd[f"{lp}.moe.experts.weight"]),
+                            "expert_bias": _a(sd[f"{lp}.moe.experts.bias"])}
+        else:
+            layer["linear1"] = _linear_to(sd, f"{lp}.linear1")
+            layer["linear2"] = _linear_to(sd, f"{lp}.linear2")
+        head[f"layer_{i}"] = layer
+    return head
+
+
+def umoed_state_to_jax(sd: Dict[str, torch.Tensor]):
+    """The port's UMoED ``state_dict`` → cmh_tpu's ``(params, model_state)``."""
+    params = {"backbone": clip_state_to_jax(sd)}
+    if "hash.hash_module.decoder_learned_parameters" in sd:
+        params["hash_module"] = _umoed_head_to(sd, "hash.hash_module")
+    else:
+        params["hash_img"] = _umoed_head_to(sd, "hash.img_token_hash")
+        params["hash_txt"] = _umoed_head_to(sd, "hash.txt_token_hash")
+    return params, {}

@@ -1,7 +1,7 @@
 """Loss terms shared by several methods (cmh_tpu keeps ``bayesian_loss`` in
 ``models/mith.py:300``, ``tanh_hash_loss`` in ``models/dimch.py:141`` and a
 ``_norm`` in each of ``models/{dsph,dnph}.py``; Baseline, DSPH, DNPH and
-MITH, and later DIMCH, take them from here)."""
+MITH and DIMCH take them from here)."""
 
 from __future__ import annotations
 

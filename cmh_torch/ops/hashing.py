@@ -1,5 +1,9 @@
 """Hash activations, binarization and bit packing (counterpart of
-``cmh_tpu/ops/hashing.py:33-121``).
+``cmh_tpu/ops/hashing.py:30-121``).
+
+``linear_subspace_hash`` (UMoED) maps each slot's 2^m logits to the ±1
+codeword of its argmax: row i of ``subspace_codebook(m)`` is i in binary,
+most significant bit first, 0 → −1.
 
 Packed codes are int32 tensors holding the uint32 bit patterns that
 ``cmh_tpu`` packs (bit j of word w set iff code[:, 32w + j] > 0, K
@@ -14,6 +18,7 @@ import numpy as np
 import torch
 
 _MASK32 = 0xFFFFFFFF
+SUPPORTED_SUBSPACE_BITS = (1, 2, 4, 8, 16)
 
 
 def softmax_hash(embed: torch.Tensor, return_vector: bool = True) -> torch.Tensor:
@@ -31,6 +36,27 @@ def softmax_hash(embed: torch.Tensor, return_vector: bool = True) -> torch.Tenso
 
 def tanh_hash(embed: torch.Tensor) -> torch.Tensor:
     return torch.tanh(embed)
+
+
+def subspace_codebook(bits: int) -> np.ndarray:
+    """(2^bits, bits) float32 ±1 table: row i = i in binary, MSB first, 0 → −1."""
+    if bits not in SUPPORTED_SUBSPACE_BITS:
+        raise ValueError(f"linear_subspace_hash only supports code sizes "
+                         f"{SUPPORTED_SUBSPACE_BITS}, got {bits}.")
+    idx = np.arange(2**bits, dtype=np.uint32)
+    shifts = np.arange(bits - 1, -1, -1, dtype=np.uint32)
+    return ((idx[:, None] >> shifts[None, :]) & 1).astype(np.float32) * 2.0 - 1.0
+
+
+def linear_subspace_hash(logits: torch.Tensor) -> torch.Tensor:
+    """(B, T, 2^m) logits → (B, T·m) ±1 codes: each slot's argmax (the first
+    maximum on a tie, as ``jnp.argmax``) gathered from the codebook."""
+    batch, tokens, vocab = logits.shape
+    bits = vocab.bit_length() - 1
+    if 2**bits != vocab:
+        raise ValueError(f"vocab size {vocab} is not a power of two")
+    table = torch.from_numpy(subspace_codebook(bits)).to(logits.device)
+    return table[torch.argmax(logits, dim=-1)].reshape(batch, tokens * bits)
 
 
 def sign_code(code: torch.Tensor) -> torch.Tensor:

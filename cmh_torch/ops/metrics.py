@@ -1,7 +1,8 @@
 """Retrieval metrics (counterpart of ``cmh_tpu/ops/metrics.py``).
 
-Label similarity, the pairwise euclidean and cosine similarities of the
-DCMHT loss, Hamming distances between ±1 codes, the argsort mAP that wide
+Label similarity, the DCG-weighted label similarity of the triplet losses
+(``generate_weight_sim``), the pairwise euclidean and cosine similarities of
+the DCMHT loss, Hamming distances between ±1 codes, the argsort mAP that wide
 codes take, and ``calc_map_k_numpy``, the independent numpy oracle the
 tests hold every mAP path against. Float32 matmuls here run in full fp32:
 ``full_fp32`` turns TF32 off on the card for their duration, as cmh_tpu asks
@@ -36,6 +37,21 @@ def matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def calc_label_sim(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a @ bᵀ > 0) as float — multi-label ground-truth similarity."""
     return (matmul_fp32(a, b.t()) > 0).float()
+
+
+def generate_weight_sim(a: torch.Tensor, b: torch.Tensor):
+    """DCG-style weighted similarity (cmh_tpu ``ops/metrics.py:37-52``):
+    (label_sim, weights), weights[i, j] = (2^{s_ij} − 1) / Z_i with s = a·bᵀ
+    in full fp32 and Z_i the ideal DCG of row i (its s sorted descending,
+    discounted by log2(j + 2))."""
+    sim_origin = matmul_fp32(a, b.t())
+    batch = a.shape[0]
+    label_sim = (sim_origin > 0).float()
+    ideal = torch.sort(sim_origin, dim=1, descending=True).values
+    th = torch.log2(torch.arange(batch, dtype=torch.float32, device=a.device) + 2.0)
+    z = torch.sum((torch.pow(2.0, ideal) - 1.0) / th[None, :], dim=1, keepdim=True)
+    weights = (torch.pow(2.0, sim_origin) - 1.0) / z
+    return label_sim, weights
 
 
 def euclidean_similarity(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ generic dotted-path state store and path registry. Duplicate registrations
 raise ``KeyError``; lookups of unknown names return ``None``; the
 ``require_*`` lookups raise a ``KeyError`` that lists what is registered,
 which in the port is what is ported: the ``DCMHT``, ``Baseline``, ``DSPH``,
-``DNPH``, ``MITH`` and ``TwDH`` models and their ``*Trainer`` runners, the
+``DNPH``, ``MITH``, ``TwDH``, ``DIMCH`` and ``UMoED`` models and their
+``*Trainer`` runners, the
 ``synthetic_dataset`` and ``transformer_dataset`` datasets and the
 ``clip_tokenizer``. ``load_components`` imports the
 modules that register them.
@@ -153,9 +154,9 @@ registry = Registry()
 def load_components() -> Registry:
     """Import every module that registers a component; returns the registry."""
     from .data import dataset  # noqa: F401
-    from .models import baseline, dcmht, dnph, dsph, mith, twdh  # noqa: F401
+    from .models import baseline, dcmht, dimch, dnph, dsph, mith, twdh, umoed  # noqa: F401
     from .models.clip import tokenizer  # noqa: F401
     from .runners import baseline as _r1, dcmht as _r2, dnph as _r3, dsph as _r4  # noqa: F401
-    from .runners import mith as _r5, twdh as _r6  # noqa: F401
+    from .runners import dimch as _r5, mith as _r6, twdh as _r7, umoed as _r8  # noqa: F401
 
     return registry

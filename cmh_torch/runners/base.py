@@ -509,9 +509,11 @@ class BaseTrainer:
                 buf[idx] = self.method.make_hash_code(h)[valid].to(buf.dtype)
         return bufs
 
-    def valid(self, epoch: int, k: Optional[int] = None):
-        save_dir = os.path.join(self.save_dir, "mat_files")
-        os.makedirs(save_dir, exist_ok=True)
+    def valid_codes_and_maps(self, epoch: int, k: Optional[int] = None):
+        """``valid``'s common part: the ±1 codes of the query and retrieval
+        sets, the four mAPs (i→t, t→i, i→i, t→t), their timing logged and
+        kept in the epoch's ``history`` entry; returns ((query_img,
+        query_txt, retrieval_img, retrieval_txt), maps)."""
         self.logger.info("Valid.")
         t0, wait = time.time(), [0.0]
         query_img, query_txt = self.get_code(self.query_loader, self.query_num, wait)
@@ -521,11 +523,21 @@ class BaseTrainer:
             torch.cuda.synchronize(self.device)
         t_code = time.time() - t0
         t0 = time.time()
-        mapi2t, mapt2i, mapi2i, mapt2t = self.calc_map_4dir(
-            query_img, query_txt, retrieval_img, retrieval_txt, k)
+        maps = self.calc_map_4dir(query_img, query_txt, retrieval_img, retrieval_txt, k)
         t_map = time.time() - t0
         self.logger.info(f"eval timing: code generation {t_code:.2f}s "
                          f"(waited {wait[0]:.2f}s for data), 4×mAP {t_map:.2f}s")
+        if self.history and self.history[-1]["epoch"] == epoch:
+            self.history[-1].update(maps=maps, code_s=t_code, code_data_wait_s=wait[0],
+                                    map_s=t_map)
+        return (query_img, query_txt, retrieval_img, retrieval_txt), maps
+
+    def valid(self, epoch: int, k: Optional[int] = None):
+        save_dir = os.path.join(self.save_dir, "mat_files")
+        os.makedirs(save_dir, exist_ok=True)
+        (query_img, query_txt, retrieval_img, retrieval_txt), maps = \
+            self.valid_codes_and_maps(epoch, k)
+        mapi2t, mapt2i, mapi2i, mapt2t = maps
         codes = (query_img, query_txt, self.query_labels_np, retrieval_img,
                  retrieval_txt, self.retrieval_labels_np)
         if self.max_mapi2t < mapi2t:
@@ -544,10 +556,6 @@ class BaseTrainer:
             f"MAP(t->t): {mapt2t}, MAP(i->i): {mapi2i}, "
             f"MAX MAP(i->t): {self.max_mapi2t}, epoch: {self.best_epoch_i}, "
             f"MAX MAP(t->i): {self.max_mapt2i}, epoch: {self.best_epoch_t}")
-        maps = (mapi2t, mapt2i, mapi2i, mapt2t)
-        if self.history and self.history[-1]["epoch"] == epoch:
-            self.history[-1].update(maps=maps, code_s=t_code, code_data_wait_s=wait[0],
-                                    map_s=t_map)
         return maps
 
     def calc_map_4dir(self, query_img, query_txt, retrieval_img, retrieval_txt,
@@ -587,13 +595,9 @@ class BaseTrainer:
         codes), q_l, r_l (labels)."""
         import scipy.io as scio
 
-        def host(a):
-            return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
-
-        scio.savemat(save_file, {
-            "q_img": host(query_img), "q_txt": host(query_txt),
-            "r_img": host(retrieval_img), "r_txt": host(retrieval_txt),
-            "q_l": host(query_labels), "r_l": host(retrieval_labels)})
+        scio.savemat(save_file, host_arrays(
+            q_img=query_img, q_txt=query_txt, r_img=retrieval_img, r_txt=retrieval_txt,
+            q_l=query_labels, r_l=retrieval_labels))
 
     def save_model_once(self, save_dir, epoch, other=""):
         """``save_model`` that skips a second identical write in one epoch
@@ -740,6 +744,13 @@ class BaseTrainer:
                    top_k=run.get("top_k", None),
                    model_state=run.get("resume_model", ""),
                    auto_run=auto_run)
+
+
+def host_arrays(**arrays):
+    """Tensors or arrays by name → numpy arrays on the host (a ``.mat``'s
+    contents)."""
+    return {k: a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+            for k, a in arrays.items()}
 
 
 def _waited(loader, wait):

@@ -3,9 +3,10 @@
 Counterpart of ``cmh_tpu/server.py`` with the same endpoints and JSON:
 
     python -m cmh_torch.server --index gallery.npz --encoders enc.pt \
-        --port 8080 [--device cuda|cpu] [--max-words 32] [--topk 10]
+        --port 8080 [--device cuda|cpu] [--backend device|cpu] [--max-words 32] [--topk 10]
 
-- ``GET /healthz`` → ``{"count": N, "bits": K, "device": ..., "text": bool}``
+- ``GET /healthz`` → ``{"count": N, "bits": K, "device": ..., "backend": ...,
+  "text": bool}``
 - ``POST /search`` with ``{"codes": [[±1, ...], ...], "topk": k}``
 - ``POST /search_text`` with ``{"text": ["a dog on grass", ...], "topk": k}``:
   BPE tokenize → text tower + hash head → exact top-k.
@@ -15,7 +16,15 @@ Counterpart of ``cmh_tpu/server.py`` with the same endpoints and JSON:
 Responses: ``{"dist": [[...]], "idx": [[...]]}`` in ascending-distance
 order, ties by gallery insertion order. ``--device`` (default ``cuda``)
 places the index and the encoders; without a card the server refuses to
-start unless ``--device cpu`` is given.
+start unless ``--device cpu`` is given. ``--backend`` picks the scorer:
+``device`` (the default, unlike cmh_tpu's ``cpu``) answers through
+``RetrievalIndex.search`` (kernel K4 on a CUDA index, the plain version on
+a CPU one), ``cpu`` through ``search_cpu``, the host C++ scorer (built with
+g++ at first use; a failed build raises, nothing falls back).
+
+A TwDH encoder file's encoders give the tree (long codes, {width: codes});
+the app searches the long codes, which are what a TwDH index holds
+(cmh_tpu's server raises on the tree).
 """
 
 from __future__ import annotations
@@ -37,9 +46,12 @@ def _require(cond: bool, msg: str) -> None:
 class RetrievalApp:
     """Request logic, HTTP-free (unit-testable without sockets)."""
 
-    def __init__(self, index, encoders=None, tokenizer=None,
+    def __init__(self, index, encoders=None, tokenizer=None, backend: str = "device",
                  max_words: int = 32, image_size: int = 224,
                  default_topk: int = 10):
+        if backend not in ("device", "cpu"):
+            raise ValueError(f"backend must be 'device' or 'cpu', got {backend!r}")
+        self.backend = backend
         self.index = index
         self.encoders = encoders
         self.tokenizer = tokenizer
@@ -50,13 +62,14 @@ class RetrievalApp:
     def _search(self, codes: np.ndarray, topk: int):
         _require(0 < topk <= len(self.index),
                  f"topk={topk} outside (0, {len(self.index)}]")
-        dist, idx = self.index.search(codes, topk=topk)
+        search = self.index.search_cpu if self.backend == "cpu" else self.index.search
+        dist, idx = search(codes, topk=topk)
         return {"dist": np.asarray(dist).tolist(),
                 "idx": np.asarray(idx).tolist()}
 
     def healthz(self) -> dict:
         return {"count": len(self.index), "bits": self.index.bits,
-                "device": self.index.device.type,
+                "device": self.index.device.type, "backend": self.backend,
                 "text": self.encoders is not None}
 
     def search(self, payload: dict) -> dict:
@@ -76,7 +89,7 @@ class RetrievalApp:
         ids, masks = zip(*(tokenize_caption(self.tokenizer, str(t), self.max_words)
                            for t in texts))
         codes = self.encoders.encode_text(np.stack(ids), np.stack(masks))
-        return self._search(codes, int(payload.get("topk", self.default_topk)))
+        return self._search(_indexed_codes(codes), int(payload.get("topk", self.default_topk)))
 
     def search_image(self, payload: dict) -> dict:
         _require(self.encoders is not None,
@@ -103,7 +116,7 @@ class RetrievalApp:
         imgs = np.stack([eval_transform(decode(i, b), self.image_size)
                          for i, b in enumerate(blobs)])
         codes = self.encoders.encode_image(imgs)
-        return self._search(codes, int(payload.get("topk", self.default_topk)))
+        return self._search(_indexed_codes(codes), int(payload.get("topk", self.default_topk)))
 
     ROUTES = {"/search": "search", "/search_text": "search_text",
               "/search_image": "search_image"}
@@ -113,6 +126,12 @@ class RetrievalApp:
         if method is None:
             raise KeyError(path)
         return getattr(self, method)(payload)
+
+
+def _indexed_codes(codes):
+    """The codes an index holds: TwDH's long codes out of its (long,
+    {width: codes}) tree, any other method's codes as they are."""
+    return codes[0] if isinstance(codes, tuple) else codes
 
 
 def make_server(app: RetrievalApp, host: str = "127.0.0.1",
@@ -162,7 +181,11 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--encoders", default=None,
                     help="encoder file from cmh_torch.export (enables "
                          "/search_text and /search_image)")
-    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the index and the encoders live")
+    ap.add_argument("--backend", choices=("device", "cpu"), default="device",
+                    help="scorer: the index's device (K4 on the card) or the host C++ "
+                         "scorer (search_cpu)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--max-words", type=int, default=32)
@@ -181,12 +204,14 @@ def main(argv: Optional[list] = None) -> None:
 
         encoders = load_encoders(args.encoders, device=args.device)
         tokenizer = SimpleTokenizer()
-    app = RetrievalApp(index, encoders, tokenizer, max_words=args.max_words,
+    app = RetrievalApp(index, encoders, tokenizer, backend=args.backend,
+                       max_words=args.max_words,
                        image_size=args.image_size, default_topk=args.topk)
     server = make_server(app, args.host, args.port)
     print(f"serving {len(index)} items ({index.bits}-bit) on "
           f"http://{args.host}:{server.server_address[1]} "
-          f"(text={'on' if encoders else 'off'}, device={args.device})",
+          f"(text={'on' if encoders else 'off'}, device={args.device}, "
+          f"backend={args.backend})",
           flush=True)
     try:
         server.serve_forever()

@@ -128,8 +128,8 @@ def test_ported_run_keys_run(tmp_path, trainer_log, key):
 
 def test_unknown_arch_names_the_ported_ones(tmp_path):
     path = tmp_path / "bad.yaml"
-    path.write_text((TINY % "").replace("arch: DCMHT,", "arch: DIMCH,"))
-    with pytest.raises(KeyError, match="DCMHT"):
+    path.write_text((TINY % "").replace("arch: DCMHT,", "arch: NoSuchMethod,"))
+    with pytest.raises(KeyError, match="DCMHT.*DIMCH.*UMoED"):
         main(["--config-file", str(path), "--save-dir", str(tmp_path / "o"),
               "--device", "cpu"])
 

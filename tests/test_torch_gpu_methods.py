@@ -17,7 +17,13 @@ their plain versions (1e-5 relative, fp32 sums in another order), and the
 fp32 attention backward holds K ≤ 117 concept tokens at head dim 64 in
 shared memory and refuses more. TwDH's ``valid`` at a 512-bit long code
 runs K3 on int16 words and its mAPs equal the plain counting rank's
-(1e-12); a 512-bit search through K4 equals ``search_cpu``.
+(1e-12); a 512-bit search through K4 equals ``search_cpu``. DIMCH's and
+UMoED's train steps on the card equal the CPU's, UMoED's decoder launching
+the fp32 K1 (3 a decoder layer, a head call, forward and backward); the
+text tower without the key-padding mask (DIMCH and UMoED) runs K2 with the
+causal mask alone, within one bf16 step of the plain version; K1 in fp32 at
+the full-width decoder's (6400, 512) equals its plain version (1e-5); and
+the server's two backends answer alike from a CUDA index.
 """
 
 import pytest
@@ -152,3 +158,84 @@ def test_twdh_512_bit_valid_and_search(cuda, tmp_path):
     index.add(r[0])
     for a, b in zip(index.search(q[1], topk=10), index.search_cpu(q[1].cpu(), topk=10)):
         np.testing.assert_array_equal(a, b)
+
+
+UMOED = {"setDim": 4, "MoE": True, "fusion": True, "num_experts": 2, "slots_per_expert": 2,
+         "decoder_heads": 2, "decoder_layers": 2, "hidden_dim": 32, "dropout": 0.0,
+         "hash_func": "linear_subspace", "merge_func": "concatenate", "extreme_T": 0.3,
+         "distance": {"mode": "pairwise"}}
+DIMCH = {"setDim": 4, "dropout": 0.0, "distance": {"mode": "smooth_chamfer"}}
+
+
+@pytest.mark.parametrize("arch", ["DIMCH", "UMoED"])
+def test_dimch_umoed_train_step_on_the_card_equals_the_cpu(cuda, tmp_path, arch):
+    from cmh_torch.ops.layernorm import layernorm_bwd
+
+    extra = UMOED if arch == "UMoED" else DIMCH
+    card = trainer(tmp_path / "card", arch, "cuda", **extra)
+    cpu = trainer(tmp_path / "cpu", arch, "cpu", **extra)
+    cpu.model.load_state_dict(card.model.state_dict())
+    batch = next(iter(cpu.train_loader))
+    counters = (fused_layernorm, layernorm_bwd, fused_attention)
+    for c in counters:
+        c.launches = c.launches_fp32 = 0
+    loss_card = float(card.train_step(batch)[0])
+    torch.cuda.synchronize()
+    # the tiny towers: 11 K1 and 2 K2 (causal only on the text side); UMoED's
+    # decoder 3 K1 a layer in each of its two head calls, its attention explicit
+    k1 = 11 + (3 * 2 * 2 if arch == "UMoED" else 0)
+    assert [(c.launches, c.launches_fp32) for c in counters] == [(k1, k1), (k1, k1), (2, 2)]
+    loss_cpu = float(cpu.train_step(batch)[0])
+    assert abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    gc, gp = _grads(card), _grads(cpu)
+    assert gc.keys() == gp.keys()
+    for n, g in gp.items():
+        assert float((gc[n] - g).abs().max()) <= 1e-3 * float(g.abs().max()) + 1e-7, n
+
+
+def test_causal_text_attention_without_kpm_on_the_card(cuda):
+    from test_torch_gpu_kernels import assert_within_one_bf16_step
+
+    from cmh_torch.ops.attention import attention_bwd, attention_bwd_plain, attention_plain
+
+    g = torch.Generator(device="cuda").manual_seed(32)
+    b, h, s = 100, 8, 32
+    qkv = torch.randn(b, s, 3 * h * 64, generator=g, device="cuda").bfloat16()
+    q, k, v = (t.reshape(b, s, h, 64).transpose(1, 2) for t in qkv.split(h * 64, -1))
+    do = torch.randn(b, s, h * 64, generator=g, device="cuda").bfloat16()
+    do = do.reshape(b, s, h, 64).transpose(1, 2)
+    mask = torch.full((s, s), float("-inf"), device="cuda").triu(1)
+    scale = 64**-0.5
+    assert_within_one_bf16_step(fused_attention(q, k, v, scale, mask, None),
+                                attention_plain(q, k, v, scale, mask, None))
+    for a, r in zip(attention_bwd(q, k, v, scale, mask, None, do),
+                    attention_bwd_plain(q, k, v, scale, mask, None, do)):
+        assert_within_one_bf16_step(a, r)
+
+
+def test_fp32_layernorm_at_the_umoed_decoder_rows(cuda):
+    from cmh_torch.ops.layernorm import layernorm_bwd, layernorm_bwd_plain, layernorm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    x, do = (torch.randn(6400, 512, generator=gen, device="cuda") for _ in range(2))
+    gamma, beta = (torch.randn(512, generator=gen, device="cuda") for _ in range(2))
+    torch.testing.assert_close(fused_layernorm(x, gamma, beta), layernorm_plain(x, gamma, beta),
+                               rtol=1e-5, atol=1e-5)
+    got, want = layernorm_bwd(x, gamma, do), layernorm_bwd_plain(x, gamma, do)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    for a, r in zip(got[1:], want[1:]):        # sums over 6400 rows in another order
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-3)
+
+
+def test_server_backends_on_the_card_agree(cuda):
+    from cmh_torch.server import RetrievalApp
+    from cmh_torch.serving import RetrievalIndex
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    index = RetrievalIndex(64, device="cuda")
+    index.add(torch.randint(0, 2, (5000, 64), generator=gen, device="cuda").float() * 2 - 1)
+    q = (torch.randint(0, 2, (4, 64), generator=gen, device="cuda").float() * 2 - 1).tolist()
+    answers = [RetrievalApp(index, backend=b).search({"codes": q, "topk": 10})
+               for b in ("device", "cpu")]
+    assert answers[0] == answers[1]
+    assert RetrievalApp(index).healthz()["device"] == "cuda"

@@ -37,7 +37,9 @@ TRAINING_MODULES = {
     "cmh_torch.runners.dnph", "cmh_torch.models.mith", "cmh_torch.models.twdh",
     "cmh_torch.runners.mith", "cmh_torch.runners.twdh", "cmh_torch.ops.hash_centers",
     "cmh_torch.native.hash_ops", "cmh_torch.native._build", "cmh_torch.utils.flax_msgpack",
-    "cmh_torch.models.convert", "cmh_torch.serving", "cmh_torch.export"}
+    "cmh_torch.models.convert", "cmh_torch.serving", "cmh_torch.export",
+    "cmh_torch.models.dimch", "cmh_torch.models.umoed", "cmh_torch.runners.dimch",
+    "cmh_torch.runners.umoed", "cmh_torch.ops.distances", "cmh_torch.server"}
 
 
 def test_import_pulls_in_no_jax_and_no_cmh_tpu():

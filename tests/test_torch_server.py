@@ -107,7 +107,8 @@ def test_http_server_end_to_end_matches_jax(setup):
     try:
         status, health = _request(port, "GET", "/healthz")
         assert status == 200
-        assert health == {"count": 100, "bits": BITS, "device": "cpu", "text": True}
+        assert health == {"count": 100, "bits": BITS, "device": "cpu", "backend": "device",
+                          "text": True}
 
         queries = rng.choice([-1.0, 1.0], size=(3, BITS)).astype(np.float32)
         status, out = _request(port, "POST", "/search",
