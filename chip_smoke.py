@@ -107,9 +107,31 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    each asked over HTTP with ``--backend device`` and ``--backend cpu``,
    whose answers must be equal.
 
+14. the row-tiled K2 (every S past the one-block kernels' limits) on its
+   main path, and the ResNet tower and ``api.py``, at full width:
+   a. DCMHT through the CLI with a seeded ViT-L/14 archive in OpenAI's
+      layout (fp16, about 0.86 GB) at ``model.clip_path`` of
+      ``configs/DCMHT/synthetic_tpu.yaml``'s dataset, 2 epochs of 2 steps at
+      batch 100 with their ``valid``s, no full-state checkpoint: the
+      inferred geometry, the launch counts (a forward 75 K1 and 34 K2, 23
+      of them row-tiled at S = 257; a backward the same), finite losses,
+      the mAPs against the recomputation, the steady step time;
+   b. ``api.load("ViT-B/16")`` encodes 256 images (K2 at S = 197 through
+      the row tiles) and 256 captions from ``api.tokenize``;
+   c. phases 4 and 5 for ViT-L/14 in fp32 at batch 4 (head outputs, loss
+      and gradients, card against CPU, TF32 off);
+   d. MITH at 128 bits, one epoch of 2 steps through the CLI (its fp32
+      backward at S = 128 on the row tiles);
+   e. an RN50 tower at its published geometry from a seeded archive in
+      OpenAI's layout: 256 images in bf16 on the card, and 8 in fp32 held
+      against the CPU.
+
 Phase 3 holds K1 in fp32 at UMoED's decoder rows (6400, 512) too, and K2 on
 the text tower with the causal mask alone (DIMCH's and UMoED's text tower
-runs without the key-padding mask), forward and backward.
+runs without the key-padding mask), forward and backward; the bf16 K2 rows
+carry their cold-L2 time; the row-tiled K2 pair at ViT-B/16's (256, 12, 197,
+64) and ViT-L/14's (100, 16, 257, 64) forward, ViT-L/14's backward (bf16)
+and MITH's 128-bit (100, 8, 128, 64) backward (fp32).
 
 The last lines are the card's name and power limit, one JSON object with a
 ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -150,7 +172,18 @@ FP32_LN_ROWS = ((TRAIN_B * MITH_K, 512, "MITH"), (TRAIN_B * UMOED_SLOTS, 512, "U
 # mask (six methods) and with the causal mask alone (DIMCH, UMoED)
 ATTENTION_CASES = (("vision", 12, 50, None), ("text", 8, MAX_WORDS, "causal+kpm"),
                    ("text", 8, MAX_WORDS, "causal"))
+# the row-tiled K2 (S past the one-block limits): (what, batch, heads, S, dtype)
+TILED_FWD_CASES = (("ViT-B/16 vision", B, 12, 197, "bf16"),
+                   ("ViT-L/14 vision", TRAIN_B, 16, 257, "bf16"))
+TILED_BWD_CASES = (("ViT-L/14 vision", TRAIN_B, 16, 257, "bf16"),
+                   ("MITH 128-bit concepts", TRAIN_B, 8, 128, "fp32"))
 INDEX_ITEMS = (1 << 20) + 4096   # two gallery blocks of the blocked search
+# OpenAI's ViT-L/14 (cmh_tpu/models/clip/api.py:27-31) and RN50 geometries, and
+# the integer entries of OpenAI's CLIP files
+VIT_L14 = dict(embed_dim=768, vision_layers=24, vision_width=1024, vision_patch_size=14,
+               transformer_width=768, transformer_heads=12, transformer_layers=12)
+RN50 = dict(layers=(3, 4, 6, 3), width=64, output_dim=1024, heads=32, input_resolution=224)
+OPENAI_INTS = {"input_resolution": 224, "context_length": 77, "vocab_size": 49408}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 TRAIN_CONFIG = os.path.join(ROOT, "configs", "DCMHT", "synthetic_tpu.yaml")
@@ -246,8 +279,9 @@ def entry(name, source, replaces, shape, err, ms, plain_ms, lib_ms, nbytes, ops,
 def reset_counts(counters):
     for c in counters.values():
         c.launches = 0
-        if hasattr(c, "launches_fp32"):
-            c.launches_fp32 = 0
+        for part in ("launches_fp32", "launches_tiled"):
+            if hasattr(c, part):
+                setattr(c, part, 0)
 
 
 def read_counts(counters):
@@ -257,6 +291,12 @@ def read_counts(counters):
 def read_fp32(counters):
     """Of the launches, those of the fp32 K1 and K2 kernels."""
     return {k: c.launches_fp32 for k, c in counters.items() if hasattr(c, "launches_fp32")}
+
+
+def read_tiled(counters):
+    """Of the K2 launches, those of the row-tiled kernels (S past the
+    one-block limits)."""
+    return {k: c.launches_tiled for k, c in counters.items() if hasattr(c, "launches_tiled")}
 
 
 def check_layernorm(torch, gen):
@@ -370,6 +410,8 @@ def check_attention(torch, gen):
                 q, k, v, attn_mask=sdpa_mask, scale=scale)),
             nbytes, 4 * B * h * s * s * 64, "bf16"))
         rows[-1]["head_views_ms"] = cuda_ms(lambda: fused_attention(qp, kp, vp, scale, mask, kpm))
+        rows[-1]["cold_ms"] = cold_ms(lambda a, b, c: fused_attention(a, b, c, scale, mask, kpm),
+                                      (q, k, v))
     # MITH's fp32 concept transformer, block 0: (B, 8, K, 64), no mask
     q, k, v = (torch.randn(TRAIN_B, 8, MITH_K, 64, generator=gen, device="cuda")
                for _ in range(3))
@@ -534,6 +576,8 @@ def check_attention_bwd(torch, gen):
             nbytes, 10 * TRAIN_B * h * s * s * 64, "bf16"))
         rows[-1]["head_views_ms"] = cuda_ms(
             lambda: attention_bwd(qp, kp, vp, scale, mask, bias, dop))
+        rows[-1]["cold_ms"] = cold_ms(
+            lambda a, b, c, e: attention_bwd(a, b, c, scale, mask, bias, e), (q, k, v, do))
     q, k, v, do = (torch.randn(TRAIN_B, 8, MITH_K, 64, generator=gen, device="cuda")
                    for _ in range(4))
     scale = 64**-0.5
@@ -561,6 +605,73 @@ def check_attention_bwd(torch, gen):
                           ("bwd", "cmh_attention_bwd_smem_bytes"))}
     print(f"[kernel] fp32 attention at head dim 64 holds S <= {limit['fwd']} forward and "
           f"S <= {limit['bwd']} backward (MITH's K concept tokens)", flush=True)
+    return rows
+
+
+def check_attention_tiled(torch, gen):
+    """The row-tiled K2 pair at the lengths past the one-block kernels:
+    ViT-B/16's and ViT-L/14's vision forward, ViT-L/14's backward in bf16
+    (the one-bf16-step check) and MITH's 128 concept tokens backward in fp32
+    (1e-5), each with its cold-L2 time, the plain version's and SDPA's."""
+    import torch.nn.functional as F
+
+    from cmh_torch.ops.attention import (attention_bwd, attention_bwd_plain, attention_plain,
+                                         fused_attention, route)
+
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    rows, scale = [], 64**-0.5
+    for which, cases in (("fwd", TILED_FWD_CASES), ("bwd", TILED_BWD_CASES)):
+        for what, n, h, s, dt in cases:
+            if route(dtypes[dt], which, s, 64) != "tiled":
+                raise AssertionError(f"{what} S={s} {dt} {which} does not take the row tiles")
+            args = [torch.randn(n, h, s, 64, generator=gen, device="cuda").to(dtypes[dt])
+                    for _ in range(3 if which == "fwd" else 4)]
+            shape = f"{what} ({n},{h},{s},64) {dt}"
+            before = (fused_attention.launches_tiled, attention_bwd.launches_tiled)
+            if which == "fwd":
+                got = (fused_attention(*args, scale),)
+                want = (attention_plain(*args, scale),)
+            else:
+                got = attention_bwd(*args[:3], scale, None, None, args[3])
+                want = attention_bwd_plain(*args[:3], scale, None, None, args[3])
+            torch.cuda.synchronize()
+            if (fused_attention.launches_tiled - before[0],
+                    attention_bwd.launches_tiled - before[1]) != \
+                    ((1, 0) if which == "fwd" else (0, 1)):
+                raise AssertionError(f"{shape}: the row-tiled {which} kernel was not launched")
+            for name, a, b in zip(("out",) if which == "fwd" else ("dq", "dk", "dv"), got, want):
+                if dt == "bf16":
+                    steps = bf16_steps_checked(a, b, f"attention_{which}_tiled {shape} {name}")
+                    print(f"[kernel] attention_{which}_tiled {shape} {name}: {steps}", flush=True)
+                else:
+                    # fp32 in both: only the order of the sums differs
+                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            size = 2 if dt == "bf16" else 4
+            if which == "fwd":
+                leaves = None
+                kernel = lambda: fused_attention(*args, scale)
+                plain = lambda: attention_plain(*args, scale)
+                library = lambda: F.scaled_dot_product_attention(*args, scale=scale)
+                cold = cold_ms(lambda a, b, c: fused_attention(a, b, c, scale), args)
+                nbytes, ops = 4 * n * h * s * 64 * size, 4 * n * h * s * s * 64
+            else:
+                leaves = [t.clone().requires_grad_() for t in args[:3]]
+                out = F.scaled_dot_product_attention(*leaves, scale=scale)
+                kernel = lambda: attention_bwd(*args[:3], scale, None, None, args[3])
+                plain = lambda: attention_bwd_plain(*args[:3], scale, None, None, args[3])
+                library = lambda: torch.autograd.grad(out, leaves, args[3], retain_graph=True)
+                cold = cold_ms(lambda a, b, c, e: attention_bwd(a, b, c, scale, None, None, e),
+                               args)
+                nbytes, ops = 7 * n * h * s * 64 * size, 10 * n * h * s * s * 64
+            rows.append(entry(
+                f"attention_{which}_tiled", "cmh_torch/csrc/attention_tiled.cu",
+                "cmh_tpu/ops/attention_pallas.py:" + ("60" if which == "fwd" else "84"),
+                shape, err, cuda_ms(kernel, iters=20, warmup=3),
+                cuda_ms(plain, iters=10, warmup=2), cuda_ms(library, iters=20, warmup=3),
+                nbytes, ops, dt))
+            rows[-1]["cold_ms"] = cold
+            del args, got, want, leaves
     return rows
 
 
@@ -652,9 +763,11 @@ def check_map(torch, gen):
     return rows, runs
 
 
-def grad_parity(torch):
-    """One fp32 train step's loss and gradients at full width on 8 pairs:
-    the card (kernels) against the CPU (plain versions), TF32 off."""
+def grad_parity(torch, geometry=None, n=8, tag="[grad]", grad_tol=1e-4):
+    """One fp32 train step's loss and gradients at full width on ``n`` pairs
+    (ViT-B/32, or the CLIP ``geometry``): the card (kernels) against the CPU
+    (plain versions), TF32 off; each gradient tensor within ``grad_tol`` of
+    its largest CPU value."""
     import numpy as np
 
     from cmh_torch.models.clip.model import CLIPConfig
@@ -663,16 +776,16 @@ def grad_parity(torch):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = DCMHTModel(CLIPConfig(dtype=torch.float32), CODE_BITS)
+    model = DCMHTModel(CLIPConfig(**(geometry or {}), dtype=torch.float32), CODE_BITS)
     model.init_weights(torch.Generator().manual_seed(0)).train()
     cpu_model = copy.deepcopy(model)
     gpu_model = model.to("cuda")
     rng = np.random.RandomState(2)
-    img = torch.from_numpy(rng.randn(8, 224, 224, 3).astype(np.float32))
+    img = torch.from_numpy(rng.randn(n, 224, 224, 3).astype(np.float32))
     tok = SimpleTokenizer()
     ids, kpm = (torch.from_numpy(np.stack(a)) for a in
-                zip(*(tokenize_caption(tok, c, MAX_WORDS) for c in CAPTIONS[:8])))
-    labels = torch.from_numpy(np.eye(4, dtype=np.float32)[[0, 1, 2, 3, 0, 1, 2, 3]])
+                zip(*(tokenize_caption(tok, c, MAX_WORDS) for c in CAPTIONS[:n])))
+    labels = torch.from_numpy(np.eye(4, dtype=np.float32)[[0, 1, 2, 3, 0, 1, 2, 3][:n]])
     loss_fn = dcmht_loss_fn(output_dim=CODE_BITS)
     losses = {}
     for name, m, dev in (("cuda", gpu_model, "cuda"), ("cpu", cpu_model, "cpu")):
@@ -699,7 +812,7 @@ def grad_parity(torch):
             noise[name] = pc.grad.abs().max().item()
         elif rel > worst[0]:
             worst = (rel, name)
-    print(f"[grad] loss card {losses['cuda']:.7f} cpu {losses['cpu']:.7f} rel diff "
+    print(f"{tag} loss card {losses['cuda']:.7f} cpu {losses['cpu']:.7f} rel diff "
           f"{loss_rel:.3e}; largest per-tensor relative gradient difference "
           f"{worst[0]:.3e} ({worst[1]}); BatchNorm-absorbed gradients (noise) "
           f"{ {k: f'{v:.1e}' for k, v in noise.items()} }", flush=True)
@@ -707,7 +820,7 @@ def grad_parity(torch):
     # layers forward and backward
     if not loss_rel <= 1e-6:
         raise AssertionError(f"loss differs card/CPU: {loss_rel}")
-    if not worst[0] <= 1e-4:
+    if not worst[0] <= grad_tol:
         raise AssertionError(f"gradient of {worst[1]} differs card/CPU: {worst[0]}")
     if max(noise.values()) > 1e-4:
         raise AssertionError(f"BatchNorm-absorbed gradients are not noise: {noise}")
@@ -854,16 +967,20 @@ def training(torch, counters):
     return launches, stats
 
 
-def expected_launches(cfg, remat=False, fp32=(0, 0), widths=None):
+def expected_launches(cfg, remat=False, fp32=(0, 0), widths=None, layers=(12, 12),
+                      tiled=None):
     """(train steps, kernel launches) of a training run of the config
     ``cfg`` (a dict) through the CLI, worked out from the code: per image +
-    text pair of full-width towers 51 K1 and 22 K2 (the last block of each
-    tower takes the explicit path) forward and backward, the forward twice
-    under ``remat``, and ``fp32`` (K1, K2) more in fp32 (MITH's concept
+    text pair of full-width towers of ``layers`` (vision, text) blocks, 2 K1
+    a block, 3 more for ln_pre, ln_post and ln_final, and a K2 a block but
+    the last of each tower (which takes the explicit path): 51 K1 and 22 K2
+    at ViT-B/32's 12 and 12, forward and backward, the forward twice under
+    ``remat``, and ``fp32`` (K1, K2) more in fp32 (MITH's concept
     transformers: 2 blocks of 2 LayerNorms and one K2 block a modality);
     one K3 pass each per query chunk of a ``valid`` for each code width
     (``widths``, default ``run.output_dim``). With ``fp32`` a third dict
-    gives the fp32 launches alone."""
+    gives the fp32 launches alone; with ``tiled`` (row-tiled K2 launches a
+    forward, a backward) a last dict gives the row-tiled K2 launches."""
     import math
 
     from cmh_torch.ops.map_kernel import query_chunk
@@ -877,15 +994,19 @@ def expected_launches(cfg, remat=False, fp32=(0, 0), widths=None):
         * run["epochs"]
     chunks = sum(math.ceil(run["query_num"] / query_chunk(w))
                  for w in (widths or [run["output_dim"]])) * run["epochs"]
-    ln, attn = 12 * 2 + 2 + 12 * 2 + 1 + fp32[0], 11 + 11 + fp32[1]
+    lv, lt = layers
+    ln, attn = 2 * lv + 2 + 2 * lt + 1 + fp32[0], (lv - 1) + (lt - 1) + fp32[1]
     fwd = steps * (2 if remat else 1) + eval_batches
     expect = {"layernorm": ln * fwd, "layernorm_bwd": ln * steps,
               "attention": attn * fwd, "attention_bwd": attn * steps,
               "hamming": 0, "map_hist": chunks, "map_ap": chunks}
-    if fp32 == (0, 0):
-        return steps, expect
-    return steps, expect, {"layernorm": fp32[0] * fwd, "layernorm_bwd": fp32[0] * steps,
-                           "attention": fp32[1] * fwd, "attention_bwd": fp32[1] * steps}
+    out = [steps, expect]
+    if fp32 != (0, 0):
+        out.append({"layernorm": fp32[0] * fwd, "layernorm_bwd": fp32[0] * steps,
+                    "attention": fp32[1] * fwd, "attention_bwd": fp32[1] * steps})
+    if tiled is not None:
+        out.append({"attention": tiled[0] * fwd, "attention_bwd": tiled[1] * steps})
+    return tuple(out)
 
 
 def train_main_path(torch, counters, root):
@@ -1144,8 +1265,9 @@ def flat_optimizer(torch):
         raise AssertionError("flat BertAdam on the card gave other bits on a rerun")
 
 
-def model_parity(torch):
-    """Full-width fp32 DCMHT: card (kernels) against CPU (plain versions)."""
+def model_parity(torch, geometry=None, n=8, tag="[parity]"):
+    """Full-width fp32 DCMHT (ViT-B/32, or the CLIP ``geometry``) on ``n``
+    pairs: card (kernels) against CPU (plain versions)."""
     import numpy as np
 
     from cmh_torch.models.clip.model import CLIPConfig
@@ -1154,14 +1276,14 @@ def model_parity(torch):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = DCMHTModel(CLIPConfig(dtype=torch.float32), CODE_BITS)
+    model = DCMHTModel(CLIPConfig(**(geometry or {}), dtype=torch.float32), CODE_BITS)
     model.init_weights(torch.Generator().manual_seed(0)).eval()
     cpu_model = copy.deepcopy(model)
     gpu_model = model.to("cuda")
     rng = np.random.RandomState(1)
-    img = torch.from_numpy(rng.randn(8, 224, 224, 3).astype(np.float32))
+    img = torch.from_numpy(rng.randn(n, 224, 224, 3).astype(np.float32))
     tok = SimpleTokenizer()
-    caps = CAPTIONS[:8]
+    caps = CAPTIONS[:n]
     ids, kpm = (torch.from_numpy(np.stack(a)) for a in
                 zip(*(tokenize_caption(tok, c, MAX_WORDS) for c in caps)))
     out = {}
@@ -1171,13 +1293,13 @@ def model_parity(torch):
             h_gpu = run(gpu_model, "cuda").cpu()
             h_cpu = run(cpu_model, "cpu")
             rel = ((h_gpu - h_cpu).abs().max() / h_cpu.abs().max()).item()
-            pairs_cpu = h_cpu.reshape(8, -1, 2)
+            pairs_cpu = h_cpu.reshape(n, -1, 2)
             margin = (pairs_cpu[..., 1] - pairs_cpu[..., 0]).abs()
             agree = cpu_model.make_hash_code(h_cpu) == gpu_model.make_hash_code(h_gpu)
             decided = margin >= 1e-3
             out[name] = {"max_rel_diff": rel, "code_agreement": agree.float().mean().item(),
                          "undecided_pairs": int((~decided).sum())}
-            print(f"[parity] {name}: max rel diff {rel:.3e}, codes agree "
+            print(f"{tag} {name}: max rel diff {rel:.3e}, codes agree "
                   f"{out[name]['code_agreement']:.4f} "
                   f"({out[name]['undecided_pairs']} pairs with margin < 1e-3)", flush=True)
             # fp32 with TF32 off on both: only summation order differs
@@ -1393,8 +1515,7 @@ def pretrained_load(torch, counters):
         clip.init_weights(torch.Generator().manual_seed(12))
         half = {k: v.detach().half() for k, v in clip.state_dict().items()}
         del clip
-        ints = {"input_resolution": torch.tensor(224), "context_length": torch.tensor(77),
-                "vocab_size": torch.tensor(49408)}
+        ints = {k: torch.tensor(v) for k, v in OPENAI_INTS.items()}
         files = {"fp16 state dict": os.path.join(root, "ViT-B-32-sd.pt"),
                  "TorchScript archive": os.path.join(root, "ViT-B-32.pt")}
         torch.save({**half, **ints}, files["fp16 state dict"])
@@ -2172,6 +2293,222 @@ def serve_twdh(torch, counters):
     return launches
 
 
+def write_openai_archive(torch, state, path):
+    """``state`` as OpenAI writes its CLIP files: floating tensors in fp16,
+    the three integer entries, a TorchScript archive. Returns its bytes."""
+    from cmh_torch.models.clip.loader import save_torchscript_archive
+
+    half = {k: v.detach().half() if v.is_floating_point() else v for k, v in state.items()}
+    save_torchscript_archive({**half, **{k: torch.tensor(v) for k, v in OPENAI_INTS.items()}},
+                             path)
+    return os.path.getsize(path)
+
+
+def long_sequences(torch, counters):
+    """Phase 14: the row-tiled K2 on its main path and the new modules."""
+    by_path, tiled_by_path = {}, {}
+    root = tempfile.mkdtemp(prefix="cmh_smoke_long_")
+    try:
+        by_path["ViT-L/14"], tiled_by_path["ViT-L/14"] = vit_l14_training(torch, counters, root)
+        by_path["ViT-B/16 encode"], tiled_by_path["ViT-B/16 encode"] = vit_b16_encode(
+            torch, counters)
+        t0 = time.perf_counter()
+        model_parity(torch, VIT_L14, n=4, tag="[ViT-L/14 parity]")
+        # 24 vision blocks, twice ViT-B/32's: the fp32 sums' order differences
+        # compound through twice the depth (ViT-B/32's phase 5 holds 1e-4)
+        grad_parity(torch, VIT_L14, n=4, tag="[ViT-L/14 grad]", grad_tol=2e-4)
+        print(f"[ViT-L/14 parity] fp32 card against CPU, batch 4: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        by_path["MITH 128-bit"], tiled_by_path["MITH 128-bit"] = mith_128(torch, counters, root)
+        resnet_tower(torch, counters, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return by_path, tiled_by_path
+
+
+def vit_l14_training(torch, counters, root):
+    """14a, the slice's main path: DCMHT through the CLI with a seeded
+    ViT-L/14 in OpenAI's layout at ``model.clip_path`` of
+    configs/DCMHT/synthetic_tpu.yaml's dataset, 2 epochs of 2 steps at batch
+    100, each with its valid, no full-state checkpoint (about 5 GB at this
+    width). The vision tower's 23 fused blocks a pass (S = 257) take the
+    row-tiled K2 both ways; the text tower's 11 (S = 32) the one-block K2."""
+    import numpy as np
+    import yaml
+
+    from cmh_torch.models.clip.model import CLIP, CLIPConfig
+
+    clip = CLIP(CLIPConfig(**VIT_L14))
+    clip.init_weights(torch.Generator().manual_seed(14))
+    path = os.path.join(root, "ViT-L-14.pt")
+    t0 = time.perf_counter()
+    nbytes = write_openai_archive(torch, clip.state_dict(), path)
+    del clip
+    print(f"[ViT-L/14] seeded archive in OpenAI's layout: {nbytes} bytes, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with open(TRAIN_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"]["clip_path"] = path
+    cfg["run"].update(epochs=2, train_num=200, query_num=100, batch_size=100, display_step=1,
+                      checkpoint_every=0, auto_resume=False)
+    cfg_path = os.path.join(root, "vit_l14.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    lv, lt = VIT_L14["vision_layers"], VIT_L14["transformer_layers"]
+    steps, expect, expect_tiled = expected_launches(cfg, layers=(lv, lt),
+                                                    tiled=(lv - 1, lv - 1))
+    reset_counts(counters)
+    # ---- the main path: python -m cmh_torch.main, in-process
+    t0 = time.perf_counter()
+    tr = train_cli(cfg_path, os.path.join(root, "vit_l14"))
+    torch.cuda.synchronize()
+    launches, tiled = read_counts(counters), read_tiled(counters)
+    t_main = time.perf_counter() - t0
+    # ---- end of the main path
+    hist = tr.history
+    train_s = sum(h["seconds"] for h in hist)
+    wait_s = sum(h["data_wait_s"] for h in hist)
+    print(f"[ViT-L/14] {steps} steps: {train_s / steps * 1e3:.1f} ms a step on the host clock, "
+          f"{(train_s - wait_s) / steps * 1e3:.1f} ms without the data waits; main path "
+          f"{t_main:.1f} s; epoch losses {[h['loss'] for h in hist]}; mAPs "
+          f"{[h['maps'] for h in hist]}", flush=True)
+    per_step = {k: launches[k] // steps for k in ("layernorm_bwd", "attention_bwd")}
+    print(f"[ViT-L/14] launches {launches} expected {expect}; row-tiled K2 {tiled} expected "
+          f"{expect_tiled}; a step: K1-bwd {per_step['layernorm_bwd']}, K2-bwd "
+          f"{per_step['attention_bwd']} ({tiled['attention_bwd'] // steps} row-tiled), a "
+          f"forward: K1-fwd {2 * lv + 2 + 2 * lt + 1}, K2-fwd {lv - 1 + lt - 1} ({lv - 1} "
+          f"row-tiled)", flush=True)
+    if tr.model.backbone.cfg != CLIPConfig(**VIT_L14):
+        raise AssertionError(f"inferred {tr.model.backbone.cfg}, not ViT-L/14")
+    if launches != expect or tiled != expect_tiled:
+        raise AssertionError(f"ViT-L/14: launch counts {launches} (row-tiled {tiled}) != "
+                             f"expected {expect} (row-tiled {expect_tiled})")
+    if len(hist) != 2 or not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"ViT-L/14: non-finite or missing epoch losses: {hist}")
+    check_last_maps(torch, tr, "[ViT-L/14]")
+    steady_steps(torch, tr, "ViT-L/14")
+    del tr
+    return launches, tiled
+
+
+def vit_b16_encode(torch, counters):
+    """14b: ``api.load("ViT-B/16")`` (seeded random init, bf16, on the card)
+    encodes 256 images (K2-fwd at S = 197 through the row tiles) and 256
+    captions tokenized by ``api.tokenize`` (S = 77, the one-block K2)."""
+    from cmh_torch.models.clip import api
+
+    model, cfg = api.load("ViT-B/16", generator=torch.Generator().manual_seed(16))
+    images = device_batch(torch, torch.Generator(device="cuda").manual_seed(16), B)["image"]
+    ids = api.tokenize(CAPTIONS * (B // len(CAPTIONS))).cuda()
+    reset_counts(counters)
+    # ---- the main path: encode images and texts
+    with torch.no_grad():
+        img = model.encode_image(images)[0]
+        txt = model.encode_text(ids, ids == 0)[0]
+    torch.cuda.synchronize()
+    launches, tiled = read_counts(counters), read_tiled(counters)
+    # ---- end of the main path
+    expect = {k: 0 for k in counters}
+    expect.update(layernorm=51, attention=22)
+    expect_tiled = {"attention": 11, "attention_bwd": 0}
+    with torch.no_grad():
+        image_ms = cuda_ms(lambda: model.encode_image(images), iters=3, warmup=1)
+    print(f"[ViT-B/16] api.load: {cfg}; 256 images and 256 captions encoded to {tuple(img.shape)} "
+          f"and {tuple(txt.shape)}; image tower {image_ms:.3f} ms (CUDA events); launches "
+          f"{launches} expected {expect}, row-tiled {tiled} expected {expect_tiled}", flush=True)
+    if not (torch.isfinite(img.float()).all() and torch.isfinite(txt.float()).all()):
+        raise AssertionError("ViT-B/16: non-finite encodings")
+    if img.shape != (B, cfg.embed_dim) or txt.shape != (B, cfg.embed_dim):
+        raise AssertionError(f"ViT-B/16: encodings of shape {img.shape}, {txt.shape}")
+    if launches != expect or tiled != expect_tiled:
+        raise AssertionError(f"ViT-B/16: launches {launches} (row-tiled {tiled})")
+    del model
+    return launches, tiled
+
+
+def mith_128(torch, counters, root):
+    """14d: MITH at 128 bits, one epoch of 2 steps through the CLI: its fp32
+    concept transformers run K2 at S = 128, the forward on the one-block
+    kernel, the backward on the row tiles."""
+    import numpy as np
+    import yaml
+
+    cfg = method_config("MITH")
+    cfg["run"].update(output_dim=128, epochs=1, checkpoint_every=0, auto_resume=False)
+    cfg_path = os.path.join(root, "mith128.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    steps, expect, expect32, expect_tiled = expected_launches(cfg, fp32=(8, 2), tiled=(0, 2))
+    reset_counts(counters)
+    # ---- the main path: python -m cmh_torch.main, in-process
+    tr = train_cli(cfg_path, os.path.join(root, "mith128"))
+    torch.cuda.synchronize()
+    launches, fp32, tiled = read_counts(counters), read_fp32(counters), read_tiled(counters)
+    # ---- end of the main path
+    hist = tr.history
+    print(f"[MITH 128-bit] {steps} steps, losses {[h['loss'] for h in hist]}, mAPs "
+          f"{[h['maps'] for h in hist]}; launches {launches} expected {expect}; fp32 {fp32} "
+          f"expected {expect32}; row-tiled {tiled} expected {expect_tiled}", flush=True)
+    if (launches, fp32, tiled) != (expect, expect32, expect_tiled):
+        raise AssertionError("MITH 128-bit: launch counts differ from the expected ones")
+    if len(hist) != 1 or not np.isfinite(hist[0]["loss"]):
+        raise AssertionError(f"MITH 128-bit: non-finite or missing loss: {hist}")
+    check_last_maps(torch, tr, "[MITH 128-bit]")
+    del tr
+    return launches, tiled
+
+
+def resnet_tower(torch, counters, root):
+    """14e: an RN50 tower at its published geometry from a seeded archive in
+    OpenAI's layout (``visual.*`` in fp16 with torch's num_batches_tracked):
+    256 images in bf16 on the card; 8 in fp32 (cuDNN TF32 off) held against
+    the CPU at 1e-4 of the largest output (fp32 sums in another order
+    through 16 bottlenecks and the convolutions' algorithms). The tower
+    launches no kernel of the port."""
+    import numpy as np
+
+    from cmh_torch.models.clip.loader import load_resnet
+    from cmh_torch.models.clip.resnet import ModifiedResNet
+
+    tower = ModifiedResNet(**RN50).init_weights(torch.Generator().manual_seed(50))
+    state = {"visual." + k: v for k, v in tower.state_dict().items()}
+    state.update({k.replace("running_mean", "num_batches_tracked"): torch.tensor(0)
+                  for k in state if k.endswith("running_mean")})
+    path = os.path.join(root, "RN50.pt")
+    nbytes = write_openai_archive(torch, state, path)
+    del tower
+    bf16, geo = load_resnet(path)
+    if geo != RN50:
+        raise AssertionError(f"RN50 geometry read as {geo}")
+    bf16 = bf16.cuda()
+    images = device_batch(torch, torch.Generator(device="cuda").manual_seed(50), B)["image"]
+    reset_counts(counters)
+    with torch.no_grad():
+        out = bf16(images)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: bf16(images), iters=5, warmup=1)
+    if sum(read_counts(counters).values()):
+        raise AssertionError(f"the ResNet tower launched {read_counts(counters)}")
+    if out.shape != (B, 1024) or out.dtype != torch.bfloat16 or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"RN50 bf16: {out.shape} {out.dtype}, finite "
+                             f"{bool(torch.isfinite(out.float()).all())}")
+    del bf16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu, _ = load_resnet(path, dtype=torch.float32)
+    gpu = copy.deepcopy(cpu).cuda()
+    img = torch.from_numpy(np.random.RandomState(50).randn(8, 224, 224, 3).astype(np.float32))
+    with torch.no_grad():
+        want = cpu(img)
+        got = gpu(img.cuda()).cpu()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"[RN50] archive {nbytes} bytes; geometry {geo}; 256 images in bf16 on the card "
+          f"{ms:.3f} ms (CUDA events), out {tuple(out.shape)}; fp32 card against CPU on 8 "
+          f"images: max rel diff {rel:.3e}", flush=True)
+    if not rel <= 1e-4:
+        raise AssertionError(f"RN50 fp32 encodings differ card/CPU: {rel}")
+
+
 def main() -> int:
     import torch
 
@@ -2211,6 +2548,7 @@ def main() -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         rows = check_layernorm(torch, gen) + check_attention(torch, gen) + check_hamming(torch, gen)
         rows += check_layernorm_bwd(torch, gen) + check_attention_bwd(torch, gen)
+        rows += check_attention_tiled(torch, gen)
         map_rows, _ = check_map(torch, gen)
         rows += map_rows
         for r in rows:
@@ -2239,6 +2577,8 @@ def main() -> int:
         phase13, fp32_13 = train_dimch_umoed(torch, counters)
         by_path.update(phase13)
         fp32_by_path.update(fp32_13)
+        phase14, tiled_by_path = long_sequences(torch, counters)
+        by_path.update(phase14)
         train_kernels = ("layernorm", "layernorm_bwd", "attention", "attention_bwd",
                          "map_hist", "map_ap")
         for path, need in (("serving", ("layernorm", "attention", "hamming")),
@@ -2251,10 +2591,21 @@ def main() -> int:
                                                  "map_hist", "map_ap")),
                            ("DIMCH", train_kernels), ("UMoED", train_kernels),
                            ("UMoED serving", ("layernorm", "attention", "hamming")),
-                           ("TwDH serving", ("layernorm", "attention", "hamming"))):
+                           ("TwDH serving", ("layernorm", "attention", "hamming")),
+                           ("ViT-L/14", train_kernels), ("ViT-B/16 encode", ("layernorm", "attention")),
+                           ("MITH 128-bit", train_kernels)):
             idle = [k for k in need if by_path[path][k] == 0]
             if idle:
                 raise AssertionError(f"{path}: kernels {idle} were never launched")
+        # the row-tiled pair, apart from the one-block K2 (which the text tower
+        # still takes on the ViT-L/14 path)
+        for path, need in (("ViT-L/14", ("attention", "attention_bwd")),
+                           ("ViT-B/16 encode", ("attention",)), ("MITH 128-bit", ("attention_bwd",))):
+            idle = [k for k in need if tiled_by_path[path][k] == 0]
+            if idle:
+                raise AssertionError(f"{path}: the row-tiled kernels {idle} were never launched")
+        if by_path["ViT-L/14"]["attention"] == tiled_by_path["ViT-L/14"]["attention"]:
+            raise AssertionError("ViT-L/14: the one-block K2 was never launched")
         for path, need in (("MITH", ("layernorm", "layernorm_bwd", "attention", "attention_bwd")),
                            ("UMoED", ("layernorm", "layernorm_bwd"))):
             idle = [k for k in need if fp32_by_path[path][k] == 0]
@@ -2263,14 +2614,21 @@ def main() -> int:
 
         key = {"layernorm_fwd": "layernorm", "attention_fwd": "attention", "hamming": "hamming",
                "layernorm_bwd": "layernorm_bwd", "attention_bwd": "attention_bwd",
-               "map_hist": "map_hist", "map_ap": "map_ap"}
+               "map_hist": "map_hist", "map_ap": "map_ap",
+               "attention_fwd_tiled": "attention", "attention_bwd_tiled": "attention_bwd"}
         kernels, seen = [], {}
         for r in rows:   # one entry per kernel at its first shape, the rest under "shapes"
             k = key[r["name"]]
-            # launches over both main-path runs, and per path
-            r["launches"] = sum(p[k] for p in by_path.values())
-            r["launches_by_path"] = {p: c[k] for p, c in by_path.items()}
-            if k in fp32_by_path["MITH"]:
+            # launches over the main-path runs, and per path: K2's one-block and
+            # row-tiled kernels apart
+            if r["name"].endswith("_tiled"):
+                per_path = {p: c[k] for p, c in tiled_by_path.items()}
+            else:
+                per_path = {p: c[k] - tiled_by_path.get(p, {}).get(k, 0)
+                            for p, c in by_path.items()}
+            r["launches"] = sum(per_path.values())
+            r["launches_by_path"] = per_path
+            if k in fp32_by_path["MITH"] and not r["name"].endswith("_tiled"):
                 r["fp32_launches_by_path"] = {p: c[k] for p, c in fp32_by_path.items()}
             if r["name"] in seen:
                 seen[r["name"]].setdefault("shapes", []).append(

@@ -1,5 +1,5 @@
-"""Pretrained CLIP checkpoints (counterpart of the ViT half of
-``cmh_tpu/models/clip/loader.py:30-103``).
+"""Pretrained CLIP checkpoints (counterpart of
+``cmh_tpu/models/clip/loader.py``).
 
 ``read_torch_state_dict`` reads a TorchScript archive (OpenAI's
 ``ViT-B-32.pt``) or a plain state-dict file and returns fp32 CPU tensors;
@@ -10,19 +10,22 @@ reference names, so no key is renamed: only OpenAI's three integer entries
 (``input_resolution``, ``context_length``, ``vocab_size``), which are no
 parameters, are dropped.
 
-ResNet (``RN*``) checkpoints raise ``NotImplementedError``: the port has no
-ResNet tower yet (ROADMAP.md Queue 1, 'The other seven methods').
+ResNet (``RN*``) checkpoints hold a ``ModifiedResNet`` image tower
+(``resnet.py``), which no hashing method uses: the ViT entry points refuse
+them, as cmh_tpu's ``infer_config`` does, and ``resnet_state_dict``,
+``resnet_config_from_state_dict`` and ``load_resnet`` read their tower.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Dict
+from typing import Any, Dict, Tuple, Union
 
 import torch
 from torch import nn
 
 from .model import CLIPConfig
+from .resnet import ModifiedResNet
 
 # entries of OpenAI's archives that describe the model and hold no weights
 NON_PARAMETER_KEYS = ("input_resolution", "context_length", "vocab_size")
@@ -53,9 +56,10 @@ def read_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 def _require_vit(sd: Dict[str, torch.Tensor]) -> None:
     if "visual.proj" not in sd:
-        raise NotImplementedError(
-            "this is a ResNet (RN) CLIP checkpoint; the ResNet tower is not ported to "
-            "cmh_torch yet (ROADMAP.md Queue 1, 'The other seven methods': the ResNet tower)")
+        raise ValueError(
+            "this is an RN checkpoint: read its tower with resnet_config_from_state_dict "
+            "and models.clip.resnet.ModifiedResNet (load_resnet); no hashing method uses "
+            "the ResNet tower")
 
 
 def infer_config(sd: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> CLIPConfig:
@@ -108,3 +112,38 @@ def save_torchscript_archive(sd: Dict[str, torch.Tensor], path: str) -> None:
         else:
             node.register_buffer(leaf, value.clone())
     torch.jit.save(torch.jit.script(root), path)
+
+
+# --------------------------------------------------------------- ResNet tower
+def resnet_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An RN checkpoint's ``visual.*`` entries, prefix stripped, without
+    torch's ``num_batches_tracked`` counters: ``ModifiedResNet``'s state."""
+    return {k[len("visual."):]: v for k, v in sd.items()
+            if k.startswith("visual.") and not k.endswith(".num_batches_tracked")}
+
+
+def resnet_config_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``ModifiedResNet``'s geometry from a prefix-stripped visual state dict
+    (reference ``build_model``, cmh_tpu ``resnet_config_from_state_dict``):
+    blocks a stage, width, input resolution, output dim, heads = width·32 // 64."""
+    counts = tuple(len({k.split(".")[1] for k in sd if k.startswith(f"layer{b}.")})
+                   for b in (1, 2, 3, 4))
+    width = sd["layer1.0.conv1.weight"].shape[0]
+    output_width = round((sd["attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+    return dict(layers=counts, width=width, input_resolution=output_width * 32,
+                output_dim=sd["attnpool.c_proj.weight"].shape[0], heads=width * 32 // 64)
+
+
+def load_resnet(source: Union[str, Dict[str, torch.Tensor]], dtype=torch.bfloat16
+                ) -> Tuple[ModifiedResNet, Dict[str, Any]]:
+    """(tower, geometry) of an RN CLIP checkpoint (a path, or the tensors
+    ``read_torch_state_dict`` gives), on the CPU in eval mode."""
+    sd = read_torch_state_dict(source) if isinstance(source, str) else source
+    if "visual.proj" in sd:
+        raise ValueError("this is a ViT checkpoint: load it with infer_config and "
+                         "load_backbone_state")
+    state = resnet_state_dict(sd)
+    cfg = resnet_config_from_state_dict(state)
+    tower = ModifiedResNet(dtype=dtype, **cfg)
+    tower.load_state_dict(state, strict=True)
+    return tower.eval(), cfg

@@ -17,6 +17,12 @@ LayerNorm/BatchNorm scale becomes ``weight``.
 ``umoed_state_to_jax`` go the other way, for the tests and for
 ``chip_smoke.py``, which write cmh_tpu's file layout from the port's weights
 on a machine without flax.
+
+``resnet_state_from_jax`` and ``resnet_state_to_jax`` carry cmh_tpu's
+``ModifiedResNet`` variables (``{'params', 'batch_stats'}``, conv kernels
+HWIO) to and from the port's ``models/clip/resnet.py`` state dict (OIHW,
+BatchNorm ``running_mean``/``running_var``), as cmh_tpu's
+``resnet_variables_from_state_dict`` names them.
 """
 
 from __future__ import annotations
@@ -340,3 +346,62 @@ def umoed_state_to_jax(sd: Dict[str, torch.Tensor]):
         params["hash_img"] = _umoed_head_to(sd, "hash.img_token_hash")
         params["hash_txt"] = _umoed_head_to(sd, "hash.txt_token_hash")
     return params, {}
+
+
+# ---------------------------------------------------------------- ResNet tower
+_RESNET_BLOCK = (("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3"),
+                 ("downsample_conv", "downsample_bn"))
+
+
+def _resnet_units(names):
+    """(flax conv, flax BatchNorm, torch conv prefix, torch BatchNorm prefix,
+    flax block or None) for the stem and every block named in ``names`` (the
+    flax ``layer{s}_{i}`` keys)."""
+    units = [(f"conv{i}", f"bn{i}", f"conv{i}", f"bn{i}", None) for i in (1, 2, 3)]
+    for blk in sorted(n for n in names if n.startswith("layer")):
+        pre = "layer" + blk[len("layer"):].replace("_", ".")
+        for conv, bn in _RESNET_BLOCK:
+            tconv, tbn = ((f"{pre}.downsample.0", f"{pre}.downsample.1") if conv.startswith("down")
+                          else (f"{pre}.{conv}", f"{pre}.{bn}"))
+            units.append((conv, bn, tconv, tbn, blk))
+    return units
+
+
+def resnet_state_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """cmh_tpu's ``ModifiedResNet`` variables → the port tower's
+    ``state_dict``."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for conv, bn, tconv, tbn, blk in _resnet_units(p):
+        pp, ss = (p, st) if blk is None else (p[blk], st[blk])
+        if conv not in pp:            # a block without a downsample
+            continue
+        # flax HWIO (kh, kw, in, out) → torch (out, in, kh, kw)
+        sd[f"{tconv}.weight"] = _t(np.asarray(pp[conv]["kernel"]).transpose(3, 2, 0, 1))
+        sd.update(_norm(pp[bn], tbn))
+        sd[f"{tbn}.running_mean"] = _t(ss[bn]["mean"])
+        sd[f"{tbn}.running_var"] = _t(ss[bn]["var"])
+    a = p["attnpool"]
+    sd["attnpool.positional_embedding"] = _t(a["positional_embedding"])
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        sd.update(_linear(a[proj], f"attnpool.{proj}"))
+    return sd
+
+
+def resnet_state_to_jax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``resnet_state_from_jax``: the port tower's
+    ``state_dict`` → ``{'params', 'batch_stats'}`` numpy trees."""
+    blocks = {"{}_{}".format(*k.split(".")[:2]) for k in sd if k.startswith("layer")}
+    params: Dict[str, Any] = {b: {} for b in blocks}
+    stats: Dict[str, Any] = {b: {} for b in blocks}
+    for conv, bn, tconv, tbn, blk in _resnet_units(blocks):
+        if f"{tconv}.weight" not in sd:
+            continue
+        pp, ss = (params, stats) if blk is None else (params[blk], stats[blk])
+        pp[conv] = {"kernel": _a(sd[f"{tconv}.weight"]).transpose(2, 3, 1, 0).copy()}
+        pp[bn] = _norm_to(sd, tbn)
+        ss[bn] = {"mean": _a(sd[f"{tbn}.running_mean"]), "var": _a(sd[f"{tbn}.running_var"])}
+    params["attnpool"] = {"positional_embedding": _a(sd["attnpool.positional_embedding"]),
+                          **{proj: _linear_to(sd, f"attnpool.{proj}")
+                             for proj in ("q_proj", "k_proj", "v_proj", "c_proj")}}
+    return {"params": params, "batch_stats": stats}

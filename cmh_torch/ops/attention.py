@@ -1,4 +1,4 @@
-"""Self-attention for short sequences (kernels K2-fwd, K2-bwd).
+"""Self-attention (kernels K2-fwd, K2-bwd).
 
 Counterpart of ``cmh_tpu/ops/attention_pallas.py:fused_attention`` and its
 ``custom_vjp``: softmax(scale·QKᵀ + mask + key-padding bias)·V over
@@ -6,17 +6,27 @@ Counterpart of ``cmh_tpu/ops/attention_pallas.py:fused_attention`` and its
 the compute dtype before the PV product. The backward recomputes the
 softmax and uses the UNROUNDED fp32 probabilities for dV, as the Pallas
 backward does; autograd of the forward would differentiate through the
-rounding instead. A CUDA tensor launches the hand-written kernels in
-``csrc/attention.cu``; a CPU tensor takes ``attention_plain`` and
-``attention_bwd_plain``.
+rounding instead. A CUDA tensor launches the hand-written kernels; a CPU
+tensor takes ``attention_plain`` and ``attention_bwd_plain``.
 
-In bf16 the kernels run on the tensor cores (the forward's logits on the
-CUDA cores, so that P rounds to bf16 as in the plain version), read q, k, v
-and dout where they lie (the strided head views of a packed projection) and
-write their outputs in (B, S, H, hd) memory, returned as (B, H, S, hd)
-views, so merging the heads back is free (``kernel_strides``,
-``kernel_output``). They take hd ∈ {32, 64} and S up to ``BF16_MAX_S``. The fp32 kernels, for the parity
-checks, take contiguous (B, H, S, hd) tensors.
+Two CUDA routes, chosen by S alone (``route``):
+
+- one block per (batch, head), ``csrc/attention.cu``, for S up to
+  ``BF16_MAX_S`` in bf16 and, in fp32, while the (batch, head) fits in
+  shared memory (``one_block_smem``). In bf16 they run on the tensor cores
+  (the forward's logits on the CUDA cores, so that P rounds to bf16 as in
+  the plain version), read q, k, v and dout where they lie (the strided
+  head views of a packed projection) and write their outputs in
+  (B, S, H, hd) memory, returned as (B, H, S, hd) views, so merging the
+  heads back is free (``kernel_strides``, ``kernel_output``). They take
+  hd ∈ {32, 64}. The fp32 kernels, for the parity checks, take contiguous
+  (B, H, S, hd) tensors.
+- row tiles, ``csrc/attention_tiled.cu``, for every longer S (ViT-B/16's
+  197, ViT-L/14's 257, MITH's concept tokens above 117 bits): 32 query or
+  key rows a block, CUDA-core fp32 arithmetic for both dtypes, the same
+  in-place reads and output layout; the backward is three launches over fp32
+  scratch (row max, row sum and D = Σ w·dW). bf16 keeps hd ∈ {32, 64}; fp32
+  takes hd ≤ 128. Their launches are counted apart in ``launches_tiled``.
 
 The scale multiplies the fp32 logits, as in the Pallas kernel. (The JAX
 einsum path, ``cmh_tpu/models/clip/model.py:226-228``, scales q in the
@@ -34,9 +44,30 @@ import torch
 from . import _build
 
 _MAX_SMEM = 227 * 1024   # dynamic shared memory a block can have on sm_90
-# largest S the bf16 kernels are built for (16 × their largest row-tile
-# count, csrc/attention.cu:max_kc_fwd/max_kc_bwd), by head dim
+# largest S the one-block bf16 kernels are built for (16 × their largest
+# row-tile count, csrc/attention.cu:max_kc_fwd/max_kc_bwd), by head dim
 BF16_MAX_S = {"fwd": {32: 208, 64: 176}, "bwd": {32: 144, 64: 128}}
+TILED_MAX_HD = 128       # widest head the row-tiled kernels are built for
+
+
+def one_block_smem(which: str, s: int, hd: int) -> int:
+    """Dynamic shared memory of one fp32 (batch, head) in the one-block
+    kernels (csrc/attention.cu:cmh_attention_smem_bytes and
+    cmh_attention_bwd_smem_bytes)."""
+    if which == "fwd":
+        return (3 * s * (hd + 1) + s * s) * 4
+    return (4 * s * (hd + 1) + 2 * s * s) * 4
+
+
+def route(dtype: torch.dtype, which: str, s: int, hd: int) -> str:
+    """"one_block" or "tiled": the CUDA kernel that takes sequence length
+    ``s`` (``which`` is "fwd" or "bwd"). bf16 goes to the row tiles past
+    ``BF16_MAX_S``, fp32 once one (batch, head) outgrows shared memory."""
+    if dtype == torch.bfloat16:
+        long = s > BF16_MAX_S[which].get(hd, 0)
+    else:
+        long = one_block_smem(which, s, hd) > _MAX_SMEM
+    return "tiled" if long else "one_block"
 
 
 def kpm_bias(key_padding_mask: torch.Tensor) -> torch.Tensor:
@@ -84,8 +115,8 @@ def attention_bwd_plain(q, k, v, scale: float, mask, bias, dout):
 
 
 def kernel_strides(t: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
-    """(t, its (b, h, s) element strides) as the bf16 kernels read a
-    (B, H, S, hd) tensor: in place when hd is contiguous and every row
+    """(t, its (b, h, s) element strides) as the bf16 and row-tiled kernels
+    read a (B, H, S, hd) tensor: in place when hd is contiguous and every row
     starts on a 16-byte boundary (true of the head views of a packed
     projection), else from a contiguous copy."""
     st = t.stride()
@@ -121,10 +152,20 @@ def _lib():
     return lib
 
 
+def _tiled_lib():
+    lib = _build.load("attention_tiled")
+    if lib.cmh_attention_tiled_fwd.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.cmh_attention_tiled_fwd.argtypes = [i] + [p] * 7 + [i, i, i, i, f, i, p]
+        lib.cmh_attention_tiled_bwd.argtypes = [i] + [p] * 11 + [i, i, i, i, f, i, p]
+        for name in ("fwd", "bwd"):
+            getattr(lib, f"cmh_attention_tiled_{name}").restype = i
+    return lib
+
+
 def _prepare(q, k, v, mask, bias, which: str):
-    """Check the kernels' preconditions (``which`` is "fwd" or "bwd"), all
-    but the fp32 shared-memory size before the library is loaded; fp32
-    masks on q's device."""
+    """Check the kernels' preconditions (``which`` is "fwd" or "bwd") and
+    pick the route; fp32 masks on q's device."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"attention kernels take one (B, H, S, hd) shape for "
                          f"q, k and v, got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -134,30 +175,22 @@ def _prepare(q, k, v, mask, bias, which: str):
             or v.dtype != q.dtype:
         raise TypeError(f"attention kernel takes float32 or bfloat16 q/k/v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dtype == torch.bfloat16:
-        limits = BF16_MAX_S[which]
-        if hd not in limits:
-            raise ValueError(f"bf16 attention kernels take hd 32 or 64, got {hd}")
-        if s > limits[hd]:
-            raise ValueError(f"bf16 attention {which} kernel takes S <= "
-                             f"{limits[hd]} at hd={hd}, got S={s}")
+    if q.dtype == torch.bfloat16 and hd not in BF16_MAX_S[which]:
+        raise ValueError(f"bf16 attention kernels take hd 32 or 64, got {hd}")
+    way = route(q.dtype, which, s, hd)
+    if way == "tiled" and hd > TILED_MAX_HD:
+        raise ValueError(f"the row-tiled attention kernels take hd <= {TILED_MAX_HD}, "
+                         f"got {hd} at S={s}")
     if mask is not None and mask.shape != (s, s):
         raise ValueError(f"mask must be ({s}, {s}), got {tuple(mask.shape)}")
     if bias is not None and bias.shape != (b, s):
         raise ValueError(f"key-padding bias must be ({b}, {s}), got "
                          f"{tuple(bias.shape)}")
-    lib = _lib()
-    if q.dtype == torch.float32:
-        smem = getattr(lib, "cmh_attention_smem_bytes" if which == "fwd"
-                       else "cmh_attention_bwd_smem_bytes")(s, hd)
-        if smem > _MAX_SMEM:
-            raise ValueError(f"attention kernel holds one (batch, head) in shared "
-                             f"memory: S={s}, hd={hd} needs {smem} bytes")
     if mask is not None:
         mask = mask.to(device=q.device, dtype=torch.float32).contiguous()
     if bias is not None:
         bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
-    return lib, mask, bias
+    return way, mask, bias
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -169,51 +202,73 @@ def _stream(t: torch.Tensor):
 
 
 def _launch(q, k, v, scale, mask, bias) -> torch.Tensor:
-    lib, mask, bias = _prepare(q, k, v, mask, bias, "fwd")
+    way, mask, bias = _prepare(q, k, v, mask, bias, "fwd")
     b, h, s, hd = q.shape
-    if q.dtype == torch.bfloat16:
+    bf16 = q.dtype == torch.bfloat16
+    if way == "tiled":
+        (q, sq), (k, sk), (v, sv) = (kernel_strides(t) for t in (q, k, v))
+        out = kernel_output(q) if bf16 else torch.empty_like(q)
+        strides = (ctypes.c_longlong * 12)(*sq, *sk, *sv, *out.stride()[:3])
+        rc = _tiled_lib().cmh_attention_tiled_fwd(
+            int(bf16), q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
+            out.data_ptr(), strides, b, h, s, hd, float(scale), *_stream(q))
+    elif bf16:
         (q, sq), (k, sk), (v, sv) = (kernel_strides(t) for t in (q, k, v))
         out = kernel_output(q)
         strides = (ctypes.c_longlong * 9)(*sq, *sk, *sv)
-        rc = lib.cmh_attention_fwd_bf16(
+        rc = _lib().cmh_attention_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
             out.data_ptr(), strides, b, h, s, hd, float(scale), *_stream(q))
     else:
         q, k, v = (t.contiguous() for t in (q, k, v))
         out = torch.empty_like(q)
-        rc = lib.cmh_attention_fwd_f32(
+        rc = _lib().cmh_attention_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
             out.data_ptr(), b, h, s, hd, float(scale), *_stream(q))
     _build.check(rc, "attention_fwd")
     fused_attention.launches += 1
-    fused_attention.launches_fp32 += q.dtype == torch.float32
+    fused_attention.launches_fp32 += not bf16
+    fused_attention.launches_tiled += way == "tiled"
     return out
 
 
 def _launch_bwd(q, k, v, scale, mask, bias, dout):
-    lib, mask, bias = _prepare(q, k, v, mask, bias, "bwd")
+    way, mask, bias = _prepare(q, k, v, mask, bias, "bwd")
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError("dout must have q's shape and dtype")
     b, h, s, hd = q.shape
-    if q.dtype == torch.bfloat16:
+    bf16 = q.dtype == torch.bfloat16
+    if way == "tiled":
+        (q, sq), (k, sk), (v, sv), (dout, so) = (
+            kernel_strides(t) for t in (q, k, v, dout))
+        dq, dk, dv = ((kernel_output(q) if bf16 else torch.empty_like(q)) for _ in range(3))
+        stats = torch.empty((3, b * h, s), dtype=torch.float32, device=q.device)
+        strides = (ctypes.c_longlong * 21)(*sq, *sk, *sv, *so, *dq.stride()[:3],
+                                            *dk.stride()[:3], *dv.stride()[:3])
+        rc = _tiled_lib().cmh_attention_tiled_bwd(
+            int(bf16), q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            strides, b, h, s, hd, float(scale), *_stream(q))
+    elif bf16:
         (q, sq), (k, sk), (v, sv), (dout, so) = (
             kernel_strides(t) for t in (q, k, v, dout))
         dq, dk, dv = (kernel_output(q) for _ in range(3))
         strides = (ctypes.c_longlong * 12)(*sq, *sk, *sv, *so)
-        rc = lib.cmh_attention_bwd_bf16(
+        rc = _lib().cmh_attention_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
             b, h, s, hd, float(scale), *_stream(q))
     else:
         q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-        rc = lib.cmh_attention_bwd_f32(
+        rc = _lib().cmh_attention_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s,
             hd, float(scale), *_stream(q))
     _build.check(rc, "attention_bwd")
     attention_bwd.launches += 1
-    attention_bwd.launches_fp32 += q.dtype == torch.float32
+    attention_bwd.launches_fp32 += not bf16
+    attention_bwd.launches_tiled += way == "tiled"
     return dq, dk, dv
 
 
@@ -225,8 +280,9 @@ def _forward(q, k, v, scale, mask, bias):
 
 def attention_bwd(q, k, v, scale: float, mask, bias, dout):
     """(dq, dk, dv) of the attention at (B, H, S, hd). On a CUDA tensor this
-    launches the backward kernel (counted in ``attention_bwd.launches``); on
-    a CPU tensor it runs ``attention_bwd_plain``."""
+    launches the backward kernel (counted in ``attention_bwd.launches``, the
+    fp32 ones also in ``launches_fp32``, the row-tiled ones in
+    ``launches_tiled``); on a CPU tensor it runs ``attention_bwd_plain``."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, scale, mask, bias, dout)
     return _launch_bwd(q, k, v, scale, mask, bias, dout)
@@ -256,7 +312,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``attn_mask`` is (S, S) additive; ``key_padding_mask`` (B, S) bool with
     True at pads. Differentiable in q, k and v. On a CUDA tensor this
     launches the kernel (counted in ``fused_attention.launches``, an fp32
-    one also in ``launches_fp32``); on a CPU
+    one also in ``launches_fp32``, a row-tiled one in ``launches_tiled``); on a CPU
     tensor it runs ``attention_plain``. Outside autograd nothing is saved
     for a backward."""
     if k.shape != q.shape or v.shape != q.shape:
@@ -271,6 +327,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _forward(q, k, v, scale, attn_mask, bias)
 
 
-# launches, and of them those of the fp32 kernels
-fused_attention.launches = fused_attention.launches_fp32 = 0
-attention_bwd.launches = attention_bwd.launches_fp32 = 0
+# launches, and of them those of the fp32 kernels and of the row-tiled ones
+fused_attention.launches = fused_attention.launches_fp32 = fused_attention.launches_tiled = 0
+attention_bwd.launches = attention_bwd.launches_fp32 = attention_bwd.launches_tiled = 0

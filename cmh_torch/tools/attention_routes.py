@@ -1,0 +1,109 @@
+"""Time the one-block K2 kernels at the main path's shapes, here and in an
+earlier checkout, on the card.
+
+    python -m cmh_torch.tools.attention_routes [--earlier DIR]
+
+The bf16 one-block kernels (``csrc/attention.cu``) at the shapes the ViT-B/32
+towers give them: the forward at batch 256, the backward at batch 100,
+vision (12 heads, S = 50, no mask) and text (8 heads, S = 32, causal and
+key-padding masks), on the head views of a packed projection, with
+``chip_smoke.cuda_ms``. Each run is a process of its own that imports
+``cmh_torch`` from the tree named; with ``--earlier DIR`` (an unpacked
+``git archive`` of an earlier commit, inside a git-ignored directory of
+this repository) the runs go earlier, current, current, earlier, so that a
+wrapper change (such as the route by S that sends longer sequences to the
+row-tiled kernels) shows as a difference beside the spread of two runs of
+one tree. Libraries already built for this tree are copied into the
+earlier tree's build directory when their content-hashed names match.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+# (direction, tower, batch, heads, S, masks)
+SHAPES = (("fwd", "vision", 256, 12, 50, False), ("fwd", "text", 256, 8, 32, True),
+          ("bwd", "vision", 100, 12, 50, False), ("bwd", "text", 100, 8, 32, True))
+
+
+def _times() -> dict:
+    """ms of each shape through this process's ``cmh_torch``."""
+    import torch
+
+    from chip_smoke import cuda_ms
+    from cmh_torch.ops.attention import attention_bwd, fused_attention, kpm_bias
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for which, tower, n, h, s, masks in SHAPES:
+        packed = torch.randn(n, s, 4 * h * 64, generator=gen, device="cuda").bfloat16()
+        q, k, v, do = (t.reshape(n, s, h, 64).transpose(1, 2)
+                       for t in packed.split(h * 64, -1))
+        mask = kpm = None
+        if masks:
+            mask = torch.full((s, s), float("-inf"), device="cuda").triu(1)
+            kpm = torch.arange(s, device="cuda")[None] >= torch.randint(
+                2, s + 1, (n, 1), generator=gen, device="cuda")
+        if which == "fwd":
+            fn = lambda: fused_attention(q, k, v, 0.125, mask, kpm)
+        else:
+            bias = None if kpm is None else kpm_bias(kpm)
+            fn = lambda: attention_bwd(q, k, v, 0.125, mask, bias, do)
+        out[f"{which} {tower} ({n},{h},{s},64)"] = cuda_ms(fn)
+    return out
+
+
+def _run(tree: str) -> dict:
+    env = {**os.environ, "PYTHONPATH": tree}
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--child"], cwd=tree,
+                         env=env, capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"timing in {tree} failed:\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--earlier", help="an earlier checkout of the repository")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        print(json.dumps(_times()), flush=True)
+        return 0
+    from cmh_torch.ops import _build
+
+    _build.build_all(["attention", "attention_tiled"])
+    here = str(_build.BUILD_DIR.parents[1])
+    order = [("current", here), ("current", here)]
+    if args.earlier:
+        earlier = os.path.abspath(args.earlier)
+        dst = os.path.join(earlier, "build", "cmh_torch")
+        os.makedirs(dst, exist_ok=True)
+        for lib in _build.BUILD_DIR.glob("*.so"):
+            if not os.path.exists(os.path.join(dst, lib.name)):
+                shutil.copy2(lib, dst)
+        order = [("earlier", earlier), *order, ("earlier", earlier)]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"[routes] {smi.strip()}", flush=True)
+    runs = []
+    for name, tree in order:
+        runs.append((name, _run(tree)))
+        print(f"[routes] {name}: {runs[-1][1]}", flush=True)
+    for shape in runs[0][1]:
+        by = {}
+        for name, times in runs:
+            by.setdefault(name, []).append(times[shape])
+        print(f"[routes] {shape}: " + "; ".join(
+            f"{name} {', '.join(f'{t:.5f}' for t in ts)} ms" for name, ts in by.items()),
+            flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,4 @@
-"""The bf16 attention kernels' layout and arithmetic, on the CPU.
+"""The attention kernels' layout, routing and arithmetic, on the CPU.
 
 The tensor-core kernels in ``cmh_torch/csrc/attention.cu`` read q, k, v and
 dout where they lie (the strided head views ``MultiHeadAttention`` makes of
@@ -7,7 +7,11 @@ layout arithmetic is plain Python (``kernel_strides``, ``kernel_output``),
 tested here. Their backward splits the fp32 operands W and dlog into bf16
 pieces for the tensor cores; a plain-torch emulation of those products,
 kept in this file, is held against cmh_tpu's Pallas backward (interpret
-mode) with the same one-bf16-step check the card's tests use.
+mode) with the same one-bf16-step check the card's tests use. The
+row-tiled kernels (``csrc/attention_tiled.cu``, every S past the one-block
+limits) take each row's max and sum in a walk over 32-key blocks and form
+the normalised probabilities in a second walk; an emulation of that walk is
+held against the Pallas kernel at ViT-B/16's S = 197 the same way.
 """
 
 import re
@@ -19,8 +23,10 @@ import numpy as np
 import pytest
 import torch
 
-from cmh_torch.ops.attention import (BF16_MAX_S, _prepare, _softmax, fused_attention,
-                                     kernel_output, kernel_strides, kpm_bias)
+from cmh_torch.ops import _build
+from cmh_torch.ops.attention import (_MAX_SMEM, BF16_MAX_S, _prepare, _softmax,
+                                     fused_attention, kernel_output, kernel_strides,
+                                     kpm_bias, one_block_smem, route)
 from cmh_tpu.ops.attention_pallas import fused_attention as jax_attention
 from test_torch_gpu_kernels import assert_within_one_bf16_step
 
@@ -82,9 +88,37 @@ def test_kernel_output_merges_heads_as_a_view():
                                         ("bwd", 129, 64), ("bwd", 145, 32),
                                         ("fwd", 50, 128)])
 def test_bf16_limits_raise_before_any_build(which, s, hd):
+    """Past the one-block kernels' S limits the wrapper picks the row-tiled
+    kernels; a head dim the bf16 kernels do not take raises. Neither loads
+    a library."""
     q = torch.zeros(1, 2, s, hd, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="S <=|hd 32 or 64"):
-        _prepare(q, q, q, None, None, which)
+    loaded = set(_build._loaded)
+    if hd not in (32, 64):
+        with pytest.raises(ValueError, match="hd 32 or 64"):
+            _prepare(q, q, q, None, None, which)
+    else:
+        assert _prepare(q, q, q, None, None, which)[0] == "tiled"
+    assert set(_build._loaded) == loaded
+
+
+@pytest.mark.parametrize("dtype,which,hd,limit", [
+    (torch.bfloat16, "fwd", 64, 176), (torch.bfloat16, "bwd", 64, 128),
+    (torch.bfloat16, "fwd", 32, 208), (torch.bfloat16, "bwd", 32, 144),
+    (torch.float32, "fwd", 64, 162), (torch.float32, "bwd", 64, 117)])
+def test_route_by_s_alone(dtype, which, hd, limit):
+    """The one-block kernels up to their limit (bf16: ``BF16_MAX_S``; fp32:
+    one (batch, head) in 227 KB of shared memory), the row tiles past it:
+    ViT-B/16's 197 and ViT-L/14's 257 at hd 64 in both directions, MITH's
+    128 concept tokens in the fp32 backward."""
+    assert route(dtype, which, limit, hd) == "one_block"
+    assert route(dtype, which, limit + 1, hd) == "tiled"
+    if dtype == torch.float32:
+        assert one_block_smem(which, limit, hd) <= _MAX_SMEM < one_block_smem(which, limit + 1, hd)
+    for s in (197, 257):
+        assert route(dtype, which, s, hd) == ("tiled" if s > limit else "one_block")
+    assert route(torch.float32, "bwd", 128, 64) == "tiled"
+    assert route(torch.bfloat16, "fwd", 50, 64) == route(torch.float32, "bwd", 16, 64) \
+        == "one_block"
 
 
 def test_bf16_limits_are_the_kernels_instantiations():
@@ -225,3 +259,85 @@ def test_attention_variant_edits_still_apply():
     for name, edits in VARIANTS.items():
         for old, _ in edits:
             assert src.count(old) == 1, (name, old)
+
+
+def test_row_tiles_take_fp32_head_dims_up_to_128():
+    """Past the fp32 one-block limit the row tiles take hd <= 128 and refuse
+    wider heads by their hd, before any library is loaded."""
+    loaded = set(_build._loaded)
+    q = torch.zeros(1, 1, 300, 128)
+    assert _prepare(q, q, q, None, None, "bwd")[0] == "tiled"
+    wide = torch.zeros(1, 1, 300, 160)
+    with pytest.raises(ValueError, match="hd <= 128, got 160"):
+        _prepare(wide, wide, wide, None, None, "fwd")
+    assert _prepare(wide[:, :, :20], wide[:, :, :20], wide[:, :, :20], None, None,
+                    "fwd")[0] == "one_block"
+    assert set(_build._loaded) == loaded
+
+
+def tiled_emulation(q, k, v, scale, mask, bias, dout, tile=32):
+    """The row-tiled kernels' arithmetic in plain torch: each row's max m and
+    sum l from one walk over key blocks of ``tile`` (l rescaled as m grows; a
+    block all masked so far adds 0), then w = exp(logit − m) / l, rounded to
+    the input dtype for PV; the backward's D = Σ w·dW and dlog = w (dW − D)
+    from the unrounded w. Returns (out, dq, dk, dv)."""
+    x = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        x = x + mask
+    if bias is not None:
+        x = x + bias[:, None, None, :]
+    m = torch.full(x.shape[:-1], float("-inf"))
+    l = torch.zeros(x.shape[:-1])
+    for k0 in range(0, x.shape[-1], tile):
+        blk = x[..., k0:k0 + tile]
+        mn = torch.maximum(m, blk.amax(-1))
+        ref = torch.where(mn == float("-inf"), torch.zeros(()), mn)
+        l = l * torch.exp(m - ref) + torch.exp(blk - ref[..., None]).sum(-1)
+        m = mn
+    w = torch.exp(x - m[..., None]) / l[..., None]
+    out = torch.matmul(w.to(v.dtype).float(), v.float()).to(q.dtype)
+    do = dout.float()
+    dw = torch.matmul(do, v.float().transpose(-1, -2))
+    dlog = w * (dw - (w * dw).sum(-1, keepdim=True))
+    dq = torch.matmul(dlog, k.float()) * scale
+    dk = torch.matmul(dlog.transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(w.transpose(-1, -2), do)
+    return out, dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_tiled_walk_matches_pallas_at_vit_b16_length(dtype):
+    """The two-walk softmax at S = 197 (seven 32-key blocks, the last one
+    ragged) against cmh_tpu's fused attention in interpret mode, forward and
+    gradients: fp32 within 1e-5, bf16 within one bf16 step. Keys 32..63 are
+    padding in every row (a wholly masked block) and query row 5 has every
+    key masked: NaN exactly where Pallas gives NaN."""
+    b, h, s, hd = 2, 2, 197, 64
+    rng = np.random.RandomState(197)
+    q, k, v, do = (torch.from_numpy(rng.randn(b, h, s, hd).astype(np.float32)).to(dtype)
+                   for _ in range(4))
+    m = np.triu(np.full((s, s), -np.inf, np.float32), 1)
+    m[:, 0] = 0.0        # key 0 visible to every row but 5, so no other row is all masked
+    m[5] = -np.inf
+    p = rng.rand(b, s) > 0.7
+    p[:, 32:64] = True
+    p[:, 0] = False
+    scale = hd**-0.5
+
+    def jx(t):
+        return jnp.asarray(t.float().numpy(), JDT[dtype])
+
+    out, vjp = jax.vjp(lambda a, c, e: jax_attention(a, c, e, scale, jnp.asarray(m),
+                                                     jnp.asarray(p)), jx(q), jx(k), jx(v))
+    want = [torch.from_numpy(np.array(jnp.asarray(t, jnp.float32))).to(dtype)
+            for t in (out, *vjp(jx(do)))]
+    got = tiled_emulation(q, k, v, scale, torch.from_numpy(m), kpm_bias(torch.from_numpy(p)), do)
+    assert bool(torch.isnan(want[0][:, :, 5]).all())
+    assert not bool(torch.isnan(want[0][:, :, 6]).any())
+    for a, r in zip(got, want):
+        nan = torch.isnan(r)
+        assert torch.equal(torch.isnan(a), nan)
+        if dtype == torch.float32:
+            torch.testing.assert_close(a[~nan], r[~nan], rtol=1e-5, atol=1e-5)
+        else:
+            assert_within_one_bf16_step(a[~nan], r[~nan])

@@ -167,15 +167,44 @@ def test_geometry_comes_from_the_checkpoint_after_tiny(files):
 
 
 def test_resnet_state_dict_raises_naming_the_item(tmp_path):
-    rn = {"visual.layer1.0.conv1.weight": torch.zeros(64, 64, 1, 1),
-          "visual.attnpool.positional_embedding": torch.zeros(50, 2048)}
-    path = str(tmp_path / "rn50.pt")
+    """An RN checkpoint (OpenAI's layout: ``visual.*`` tower entries with
+    torch's ``num_batches_tracked`` counters, beside the text tower's): the
+    ViT entry points refuse it as cmh_tpu's ``infer_config`` does, naming
+    ``resnet_config_from_state_dict``; that function reads its geometry as
+    cmh_tpu's does, and ``load_resnet`` loads its tower."""
+    from cmh_torch.models.clip.loader import (load_resnet, resnet_config_from_state_dict,
+                                              resnet_state_dict)
+    from cmh_torch.models.clip.resnet import ModifiedResNet
+
+    geo = dict(layers=(1, 1, 1, 1), width=8, heads=4, input_resolution=32, output_dim=16)
+    tower = ModifiedResNet(**geo).init_weights(torch.Generator().manual_seed(3))
+    rn = {"visual." + k: v for k, v in tower.state_dict().items()}
+    rn.update({k.replace("running_mean", "num_batches_tracked"): torch.tensor(7)
+               for k in rn if k.endswith("running_mean")})
+    rn.update({k: v for k, v in _weights().items() if not k.startswith("visual.")})
+    path = str(tmp_path / "rn.pt")
     torch.save(rn, path)
     sd = read_torch_state_dict(path)
     for call in (lambda: infer_config(sd), lambda: load_backbone_state(sd),
                  lambda: resolve_clip_cfg({"clip_path": path})):
-        with pytest.raises(NotImplementedError, match="'The other seven methods': the ResNet"):
+        with pytest.raises(ValueError, match="RN checkpoint.*resnet_config_from_state_dict"
+                                             ".*no hashing method uses"):
             call()
+    np_sd = {k: v.numpy() for k, v in sd.items()}
+    with pytest.raises(AssertionError, match="RN checkpoint.*resnet_config_from_state_dict"
+                                             ".*no hashing method uses"):
+        jax_loader.infer_config(np_sd)
+    state = resnet_state_dict(sd)
+    assert not any("num_batches_tracked" in k or k.startswith("visual.") for k in state)
+    strip = {k[len("visual."):]: v for k, v in np_sd.items()
+             if k.startswith("visual.") and "num_batches" not in k}
+    assert resnet_config_from_state_dict(state) == \
+        jax_loader.resnet_config_from_state_dict(strip) == geo
+    loaded, cfg = load_resnet(path, dtype=torch.float32)
+    assert cfg == geo and not loaded.training
+    img = torch.from_numpy(np.random.RandomState(1).randn(2, 32, 32, 3).astype(np.float32))
+    with torch.no_grad():
+        assert torch.equal(loaded(img), tower.eval()(img))
 
 
 def test_cli_logs_the_load(files, tmp_path):

@@ -433,15 +433,27 @@ def test_attention_bf16_all_masked_row_gives_nan(cuda):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 def test_attention_bf16_past_the_s_limit_raises(cuda, which):
-    from cmh_torch.ops.attention import BF16_MAX_S, attention_bwd
+    """One row past the one-block kernels' limit no longer raises: the
+    wrapper routes it to the row-tiled kernels, which match the plain
+    version to one bf16 step."""
+    from cmh_torch.ops.attention import (BF16_MAX_S, attention_bwd, attention_bwd_plain,
+                                         attention_plain, route)
 
     s = BF16_MAX_S[which][64] + 1
-    q = torch.zeros(1, 2, s, 64, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match=f"S <= {s - 1}"):
-        if which == "fwd":
-            fused_attention(q, q, q, 0.125)
-        else:
-            attention_bwd(q, q, q, 0.125, None, None, q)
+    assert route(torch.bfloat16, which, s, 64) == "tiled"
+    q, k, v, do, mask, bias = _bf16_case(2, 2, s, 64, seed=s)
+    before = (fused_attention.launches_tiled, attention_bwd.launches_tiled)
+    if which == "fwd":
+        got = (fused_attention(q, k, v, 0.125, mask, None),)
+        want = (attention_plain(q, k, v, 0.125, mask, None),)
+    else:
+        got = attention_bwd(q, k, v, 0.125, mask, bias, do)
+        want = attention_bwd_plain(q, k, v, 0.125, mask, bias, do)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches_tiled - before[0],
+            attention_bwd.launches_tiled - before[1]) == ((1, 0) if which == "fwd" else (0, 1))
+    for a, r in zip(got, want):
+        assert_within_one_bf16_step(a, r)
 
 
 def test_attention_bf16_bwd_is_deterministic(cuda):
@@ -452,6 +464,146 @@ def test_attention_bf16_bwd_is_deterministic(cuda):
     again = attention_bwd(q, k, v, 0.125, mask, bias, do)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _limit(dtype, which, hd):
+    """The longest S the one-block kernel takes at ``hd``."""
+    from cmh_torch.ops.attention import _MAX_SMEM, BF16_MAX_S, one_block_smem
+
+    if dtype == torch.bfloat16:
+        return BF16_MAX_S[which][hd]
+    return max(s for s in range(1, 400) if one_block_smem(which, s, hd) <= _MAX_SMEM)
+
+
+def _long_case(dtype, b, h, s, hd, masks, seed):
+    """q, k, v, dout of one dtype (bf16: the head views of a packed
+    projection) and the fp32 masks: "none", "causal" or "causal+kpm"."""
+    g = torch.Generator().manual_seed(seed)
+    if dtype == torch.bfloat16:
+        q, k, v, do, _, _ = _bf16_case(b, h, s, hd, seed, masks=False)
+    else:
+        q, k, v, do = (torch.randn(b, h, s, hd, generator=g).cuda() for _ in range(4))
+    mask = bias = None
+    if masks != "none":
+        mask = torch.full((s, s), float("-inf")).triu(1).cuda()
+    if masks == "causal+kpm":
+        kpm = torch.rand(b, s, generator=g) > 0.7
+        kpm[:, 0] = False
+        bias = kpm_bias(kpm.cuda())
+    return q, k, v, do, mask, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masks", ["none", "causal", "causal+kpm"])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("s", ["limit", "limit+1", 197, 257, 300])
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_attention_row_tiled_kernels_match_plain(cuda, which, s, hd, masks, dtype):
+    """Each direction at its one-block limit (the one-block kernel), one row
+    past it and at ViT-B/16's, ViT-L/14's and a longer S (the row-tiled
+    kernels): fp32 within 1e-5 (summation order), bf16 within one bf16 step
+    (P and the outputs round to bf16 in both)."""
+    from cmh_torch.ops.attention import (attention_bwd, attention_bwd_plain,
+                                         attention_plain, route)
+
+    limit = _limit(dtype, which, hd)
+    s = {"limit": limit, "limit+1": limit + 1}.get(s, s)
+    way = route(dtype, which, s, hd)
+    assert way == ("one_block" if s <= limit else "tiled")
+    q, k, v, do, mask, bias = _long_case(dtype, 2, 3, s, hd, masks, seed=s * hd + len(masks))
+    scale = hd**-0.5
+    before = (fused_attention.launches_tiled, attention_bwd.launches_tiled)
+    if which == "fwd":
+        got = (fused_attention(q, k, v, scale, mask, None if bias is None else bias < 0),)
+        want = (attention_plain(q, k, v, scale, mask, bias),)
+    else:
+        got = attention_bwd(q, k, v, scale, mask, bias, do)
+        want = attention_bwd_plain(q, k, v, scale, mask, bias, do)
+    torch.cuda.synchronize()
+    tiled = int(way == "tiled")
+    assert (fused_attention.launches_tiled - before[0],
+            attention_bwd.launches_tiled - before[1]) == \
+        ((tiled, 0) if which == "fwd" else (0, tiled))
+    for a, r in zip(got, want):
+        assert a.shape == r.shape == q.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+        else:
+            assert_within_one_bf16_step(a, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_row_tiled_bwd_is_deterministic(cuda, dtype):
+    """Three launches and no atomics: a rerun gives the same bits."""
+    from cmh_torch.ops.attention import attention_bwd, route
+
+    assert route(dtype, "bwd", 257, 64) == "tiled"
+    q, k, v, do, mask, bias = _long_case(dtype, 8, 4, 257, 64, "causal+kpm", seed=5)
+    first = attention_bwd(q, k, v, 0.125, mask, bias, do)
+    again = attention_bwd(q, k, v, 0.125, mask, bias, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_row_tiled_all_masked_row_gives_nan(cuda, dtype):
+    """An all-masked query row is NaN where the plain versions give NaN; a
+    wholly masked key block (keys 32..63 of every row, by the key-padding
+    bias) is not."""
+    from cmh_torch.ops.attention import (_launch, attention_bwd, attention_bwd_plain,
+                                         attention_plain)
+
+    q, k, v, do, mask, bias = _long_case(dtype, 3, 2, 257, 64, "causal+kpm", seed=13)
+    bias[:, 32:64] = float("-inf")
+    mask[40] = float("-inf")
+    got = (_launch(q, k, v, 0.125, mask, bias), *attention_bwd(q, k, v, 0.125, mask, bias, do))
+    want = (attention_plain(q, k, v, 0.125, mask, bias),
+            *attention_bwd_plain(q, k, v, 0.125, mask, bias, do))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want[0][:, :, 40]).all())
+    assert not bool(torch.isnan(want[0][:, :, 100]).any())
+    for a, r in zip(got, want):
+        nan = torch.isnan(r)
+        assert torch.equal(torch.isnan(a), nan)
+        if dtype == torch.float32:
+            torch.testing.assert_close(a[~nan], r[~nan], rtol=1e-5, atol=1e-5)
+        else:
+            assert_within_one_bf16_step(a[~nan], r[~nan])
+
+
+@pytest.mark.parametrize("hd", [16, 48, 80, 128])
+def test_attention_row_tiled_fp32_head_dims(cuda, hd):
+    """fp32 at S = 300 (the row tiles both ways at every head dim) with head
+    dims padded to the kernels' 32, 64 and 128 columns, on head views of a
+    packed projection: within 1e-5 of the plain versions."""
+    from cmh_torch.ops.attention import (attention_bwd, attention_bwd_plain,
+                                         attention_plain, route)
+
+    s = 300
+    assert route(torch.float32, "fwd", s, hd) == route(torch.float32, "bwd", s, hd) == "tiled"
+    g = torch.Generator().manual_seed(hd)
+    qkv = torch.randn(2, s, 3 * 2 * hd, generator=g).cuda()
+    q, k, v = (t.reshape(2, s, 2, hd).transpose(1, 2) for t in qkv.split(2 * hd, -1))
+    do = torch.randn(2, 2, s, hd, generator=g).cuda()
+    mask = torch.full((s, s), float("-inf")).triu(1).cuda()
+    scale = hd**-0.5
+    torch.testing.assert_close(fused_attention(q, k, v, scale, mask),
+                               attention_plain(q, k, v, scale, mask), rtol=1e-5, atol=1e-5)
+    for a, r in zip(attention_bwd(q, k, v, scale, mask, None, do),
+                    attention_bwd_plain(q, k, v, scale, mask, None, do)):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+
+
+def test_attention_route_agrees_with_the_one_block_smem_sizes(cuda):
+    """``one_block_smem`` (which routes fp32 by S on the host) gives the
+    bytes the one-block kernels ask for."""
+    from cmh_torch.ops.attention import _lib, one_block_smem
+
+    lib = _lib()
+    for s in (1, 50, 117, 118, 162, 163, 257):
+        for hd in (32, 64, 128):
+            assert one_block_smem("fwd", s, hd) == lib.cmh_attention_smem_bytes(s, hd)
+            assert one_block_smem("bwd", s, hd) == lib.cmh_attention_bwd_smem_bytes(s, hd)
 
 
 def test_autograd_reaches_the_kernels(cuda):

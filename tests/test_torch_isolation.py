@@ -39,7 +39,8 @@ TRAINING_MODULES = {
     "cmh_torch.native.hash_ops", "cmh_torch.native._build", "cmh_torch.utils.flax_msgpack",
     "cmh_torch.models.convert", "cmh_torch.serving", "cmh_torch.export",
     "cmh_torch.models.dimch", "cmh_torch.models.umoed", "cmh_torch.runners.dimch",
-    "cmh_torch.runners.umoed", "cmh_torch.ops.distances", "cmh_torch.server"}
+    "cmh_torch.runners.umoed", "cmh_torch.ops.distances", "cmh_torch.server",
+    "cmh_torch.models.clip.api", "cmh_torch.models.clip.resnet"}
 
 
 def test_import_pulls_in_no_jax_and_no_cmh_tpu():
@@ -72,6 +73,7 @@ def test_entry_points_refuse_cpu_unless_asked(no_card, tmp_path):
     from cmh_torch import resolve_device
     from cmh_torch.export import load_encoders
     from cmh_torch.export import main as export_main
+    from cmh_torch.models.clip import api
     from cmh_torch.server import main as server_main
     from cmh_torch.serving import RetrievalIndex
 
@@ -86,7 +88,8 @@ def test_entry_points_refuse_cpu_unless_asked(no_card, tmp_path):
                  lambda: load_encoders(enc),
                  lambda: server_main(["--index", str(tmp_path / "index.npz")]),
                  lambda: export_main(["--config-file", cfg, "--out",
-                                      str(tmp_path / "x.pt")])):
+                                      str(tmp_path / "x.pt")]),
+                 lambda: api.load("ViT-L/14")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # asked for the CPU, each runs
