@@ -119,7 +119,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    b. ``api.load("ViT-B/16")`` encodes 256 images (K2 at S = 197 through
       the row tiles) and 256 captions from ``api.tokenize``;
    c. phases 4 and 5 for ViT-L/14 in fp32 at batch 4 (head outputs, loss
-      and gradients, card against CPU, TF32 off);
+      and gradients, card against CPU, TF32 off): its vision K2 (S = 257)
+      on the CUDA-core row tiles both ways, 46 forward and 23 backward;
    d. MITH at 128 bits, one epoch of 2 steps through the CLI (its fp32
       backward at S = 128 on the row tiles);
    e. an RN50 tower at its published geometry from a seeded archive in
@@ -129,9 +130,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 Phase 3 holds K1 in fp32 at UMoED's decoder rows (6400, 512) too, and K2 on
 the text tower with the causal mask alone (DIMCH's and UMoED's text tower
 runs without the key-padding mask), forward and backward; the bf16 K2 rows
-carry their cold-L2 time; the row-tiled K2 pair at ViT-B/16's (256, 12, 197,
-64) and ViT-L/14's (100, 16, 257, 64) forward, ViT-L/14's backward (bf16)
-and MITH's 128-bit (100, 8, 128, 64) backward (fp32).
+carry their cold-L2 time; the row-tiled K2 kernels, each row named after the
+kernel its route launches: on mma (``tiled_fwd_mma``, ``tiled_bwd_mma``)
+ViT-B/16's (256, 12, 197, 64) and ViT-L/14's (100, 16, 257, 64) forward and
+ViT-L/14's backward in bf16; on the CUDA cores (``attention_fwd_tiled``,
+``attention_bwd_tiled``) ViT-L/14's (4, 16, 257, 64) both ways and MITH's
+128-bit (100, 8, 128, 64) backward in fp32, and the bf16 forward one past
+the logit rows' limit at (4, 16, 3153, 64).
 
 The last lines are the card's name and power limit, one JSON object with a
 ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -172,11 +177,19 @@ FP32_LN_ROWS = ((TRAIN_B * MITH_K, 512, "MITH"), (TRAIN_B * UMOED_SLOTS, 512, "U
 # mask (six methods) and with the causal mask alone (DIMCH, UMoED)
 ATTENTION_CASES = (("vision", 12, 50, None), ("text", 8, MAX_WORDS, "causal+kpm"),
                    ("text", 8, MAX_WORDS, "causal"))
-# the row-tiled K2 (S past the one-block limits): (what, batch, heads, S, dtype)
-TILED_FWD_CASES = (("ViT-B/16 vision", B, 12, 197, "bf16"),
-                   ("ViT-L/14 vision", TRAIN_B, 16, 257, "bf16"))
-TILED_BWD_CASES = (("ViT-L/14 vision", TRAIN_B, 16, 257, "bf16"),
-                   ("MITH 128-bit concepts", TRAIN_B, 8, 128, "fp32"))
+# the row-tiled K2 (S past the one-block limits): (what, batch, heads, S,
+# dtype, route); the bf16 "tiled" route runs on mma, the others on the CUDA
+# cores; the bf16 forward past 3152 (hd 64) is no model's, it holds that route
+TILED_FWD_CASES = (("ViT-B/16 vision", B, 12, 197, "bf16", "tiled"),
+                   ("ViT-L/14 vision", TRAIN_B, 16, 257, "bf16", "tiled"),
+                   ("ViT-L/14 vision", 4, 16, 257, "fp32", "tiled"),
+                   ("past the logit rows", 4, 16, 3153, "bf16", "tiled_fma"))
+TILED_BWD_CASES = (("ViT-L/14 vision", TRAIN_B, 16, 257, "bf16", "tiled"),
+                   ("ViT-L/14 vision", 4, 16, 257, "fp32", "tiled"),
+                   ("MITH 128-bit concepts", TRAIN_B, 8, 128, "fp32", "tiled"))
+# numbers the script works out rather than measures: printed on the [kernel]
+# lines, kept out of the kernels line
+FLOORS = ("popc_floor_ms", "fma_floor_ms")
 INDEX_ITEMS = (1 << 20) + 4096   # two gallery blocks of the blocked search
 # OpenAI's ViT-L/14 (cmh_tpu/models/clip/api.py:27-31) and RN50 geometries, and
 # the integer entries of OpenAI's CLIP files
@@ -279,7 +292,7 @@ def entry(name, source, replaces, shape, err, ms, plain_ms, lib_ms, nbytes, ops,
 def reset_counts(counters):
     for c in counters.values():
         c.launches = 0
-        for part in ("launches_fp32", "launches_tiled"):
+        for part in ("launches_fp32", "launches_tiled", "launches_tiled_fma"):
             if hasattr(c, part):
                 setattr(c, part, 0)
 
@@ -295,8 +308,28 @@ def read_fp32(counters):
 
 def read_tiled(counters):
     """Of the K2 launches, those of the row-tiled kernels (S past the
-    one-block limits)."""
-    return {k: c.launches_tiled for k, c in counters.items() if hasattr(c, "launches_tiled")}
+    one-block limits), and under ``<name>_fma`` those of them that ran on
+    the CUDA cores."""
+    out = {}
+    for k, c in counters.items():
+        if hasattr(c, "launches_tiled"):
+            out[k], out[f"{k}_fma"] = c.launches_tiled, c.launches_tiled_fma
+    return out
+
+
+def tiled_kernel(which: str, dt: str, way: str) -> str:
+    """The name of the row-tiled kernel a route launches (``which`` is
+    "fwd" or "bwd"): bf16's "tiled" route on mma, the rest on the CUDA
+    cores."""
+    return f"tiled_{which}_mma" if (dt, way) == ("bf16", "tiled") else f"attention_{which}_tiled"
+
+
+def tiled_launches(tiled: dict, name: str) -> int:
+    """The launches of the row-tiled kernel ``name`` in a ``read_tiled``
+    count."""
+    k = "attention" if "_fwd_" in name else "attention_bwd"
+    fma = tiled[f"{k}_fma"]
+    return tiled[k] - fma if name.endswith("_mma") else fma
 
 
 def check_layernorm(torch, gen):
@@ -609,10 +642,14 @@ def check_attention_bwd(torch, gen):
 
 
 def check_attention_tiled(torch, gen):
-    """The row-tiled K2 pair at the lengths past the one-block kernels:
-    ViT-B/16's and ViT-L/14's vision forward, ViT-L/14's backward in bf16
-    (the one-bf16-step check) and MITH's 128 concept tokens backward in fp32
-    (1e-5), each with its cold-L2 time, the plain version's and SDPA's."""
+    """The row-tiled K2 pair at the lengths past the one-block kernels, each
+    row named after the kernel its route launches: on mma, ViT-B/16's and
+    ViT-L/14's vision forward and ViT-L/14's backward in bf16; on the CUDA
+    cores, ViT-L/14's vision both ways in fp32 (phase 14c's shapes), MITH's
+    128 concept tokens backward in fp32 and the bf16 forward one past the
+    logit rows' limit. bf16 is held to the one-bf16-step check, fp32 within
+    1e-5; each row has its cold-L2 time, the plain version's and SDPA's; the
+    mma forward rows also the floor of their fp32 FMA logit walk."""
     import torch.nn.functional as F
 
     from cmh_torch.ops.attention import (attention_bwd, attention_bwd_plain, attention_plain,
@@ -621,13 +658,18 @@ def check_attention_tiled(torch, gen):
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
     rows, scale = [], 64**-0.5
     for which, cases in (("fwd", TILED_FWD_CASES), ("bwd", TILED_BWD_CASES)):
-        for what, n, h, s, dt in cases:
-            if route(dtypes[dt], which, s, 64) != "tiled":
-                raise AssertionError(f"{what} S={s} {dt} {which} does not take the row tiles")
+        for what, n, h, s, dt, way in cases:
+            if route(dtypes[dt], which, s, 64) != way:
+                raise AssertionError(f"{what} S={s} {dt} {which} does not take the {way} route")
+            name = tiled_kernel(which, dt, way)
+            on_cores = not name.endswith("_mma")
             args = [torch.randn(n, h, s, 64, generator=gen, device="cuda").to(dtypes[dt])
                     for _ in range(3 if which == "fwd" else 4)]
             shape = f"{what} ({n},{h},{s},64) {dt}"
-            before = (fused_attention.launches_tiled, attention_bwd.launches_tiled)
+            counts = lambda: (fused_attention.launches_tiled, attention_bwd.launches_tiled,
+                              fused_attention.launches_tiled_fma,
+                              attention_bwd.launches_tiled_fma)
+            before = counts()
             if which == "fwd":
                 got = (fused_attention(*args, scale),)
                 want = (attention_plain(*args, scale),)
@@ -635,14 +677,14 @@ def check_attention_tiled(torch, gen):
                 got = attention_bwd(*args[:3], scale, None, None, args[3])
                 want = attention_bwd_plain(*args[:3], scale, None, None, args[3])
             torch.cuda.synchronize()
-            if (fused_attention.launches_tiled - before[0],
-                    attention_bwd.launches_tiled - before[1]) != \
-                    ((1, 0) if which == "fwd" else (0, 1)):
-                raise AssertionError(f"{shape}: the row-tiled {which} kernel was not launched")
-            for name, a, b in zip(("out",) if which == "fwd" else ("dq", "dk", "dv"), got, want):
+            one = (1, 0) if which == "fwd" else (0, 1)
+            if tuple(a - b for a, b in zip(counts(), before)) != \
+                    one + (one if on_cores else (0, 0)):
+                raise AssertionError(f"{shape}: the kernel {name} was not launched")
+            for part, a, b in zip(("out",) if which == "fwd" else ("dq", "dk", "dv"), got, want):
                 if dt == "bf16":
-                    steps = bf16_steps_checked(a, b, f"attention_{which}_tiled {shape} {name}")
-                    print(f"[kernel] attention_{which}_tiled {shape} {name}: {steps}", flush=True)
+                    steps = bf16_steps_checked(a, b, f"{name} {shape} {part}")
+                    print(f"[kernel] {name} {shape} {part}: {steps}", flush=True)
                 else:
                     # fp32 in both: only the order of the sums differs
                     torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
@@ -665,12 +707,16 @@ def check_attention_tiled(torch, gen):
                                args)
                 nbytes, ops = 7 * n * h * s * 64 * size, 10 * n * h * s * s * 64
             rows.append(entry(
-                f"attention_{which}_tiled", "cmh_torch/csrc/attention_tiled.cu",
+                name, "cmh_torch/csrc/attention_tiled.cu",
                 "cmh_tpu/ops/attention_pallas.py:" + ("60" if which == "fwd" else "84"),
                 shape, err, cuda_ms(kernel, iters=20, warmup=3),
                 cuda_ms(plain, iters=10, warmup=2), cuda_ms(library, iters=20, warmup=3),
                 nbytes, ops, dt))
             rows[-1]["cold_ms"] = cold
+            if name == "tiled_fwd_mma":
+                # the check keeps the logits off the tensor cores: one walk of
+                # fp32 FMA chains (2 n h S^2 hd flops) at the CUDA cores' peak
+                rows[-1]["fma_floor_ms"] = 2 * n * h * s * s * 64 / PEAK_OPS["fp32"] * 1e3
             del args, got, want, leaves
     return rows
 
@@ -968,7 +1014,7 @@ def training(torch, counters):
 
 
 def expected_launches(cfg, remat=False, fp32=(0, 0), widths=None, layers=(12, 12),
-                      tiled=None):
+                      tiled=None, tiled_fma=(0, 0)):
     """(train steps, kernel launches) of a training run of the config
     ``cfg`` (a dict) through the CLI, worked out from the code: per image +
     text pair of full-width towers of ``layers`` (vision, text) blocks, 2 K1
@@ -980,7 +1026,8 @@ def expected_launches(cfg, remat=False, fp32=(0, 0), widths=None, layers=(12, 12
     one K3 pass each per query chunk of a ``valid`` for each code width
     (``widths``, default ``run.output_dim``). With ``fp32`` a third dict
     gives the fp32 launches alone; with ``tiled`` (row-tiled K2 launches a
-    forward, a backward) a last dict gives the row-tiled K2 launches."""
+    forward, a backward, and ``tiled_fma`` of them on the CUDA cores) a last
+    dict gives the row-tiled K2 launches as ``read_tiled`` counts them."""
     import math
 
     from cmh_torch.ops.map_kernel import query_chunk
@@ -1005,7 +1052,9 @@ def expected_launches(cfg, remat=False, fp32=(0, 0), widths=None, layers=(12, 12
         out.append({"layernorm": fp32[0] * fwd, "layernorm_bwd": fp32[0] * steps,
                     "attention": fp32[1] * fwd, "attention_bwd": fp32[1] * steps})
     if tiled is not None:
-        out.append({"attention": tiled[0] * fwd, "attention_bwd": tiled[1] * steps})
+        out.append({"attention": tiled[0] * fwd, "attention_bwd": tiled[1] * steps,
+                    "attention_fma": tiled_fma[0] * fwd,
+                    "attention_bwd_fma": tiled_fma[1] * steps})
     return tuple(out)
 
 
@@ -2312,13 +2361,7 @@ def long_sequences(torch, counters):
         by_path["ViT-L/14"], tiled_by_path["ViT-L/14"] = vit_l14_training(torch, counters, root)
         by_path["ViT-B/16 encode"], tiled_by_path["ViT-B/16 encode"] = vit_b16_encode(
             torch, counters)
-        t0 = time.perf_counter()
-        model_parity(torch, VIT_L14, n=4, tag="[ViT-L/14 parity]")
-        # 24 vision blocks, twice ViT-B/32's: the fp32 sums' order differences
-        # compound through twice the depth (ViT-B/32's phase 5 holds 1e-4)
-        grad_parity(torch, VIT_L14, n=4, tag="[ViT-L/14 grad]", grad_tol=2e-4)
-        print(f"[ViT-L/14 parity] fp32 card against CPU, batch 4: {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        by_path["ViT-L/14 fp32"], tiled_by_path["ViT-L/14 fp32"] = vit_l14_fp32(torch, counters)
         by_path["MITH 128-bit"], tiled_by_path["MITH 128-bit"] = mith_128(torch, counters, root)
         resnet_tower(torch, counters, root)
     finally:
@@ -2391,6 +2434,30 @@ def vit_l14_training(torch, counters, root):
     return launches, tiled
 
 
+def vit_l14_fp32(torch, counters):
+    """14c: ViT-L/14 in fp32 at batch 4, phases 4 and 5 (card against CPU):
+    its vision tower's 23 fused blocks a pass (S = 257) take the CUDA-core
+    row tiles both ways. The launches are those of the card's side."""
+    lv = VIT_L14["vision_layers"]
+    reset_counts(counters)
+    # ---- the main path: an encode and a train step's forward and backward
+    t0 = time.perf_counter()
+    model_parity(torch, VIT_L14, n=4, tag="[ViT-L/14 parity]")
+    # 24 vision blocks, twice ViT-B/32's: the fp32 sums' order differences
+    # compound through twice the depth (ViT-B/32's phase 5 holds 1e-4)
+    grad_parity(torch, VIT_L14, n=4, tag="[ViT-L/14 grad]", grad_tol=2e-4)
+    torch.cuda.synchronize()
+    launches, tiled = read_counts(counters), read_tiled(counters)
+    # ---- end of the main path
+    expect_tiled = {"attention": 2 * (lv - 1), "attention_bwd": lv - 1,
+                    "attention_fma": 2 * (lv - 1), "attention_bwd_fma": lv - 1}
+    print(f"[ViT-L/14 parity] fp32 card against CPU, batch 4: {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}, row-tiled {tiled} expected {expect_tiled}", flush=True)
+    if tiled != expect_tiled:
+        raise AssertionError(f"ViT-L/14 fp32: row-tiled launches {tiled} != {expect_tiled}")
+    return launches, tiled
+
+
 def vit_b16_encode(torch, counters):
     """14b: ``api.load("ViT-B/16")`` (seeded random init, bf16, on the card)
     encodes 256 images (K2-fwd at S = 197 through the row tiles) and 256
@@ -2410,7 +2477,8 @@ def vit_b16_encode(torch, counters):
     # ---- end of the main path
     expect = {k: 0 for k in counters}
     expect.update(layernorm=51, attention=22)
-    expect_tiled = {"attention": 11, "attention_bwd": 0}
+    expect_tiled = {"attention": 11, "attention_bwd": 0, "attention_fma": 0,
+                    "attention_bwd_fma": 0}
     with torch.no_grad():
         image_ms = cuda_ms(lambda: model.encode_image(images), iters=3, warmup=1)
     print(f"[ViT-B/16] api.load: {cfg}; 256 images and 256 captions encoded to {tuple(img.shape)} "
@@ -2438,7 +2506,8 @@ def mith_128(torch, counters, root):
     cfg_path = os.path.join(root, "mith128.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f)
-    steps, expect, expect32, expect_tiled = expected_launches(cfg, fp32=(8, 2), tiled=(0, 2))
+    steps, expect, expect32, expect_tiled = expected_launches(cfg, fp32=(8, 2), tiled=(0, 2),
+                                                              tiled_fma=(0, 2))
     reset_counts(counters)
     # ---- the main path: python -m cmh_torch.main, in-process
     tr = train_cli(cfg_path, os.path.join(root, "mith128"))
@@ -2554,9 +2623,10 @@ def main() -> int:
         for r in rows:
             cold = f" cold {r['cold_ms']:.5f}" if "cold_ms" in r else ""
             popc = f" popcount floor {r['popc_floor_ms']:.5f}" if "popc_floor_ms" in r else ""
+            fma = f" fp32 FMA floor {r['fma_floor_ms']:.5f}" if "fma_floor_ms" in r else ""
             print(f"[kernel] {r['name']} {r['shape']}: err {r['max_abs_err']:.3g} "
                   f"ms {r['ms']:.5f}{cold} plain {r['plain_ms']:.4f} library {r['library_ms']} "
-                  f"bound {r['bound_ms']:.5f} ({r['bound_by']}){popc}", flush=True)
+                  f"bound {r['bound_ms']:.5f} ({r['bound_by']}){popc}{fma}", flush=True)
 
         model_parity(torch)
         grad_parity(torch)
@@ -2597,11 +2667,14 @@ def main() -> int:
             idle = [k for k in need if by_path[path][k] == 0]
             if idle:
                 raise AssertionError(f"{path}: kernels {idle} were never launched")
-        # the row-tiled pair, apart from the one-block K2 (which the text tower
-        # still takes on the ViT-L/14 path)
-        for path, need in (("ViT-L/14", ("attention", "attention_bwd")),
-                           ("ViT-B/16 encode", ("attention",)), ("MITH 128-bit", ("attention_bwd",))):
-            idle = [k for k in need if tiled_by_path[path][k] == 0]
+        # the row-tiled kernels, apart from the one-block K2 (which the text
+        # tower still takes on the ViT-L/14 paths): on mma in bf16, on the
+        # CUDA cores in fp32
+        for path, need in (("ViT-L/14", ("tiled_fwd_mma", "tiled_bwd_mma")),
+                           ("ViT-B/16 encode", ("tiled_fwd_mma",)),
+                           ("ViT-L/14 fp32", ("attention_fwd_tiled", "attention_bwd_tiled")),
+                           ("MITH 128-bit", ("attention_bwd_tiled",))):
+            idle = [k for k in need if tiled_launches(tiled_by_path[path], k) == 0]
             if idle:
                 raise AssertionError(f"{path}: the row-tiled kernels {idle} were never launched")
         if by_path["ViT-L/14"]["attention"] == tiled_by_path["ViT-L/14"]["attention"]:
@@ -2615,29 +2688,31 @@ def main() -> int:
         key = {"layernorm_fwd": "layernorm", "attention_fwd": "attention", "hamming": "hamming",
                "layernorm_bwd": "layernorm_bwd", "attention_bwd": "attention_bwd",
                "map_hist": "map_hist", "map_ap": "map_ap",
-               "attention_fwd_tiled": "attention", "attention_bwd_tiled": "attention_bwd"}
+               "attention_fwd_tiled": "attention", "attention_bwd_tiled": "attention_bwd",
+               "tiled_fwd_mma": "attention", "tiled_bwd_mma": "attention_bwd"}
         kernels, seen = [], {}
         for r in rows:   # one entry per kernel at its first shape, the rest under "shapes"
             k = key[r["name"]]
+            tiled = r["name"].endswith(("_tiled", "_mma"))
             # launches over the main-path runs, and per path: K2's one-block and
             # row-tiled kernels apart
-            if r["name"].endswith("_tiled"):
-                per_path = {p: c[k] for p, c in tiled_by_path.items()}
+            if tiled:
+                per_path = {p: tiled_launches(c, r["name"]) for p, c in tiled_by_path.items()}
             else:
                 per_path = {p: c[k] - tiled_by_path.get(p, {}).get(k, 0)
                             for p, c in by_path.items()}
             r["launches"] = sum(per_path.values())
             r["launches_by_path"] = per_path
-            if k in fp32_by_path["MITH"] and not r["name"].endswith("_tiled"):
+            if k in fp32_by_path["MITH"] and not tiled:
                 r["fp32_launches_by_path"] = {p: c[k] for p, c in fp32_by_path.items()}
             if r["name"] in seen:
                 seen[r["name"]].setdefault("shapes", []).append(
                     {k: r[k] for k in ("shape", "max_abs_err", "ms", "cold_ms", "plain_ms",
-                                       "bound_ms", "bound_by", "popc_floor_ms", "library_ms")
+                                       "bound_ms", "bound_by", "library_ms")
                      if k in r})
             else:
-                seen[r["name"]] = r
-                kernels.append(r)
+                seen[r["name"]] = {k: v for k, v in r.items() if k not in FLOORS}
+                kernels.append(seen[r["name"]])
         print(smi_line(), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:

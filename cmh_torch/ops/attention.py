@@ -22,11 +22,22 @@ Two CUDA routes, chosen by S alone (``route``):
   hd ∈ {32, 64}. The fp32 kernels, for the parity checks, take contiguous
   (B, H, S, hd) tensors.
 - row tiles, ``csrc/attention_tiled.cu``, for every longer S (ViT-B/16's
-  197, ViT-L/14's 257, MITH's concept tokens above 117 bits): 32 query or
-  key rows a block, CUDA-core fp32 arithmetic for both dtypes, the same
-  in-place reads and output layout; the backward is three launches over fp32
-  scratch (row max, row sum and D = Σ w·dW). bf16 keeps hd ∈ {32, 64}; fp32
-  takes hd ≤ 128. Their launches are counted apart in ``launches_tiled``.
+  197, ViT-L/14's 257, MITH's concept tokens above 117 bits), with the same
+  in-place reads and output layout. In bf16 (hd ∈ {32, 64}) tiles of 16
+  rows (two warps each in the forward, one in the backward) and the other
+  side streams through shared memory: the forward walks the keys once, its
+  logits fp32 FMA chains written once into the tile's shared-memory rows,
+  then the softmax from those rows (in
+  ``torch.softmax``'s summation order) and P·V on the tensor cores; the
+  backward is three launches over fp32 scratch (row max, row sum, its
+  reciprocal and D = Σ w·dW; dK and dV per key tile; dQ per query tile)
+  with all five products on the tensor cores, W and dlog in three bf16
+  pieces. The forward's logit rows bound S (``tiled_fwd_tiles``: past 3152
+  at hd 64, 3376 at hd 32), beyond which it takes the CUDA-core row tiles
+  ("tiled_fma"), 32 rows a block with fp32 walks, as fp32 does at every
+  length (hd ≤ 128). Their launches are counted apart in
+  ``launches_tiled``, and those of the CUDA-core row tiles also in
+  ``launches_tiled_fma``.
 
 The scale multiplies the fp32 logits, as in the Pallas kernel. (The JAX
 einsum path, ``cmh_tpu/models/clip/model.py:226-228``, scales q in the
@@ -44,6 +55,8 @@ import torch
 from . import _build
 
 _MAX_SMEM = 227 * 1024   # dynamic shared memory a block can have on sm_90
+_HALF_SMEM = 113 * 1024  # each of two blocks on one SM (228 KB, 1 KB a block kept)
+_CHUNK = 64              # rows of a chunk the bf16 row-tiled kernels stream
 # largest S the one-block bf16 kernels are built for (16 × their largest
 # row-tile count, csrc/attention.cu:max_kc_fwd/max_kc_bwd), by head dim
 BF16_MAX_S = {"fwd": {32: 208, 64: 176}, "bwd": {32: 144, 64: 128}}
@@ -59,15 +72,39 @@ def one_block_smem(which: str, s: int, hd: int) -> int:
     return (4 * s * (hd + 1) + 2 * s * s) * 4
 
 
+def tiled_fwd_smem(s: int, hd: int, tiles: int) -> int:
+    """Dynamic shared memory of a bf16 row-tiled forward block of ``tiles``
+    16-row tiles, two warps each (csrc/attention_tiled.cu:fwd_mma_smem): per
+    tile its 16 fp32 logit rows of 16·⌈S/16⌉ + 8 words, its Q rows as fp32
+    (hd × 16) and 48 floats for its warps' row maxima and sums; per block one
+    K chunk of 64 rows as fp32 (hd × 64) and the bf16 tile it lands in."""
+    rows = 16 * -(-s // 16) + 8
+    return (tiles * (16 * rows * 4 + 16 * hd * 4 + 48 * 4)
+            + _CHUNK * hd * 4 + _CHUNK * (hd + 8) * 2)
+
+
+def tiled_fwd_tiles(s: int, hd: int) -> int:
+    """16-row tiles of a bf16 row-tiled forward block (csrc/attention_tiled.cu:
+    fwd_mma_tiles): the most, of 4 down to 1, that leave room for a second
+    block on the SM; else 1 while one tile's logit rows fit; else 0, and the
+    CUDA-core row tiles take S."""
+    for n in (4, 3, 2, 1):
+        if tiled_fwd_smem(s, hd, n) <= _HALF_SMEM:
+            return n
+    return 1 if tiled_fwd_smem(s, hd, 1) <= _MAX_SMEM else 0
+
+
 def route(dtype: torch.dtype, which: str, s: int, hd: int) -> str:
-    """"one_block" or "tiled": the CUDA kernel that takes sequence length
-    ``s`` (``which`` is "fwd" or "bwd"). bf16 goes to the row tiles past
-    ``BF16_MAX_S``, fp32 once one (batch, head) outgrows shared memory."""
+    """"one_block", "tiled" or "tiled_fma": the CUDA kernel that takes
+    sequence length ``s`` (``which`` is "fwd" or "bwd"). bf16 goes to the
+    row tiles past ``BF16_MAX_S``, and its forward on to the CUDA-core row
+    tiles once one tile's logit rows outgrow shared memory; fp32 goes to the
+    (CUDA-core) row tiles once one (batch, head) outgrows shared memory."""
     if dtype == torch.bfloat16:
-        long = s > BF16_MAX_S[which].get(hd, 0)
-    else:
-        long = one_block_smem(which, s, hd) > _MAX_SMEM
-    return "tiled" if long else "one_block"
+        if s <= BF16_MAX_S[which].get(hd, 0):
+            return "one_block"
+        return "tiled_fma" if which == "fwd" and tiled_fwd_tiles(s, hd) == 0 else "tiled"
+    return "tiled" if one_block_smem(which, s, hd) > _MAX_SMEM else "one_block"
 
 
 def kpm_bias(key_padding_mask: torch.Tensor) -> torch.Tensor:
@@ -158,8 +195,11 @@ def _tiled_lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cmh_attention_tiled_fwd.argtypes = [i] + [p] * 7 + [i, i, i, i, f, i, p]
         lib.cmh_attention_tiled_bwd.argtypes = [i] + [p] * 11 + [i, i, i, i, f, i, p]
-        for name in ("fwd", "bwd"):
+        for name in ("fwd", "bwd", "fwd_tiles"):
             getattr(lib, f"cmh_attention_tiled_{name}").restype = i
+        lib.cmh_attention_tiled_fwd_tiles.argtypes = [i, i]
+        lib.cmh_attention_tiled_fwd_smem.argtypes = [i, i]
+        lib.cmh_attention_tiled_fwd_smem.restype = ctypes.c_long
     return lib
 
 
@@ -178,7 +218,7 @@ def _prepare(q, k, v, mask, bias, which: str):
     if q.dtype == torch.bfloat16 and hd not in BF16_MAX_S[which]:
         raise ValueError(f"bf16 attention kernels take hd 32 or 64, got {hd}")
     way = route(q.dtype, which, s, hd)
-    if way == "tiled" and hd > TILED_MAX_HD:
+    if way != "one_block" and hd > TILED_MAX_HD:
         raise ValueError(f"the row-tiled attention kernels take hd <= {TILED_MAX_HD}, "
                          f"got {hd} at S={s}")
     if mask is not None and mask.shape != (s, s):
@@ -205,7 +245,7 @@ def _launch(q, k, v, scale, mask, bias) -> torch.Tensor:
     way, mask, bias = _prepare(q, k, v, mask, bias, "fwd")
     b, h, s, hd = q.shape
     bf16 = q.dtype == torch.bfloat16
-    if way == "tiled":
+    if way != "one_block":
         (q, sq), (k, sk), (v, sv) = (kernel_strides(t) for t in (q, k, v))
         out = kernel_output(q) if bf16 else torch.empty_like(q)
         strides = (ctypes.c_longlong * 12)(*sq, *sk, *sv, *out.stride()[:3])
@@ -228,7 +268,8 @@ def _launch(q, k, v, scale, mask, bias) -> torch.Tensor:
     _build.check(rc, "attention_fwd")
     fused_attention.launches += 1
     fused_attention.launches_fp32 += not bf16
-    fused_attention.launches_tiled += way == "tiled"
+    fused_attention.launches_tiled += way != "one_block"
+    fused_attention.launches_tiled_fma += way == "tiled_fma" or (way == "tiled" and not bf16)
     return out
 
 
@@ -238,11 +279,11 @@ def _launch_bwd(q, k, v, scale, mask, bias, dout):
         raise ValueError("dout must have q's shape and dtype")
     b, h, s, hd = q.shape
     bf16 = q.dtype == torch.bfloat16
-    if way == "tiled":
+    if way != "one_block":
         (q, sq), (k, sk), (v, sv), (dout, so) = (
             kernel_strides(t) for t in (q, k, v, dout))
         dq, dk, dv = ((kernel_output(q) if bf16 else torch.empty_like(q)) for _ in range(3))
-        stats = torch.empty((3, b * h, s), dtype=torch.float32, device=q.device)
+        stats = torch.empty((4, b * h, s), dtype=torch.float32, device=q.device)
         strides = (ctypes.c_longlong * 21)(*sq, *sk, *sv, *so, *dq.stride()[:3],
                                             *dk.stride()[:3], *dv.stride()[:3])
         rc = _tiled_lib().cmh_attention_tiled_bwd(
@@ -268,7 +309,8 @@ def _launch_bwd(q, k, v, scale, mask, bias, dout):
     _build.check(rc, "attention_bwd")
     attention_bwd.launches += 1
     attention_bwd.launches_fp32 += not bf16
-    attention_bwd.launches_tiled += way == "tiled"
+    attention_bwd.launches_tiled += way != "one_block"
+    attention_bwd.launches_tiled_fma += way == "tiled" and not bf16
     return dq, dk, dv
 
 
@@ -282,7 +324,8 @@ def attention_bwd(q, k, v, scale: float, mask, bias, dout):
     """(dq, dk, dv) of the attention at (B, H, S, hd). On a CUDA tensor this
     launches the backward kernel (counted in ``attention_bwd.launches``, the
     fp32 ones also in ``launches_fp32``, the row-tiled ones in
-    ``launches_tiled``); on a CPU tensor it runs ``attention_bwd_plain``."""
+    ``launches_tiled`` and of those the CUDA-core ones in
+    ``launches_tiled_fma``); on a CPU tensor it runs ``attention_bwd_plain``."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, scale, mask, bias, dout)
     return _launch_bwd(q, k, v, scale, mask, bias, dout)
@@ -312,8 +355,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``attn_mask`` is (S, S) additive; ``key_padding_mask`` (B, S) bool with
     True at pads. Differentiable in q, k and v. On a CUDA tensor this
     launches the kernel (counted in ``fused_attention.launches``, an fp32
-    one also in ``launches_fp32``, a row-tiled one in ``launches_tiled``); on a CPU
-    tensor it runs ``attention_plain``. Outside autograd nothing is saved
+    one also in ``launches_fp32``, a row-tiled one in ``launches_tiled`` and, if
+    it ran on the CUDA cores, in ``launches_tiled_fma``); on a CPU tensor it
+    runs ``attention_plain``. Outside autograd nothing is saved
     for a backward."""
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
@@ -327,6 +371,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _forward(q, k, v, scale, attn_mask, bias)
 
 
-# launches, and of them those of the fp32 kernels and of the row-tiled ones
-fused_attention.launches = fused_attention.launches_fp32 = fused_attention.launches_tiled = 0
-attention_bwd.launches = attention_bwd.launches_fp32 = attention_bwd.launches_tiled = 0
+# launches, and of them those of the fp32 kernels, of the row-tiled ones and
+# of the CUDA-core row-tiled ones (fp32, and the bf16 forward past the logit
+# rows' limit)
+for _fn in (fused_attention, attention_bwd):
+    _fn.launches = _fn.launches_fp32 = _fn.launches_tiled = _fn.launches_tiled_fma = 0

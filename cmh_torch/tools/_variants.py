@@ -1,7 +1,8 @@
 """Build edited copies of a kernel source and time them through its wrapper.
 
-Shared by the ``*_variants`` tools. A variant is the source with a few
-string edits, each of which must find its target exactly once. ``build``
+Shared by the ``*_variants`` tools. A variant is the source, with the
+``csrc/*.cuh`` headers it includes written in place (``source``), plus a
+few string edits, each of which must find its target exactly once. ``build``
 writes every variant into ``build/<dir>/`` and compiles them all at once
 with the package's nvcc flags; inside ``swapped(so)`` every wrapper that
 loads a kernel library through ``_build.load`` gets that one instead.
@@ -12,7 +13,20 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import os
+import re
 import subprocess
+
+
+def source(name: str) -> str:
+    """``csrc/<name>.cu`` with each ``#include "<header>.cuh"`` replaced by
+    that header's text, so that an edited copy builds anywhere and an edit
+    may reach the shared helpers."""
+    from cmh_torch.ops import _build
+
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    return re.sub(r'^#include "(\w+\.cuh)"$',
+                  lambda m: (_build.CSRC / m[1]).read_text().replace("#pragma once\n", ""),
+                  text, flags=re.M)
 
 
 def edited(text: str, edits, what: str) -> str:

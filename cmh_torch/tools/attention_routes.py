@@ -1,20 +1,24 @@
-"""Time the one-block K2 kernels at the main path's shapes, here and in an
-earlier checkout, on the card.
+"""Time the K2 kernels at the main path's shapes, here and in an earlier
+checkout, on the card.
 
     python -m cmh_torch.tools.attention_routes [--earlier DIR]
 
 The bf16 one-block kernels (``csrc/attention.cu``) at the shapes the ViT-B/32
 towers give them: the forward at batch 256, the backward at batch 100,
 vision (12 heads, S = 50, no mask) and text (8 heads, S = 32, causal and
-key-padding masks), on the head views of a packed projection, with
-``chip_smoke.cuda_ms``. Each run is a process of its own that imports
-``cmh_torch`` from the tree named; with ``--earlier DIR`` (an unpacked
-``git archive`` of an earlier commit, inside a git-ignored directory of
-this repository) the runs go earlier, current, current, earlier, so that a
-wrapper change (such as the route by S that sends longer sequences to the
-row-tiled kernels) shows as a difference beside the spread of two runs of
-one tree. Libraries already built for this tree are copied into the
-earlier tree's build directory when their content-hashed names match.
+key-padding masks); and the bf16 row-tiled kernels (``csrc/attention_tiled.cu``)
+at the vision towers of ViT-B/16 (forward, 256 images, 12 heads, S = 197)
+and ViT-L/14 (forward and backward, batch 100, 16 heads, S = 257), and at
+ViT-L/14's in fp32 the CUDA-core row tiles both ways. All run on the head
+views of a packed projection, timed with ``chip_smoke.cuda_ms``.
+Each run is a process of its own that imports ``cmh_torch`` from the tree
+named; with ``--earlier DIR`` (an unpacked ``git archive`` of an earlier
+commit, inside a git-ignored directory of this repository) the runs go
+earlier, current, current, earlier, so that a change shows as a difference
+beside the spread of two runs of one tree. Each tree's kernels are built
+before the runs, both trees' ``nvcc`` processes at once; libraries already
+built for this tree are copied into the earlier tree's build directory when
+their content-hashed names match.
 """
 
 from __future__ import annotations
@@ -26,9 +30,16 @@ import shutil
 import subprocess
 import sys
 
-# (direction, tower, batch, heads, S, masks)
-SHAPES = (("fwd", "vision", 256, 12, 50, False), ("fwd", "text", 256, 8, 32, True),
-          ("bwd", "vision", 100, 12, 50, False), ("bwd", "text", 100, 8, 32, True))
+# (direction, tower, batch, heads, S, masks, dtype)
+SHAPES = (("fwd", "vision", 256, 12, 50, False, "bf16"),
+          ("fwd", "text", 256, 8, 32, True, "bf16"),
+          ("bwd", "vision", 100, 12, 50, False, "bf16"),
+          ("bwd", "text", 100, 8, 32, True, "bf16"),
+          ("fwd", "ViT-B/16 vision", 256, 12, 197, False, "bf16"),
+          ("fwd", "ViT-L/14 vision", 100, 16, 257, False, "bf16"),
+          ("bwd", "ViT-L/14 vision", 100, 16, 257, False, "bf16"),
+          ("fwd", "ViT-L/14 vision", 100, 16, 257, False, "fp32"),
+          ("bwd", "ViT-L/14 vision", 100, 16, 257, False, "fp32"))
 
 
 def _times() -> dict:
@@ -40,8 +51,9 @@ def _times() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    for which, tower, n, h, s, masks in SHAPES:
-        packed = torch.randn(n, s, 4 * h * 64, generator=gen, device="cuda").bfloat16()
+    for which, tower, n, h, s, masks, dt in SHAPES:
+        packed = torch.randn(n, s, 4 * h * 64, generator=gen, device="cuda")
+        packed = packed.bfloat16() if dt == "bf16" else packed
         q, k, v, do = (t.reshape(n, s, h, 64).transpose(1, 2)
                        for t in packed.split(h * 64, -1))
         mask = kpm = None
@@ -54,7 +66,7 @@ def _times() -> dict:
         else:
             bias = None if kpm is None else kpm_bias(kpm)
             fn = lambda: attention_bwd(q, k, v, 0.125, mask, bias, do)
-        out[f"{which} {tower} ({n},{h},{s},64)"] = cuda_ms(fn)
+        out[f"{which} {tower} ({n},{h},{s},64) {dt}"] = cuda_ms(fn)
     return out
 
 
@@ -77,9 +89,9 @@ def main(argv=None) -> int:
         return 0
     from cmh_torch.ops import _build
 
-    _build.build_all(["attention", "attention_tiled"])
     here = str(_build.BUILD_DIR.parents[1])
     order = [("current", here), ("current", here)]
+    build = None
     if args.earlier:
         earlier = os.path.abspath(args.earlier)
         dst = os.path.join(earlier, "build", "cmh_torch")
@@ -87,7 +99,14 @@ def main(argv=None) -> int:
         for lib in _build.BUILD_DIR.glob("*.so"):
             if not os.path.exists(os.path.join(dst, lib.name)):
                 shutil.copy2(lib, dst)
+        build = subprocess.Popen(
+            [sys.executable, "-c", "from cmh_torch.ops import _build; "
+             "_build.build_all(['attention', 'attention_tiled'])"],
+            cwd=earlier, env={**os.environ, "PYTHONPATH": earlier})
         order = [("earlier", earlier), *order, ("earlier", earlier)]
+    _build.build_all(["attention", "attention_tiled"])
+    if build is not None and build.wait() != 0:
+        raise RuntimeError(f"building the kernels of {args.earlier} failed")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(f"[routes] {smi.strip()}", flush=True)

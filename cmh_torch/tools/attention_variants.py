@@ -43,13 +43,12 @@ def main(argv=None) -> int:
 
     import chip_smoke as cs
     import cmh_torch.ops.attention as A
-    from cmh_torch.ops import _build
 
     if not torch.cuda.is_available():
         print("attention_variants: no CUDA device", file=sys.stderr)
         return 2
     names = (argv if argv is not None else sys.argv[1:]) or list(VARIANTS)
-    libs = _variants.build((_build.CSRC / "attention.cu").read_text(), VARIANTS, names,
+    libs = _variants.build(_variants.source("attention"), VARIANTS, names,
                            "attention_variants")
     print(cs.smi_line(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -9,9 +9,13 @@ pieces for the tensor cores; a plain-torch emulation of those products,
 kept in this file, is held against cmh_tpu's Pallas backward (interpret
 mode) with the same one-bf16-step check the card's tests use. The
 row-tiled kernels (``csrc/attention_tiled.cu``, every S past the one-block
-limits) take each row's max and sum in a walk over 32-key blocks and form
-the normalised probabilities in a second walk; an emulation of that walk is
-held against the Pallas kernel at ViT-B/16's S = 197 the same way.
+limits) walk the keys once in bf16, form each logit as an fp32 FMA chain,
+take the row sum in ``torch.softmax``'s lane order from the logit rows they
+keep in shared memory, and run the backward's products on the tensor cores
+with W and dlog in bf16 pieces; an emulation of that arithmetic is held
+against the Pallas kernel at ViT-B/16's S = 197 and ViT-L/14's 257 the same
+way, and the host's mirror of the forward's shared memory, which routes S,
+against the source.
 """
 
 import re
@@ -26,7 +30,8 @@ import torch
 from cmh_torch.ops import _build
 from cmh_torch.ops.attention import (_MAX_SMEM, BF16_MAX_S, _prepare, _softmax,
                                      fused_attention, kernel_output, kernel_strides,
-                                     kpm_bias, one_block_smem, route)
+                                     kpm_bias, one_block_smem, route, tiled_fwd_smem,
+                                     tiled_fwd_tiles)
 from cmh_tpu.ops.attention_pallas import fused_attention as jax_attention
 from test_torch_gpu_kernels import assert_within_one_bf16_step
 
@@ -251,14 +256,34 @@ def test_split_piece_products_match_pallas_backward(tower):
 
 
 def test_attention_variant_edits_still_apply():
-    """The variant-timing tool edits csrc/attention.cu by string
-    replacement; every edit must still find its target."""
+    """The variant-timing tool edits csrc/attention.cu, with the headers it
+    includes written in place, by string replacement; every edit must still
+    find its target."""
+    from cmh_torch.tools._variants import source
     from cmh_torch.tools.attention_variants import VARIANTS
 
-    src = (ROOT / "cmh_torch" / "csrc" / "attention.cu").read_text()
+    src = source("attention")
+    assert "#include \"attention_mma.cuh\"" not in src and "logits_fma" in src
     for name, edits in VARIANTS.items():
         for old, _ in edits:
             assert src.count(old) == 1, (name, old)
+
+
+def test_attention_tiled_variant_edits_still_apply():
+    """The row-tiled ablation tool edits csrc/attention_tiled.cu, with its
+    header written in place, by string replacement; every edit must still
+    find its target exactly once."""
+    from cmh_torch.tools._variants import source
+    from cmh_torch.tools.attention_tiled_variants import VARIANTS
+
+    from cmh_torch.tools._variants import edited
+
+    src = source("attention_tiled")
+    assert "#include \"attention_mma.cuh\"" not in src and "split_pair" in src
+    for name, edits in VARIANTS.items():
+        for old, _ in edits:
+            assert src.count(old) == 1, (name, old)
+        assert (edited(src, edits, name) == src) == (name == "base"), name
 
 
 def test_row_tiles_take_fp32_head_dims_up_to_128():
@@ -275,52 +300,101 @@ def test_row_tiles_take_fp32_head_dims_up_to_128():
     assert set(_build._loaded) == loaded
 
 
-def tiled_emulation(q, k, v, scale, mask, bias, dout, tile=32):
-    """The row-tiled kernels' arithmetic in plain torch: each row's max m and
-    sum l from one walk over key blocks of ``tile`` (l rescaled as m grows; a
-    block all masked so far adds 0), then w = exp(logit − m) / l, rounded to
-    the input dtype for PV; the backward's D = Σ w·dW and dlog = w (dW − D)
-    from the unrounded w. Returns (out, dq, dk, dv)."""
-    x = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if mask is not None:
-        x = x + mask
-    if bias is not None:
-        x = x + bias[:, None, None, :]
-    m = torch.full(x.shape[:-1], float("-inf"))
-    l = torch.zeros(x.shape[:-1])
-    for k0 in range(0, x.shape[-1], tile):
-        blk = x[..., k0:k0 + tile]
-        mn = torch.maximum(m, blk.amax(-1))
-        ref = torch.where(mn == float("-inf"), torch.zeros(()), mn)
-        l = l * torch.exp(m - ref) + torch.exp(blk - ref[..., None]).sum(-1)
-        m = mn
-    w = torch.exp(x - m[..., None]) / l[..., None]
-    out = torch.matmul(w.to(v.dtype).float(), v.float()).to(q.dtype)
+def _fma_logits(q, k):
+    """Q Kᵀ as the row-tiled forward forms it: each logit one fp32 FMA chain
+    over hd in order from 0 (each step in fp64, then rounded once to fp32,
+    which is the FMA wherever fp64 holds the step exactly)."""
+    qd, kd = q.double(), k.double()
+    x = torch.zeros(q.shape[:-1] + (k.shape[-2],), dtype=torch.float64)
+    for d in range(q.shape[-1]):
+        x = (x + qd[..., d, None] * kd[..., None, :, d]).float().double()
+    return x.float()
+
+
+def _lane_order_softmax(x):
+    """torch.softmax over the last axis in its CUDA lane order, as the
+    row-tiled forward takes it from its logit rows: the max, per lane
+    L = c mod 32 a sequential fp32 sum of exp(x − max) over c = L, L + 32,
+    …, a butterfly over the lanes with offsets 16, 8, 4, 2, 1, then the
+    division."""
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    lanes = torch.nn.functional.pad(e, (0, -e.shape[-1] % 32)).unflatten(-1, (-1, 32))
+    part = torch.zeros(lanes.shape[:-2] + (32,))
+    for i in range(lanes.shape[-2]):
+        part = part + lanes[..., i, :]
+    for o in (16, 8, 4, 2, 1):
+        part = part + part[..., torch.arange(32) ^ o]
+    return e / part[..., :1]
+
+
+def _tiled_pieces_product(x, b, n, tile=16):
+    """x @ b with the contraction in tiles of ``tile`` in order, x (fp32) in
+    n bf16 pieces, smallest first, each piece's tile product exact and added
+    to the fp32 sum (csrc/attention_tiled.cu:pieces_product)."""
+    acc = torch.zeros(x.shape[:-1] + b.shape[-1:])
+    for t0 in range(0, x.shape[-1], tile):
+        for p in _pieces(x[..., t0:t0 + tile], n)[::-1]:
+            acc = acc + torch.matmul(p, b[..., t0:t0 + tile, :])
+    return acc
+
+
+def tiled_emulation(q, k, v, scale, mask, bias, dout):
+    """The row-tiled kernels' arithmetic in plain torch; returns (out, dq,
+    dk, dv). The forward: logits as FMA chains (the CUDA cores, both dtypes),
+    scale, mask and bias each rounded on its own, ``torch.softmax``'s lane
+    order, P rounded to the input dtype, P·V with fp32 sums. The backward:
+    each row's max m, l = Σ exp(logit − m) and D = Σ exp(logit − m)·dW / l
+    from fp32 sums (the kernel takes them in one walk, rescaling as the max
+    grows); w = exp(logit − m) / l unrounded and dlog = w (dW − D).
+    In bf16 the logits and dW are bf16 products with fp32 sums (the tensor
+    cores) and dV = Wᵀ dO, dK = scale dlogᵀ Q and dQ = scale dlog K take W
+    and dlog in three bf16 pieces over 16-row tiles; in fp32 every product
+    is an fp32 one."""
+    bf16 = q.dtype == torch.bfloat16
+
+    def masked(x):
+        x = x * scale
+        if mask is not None:
+            x = x + mask
+        if bias is not None:
+            x = x + bias[:, None, None, :]
+        return x
+
+    w = _lane_order_softmax(masked(_fma_logits(q.float(), k.float())))
+    out = torch.matmul(w.to(q.dtype).float(), v.float()).to(q.dtype)
+    x = masked(torch.matmul(q.float(), k.float().transpose(-1, -2)))
     do = dout.float()
     dw = torch.matmul(do, v.float().transpose(-1, -2))
-    dlog = w * (dw - (w * dw).sum(-1, keepdim=True))
-    dq = torch.matmul(dlog, k.float()) * scale
-    dk = torch.matmul(dlog.transpose(-1, -2), q.float()) * scale
-    dv = torch.matmul(w.transpose(-1, -2), do)
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    l = e.sum(-1, keepdim=True)
+    w = e / l
+    dlog = w * (dw - (e * dw).sum(-1, keepdim=True) / l)
+    if bf16:
+        dv = _tiled_pieces_product(w.transpose(-1, -2), do, 3)
+        dk = _tiled_pieces_product(dlog.transpose(-1, -2), q.float(), 3) * scale
+        dq = _tiled_pieces_product(dlog, k.float(), 3) * scale
+    else:
+        dv = torch.matmul(w.transpose(-1, -2), do)
+        dk = torch.matmul(dlog.transpose(-1, -2), q.float()) * scale
+        dq = torch.matmul(dlog, k.float()) * scale
     return out, dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_row_tiled_walk_matches_pallas_at_vit_b16_length(dtype):
-    """The two-walk softmax at S = 197 (seven 32-key blocks, the last one
-    ragged) against cmh_tpu's fused attention in interpret mode, forward and
-    gradients: fp32 within 1e-5, bf16 within one bf16 step. Keys 32..63 are
-    padding in every row (a wholly masked block) and query row 5 has every
-    key masked: NaN exactly where Pallas gives NaN."""
-    b, h, s, hd = 2, 2, 197, 64
-    rng = np.random.RandomState(197)
+def _tiled_walk_against_pallas(dtype, s, masked_keys):
+    """tiled_emulation at (2, 2, s, 64) against cmh_tpu's fused attention in
+    interpret mode, forward and gradients: fp32 within 1e-5, bf16 within one
+    bf16 step. The keys ``masked_keys`` are padding in every row (a wholly
+    masked key block) and query row 5 has every key masked: NaN exactly
+    where Pallas gives NaN."""
+    b, h, hd = 2, 2, 64
+    rng = np.random.RandomState(s)
     q, k, v, do = (torch.from_numpy(rng.randn(b, h, s, hd).astype(np.float32)).to(dtype)
                    for _ in range(4))
     m = np.triu(np.full((s, s), -np.inf, np.float32), 1)
     m[:, 0] = 0.0        # key 0 visible to every row but 5, so no other row is all masked
     m[5] = -np.inf
     p = rng.rand(b, s) > 0.7
-    p[:, 32:64] = True
+    p[:, masked_keys] = True
     p[:, 0] = False
     scale = hd**-0.5
 
@@ -341,3 +415,77 @@ def test_row_tiled_walk_matches_pallas_at_vit_b16_length(dtype):
             torch.testing.assert_close(a[~nan], r[~nan], rtol=1e-5, atol=1e-5)
         else:
             assert_within_one_bf16_step(a[~nan], r[~nan])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_tiled_walk_matches_pallas_at_vit_b16_length(dtype):
+    """The row-tiled arithmetic at S = 197 (four 64-key chunks, the last
+    one ragged; keys 32..63 wholly masked) against Pallas."""
+    _tiled_walk_against_pallas(dtype, 197, slice(32, 64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_tiled_walk_matches_pallas_at_vit_l14_length(dtype):
+    """The row-tiled arithmetic at S = 257 (four 64-key chunks and one key;
+    the second chunk, keys 64..127, wholly masked) against Pallas."""
+    _tiled_walk_against_pallas(dtype, 257, slice(64, 128))
+
+
+@pytest.mark.parametrize("hd,limit", [(64, 3152), (32, 3376)])
+def test_bf16_forward_routes_past_the_logit_rows_limit(hd, limit):
+    """The bf16 row-tiled forward holds each tile's 16 × S fp32 logit rows
+    in shared memory; past the S at which one tile's rows no longer fit in
+    227 KB the route sends the forward to the CUDA-core row tiles, before
+    any library is loaded. The backward keeps no row of S and takes every S."""
+    loaded = set(_build._loaded)
+    assert tiled_fwd_smem(limit, hd, 1) <= _MAX_SMEM < tiled_fwd_smem(limit + 1, hd, 1)
+    assert tiled_fwd_tiles(limit, hd) == 1 and tiled_fwd_tiles(limit + 1, hd) == 0
+    assert route(torch.bfloat16, "fwd", limit, hd) == "tiled"
+    assert route(torch.bfloat16, "fwd", limit + 1, hd) == "tiled_fma"
+    for s in (limit + 1, 10_000):
+        assert route(torch.bfloat16, "bwd", s, hd) == "tiled"
+        assert route(torch.float32, "fwd", s, hd) == route(torch.float32, "bwd", s, hd) == "tiled"
+    q = torch.zeros(1, 1, limit + 1, hd, dtype=torch.bfloat16)
+    assert _prepare(q, q, q, None, None, "fwd")[0] == "tiled_fma"
+    assert _prepare(q, q, q, None, None, "bwd")[0] == "tiled"
+    assert set(_build._loaded) == loaded
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_tiled_forward_blocks_leave_room_for_a_second(hd):
+    """Up to the S at which one tile's rows outgrow half the SM, a forward
+    block takes the most 16-row tiles (at most 4, two warps each) that let
+    two blocks share an SM (228 KB, 1 KB a block kept); ViT-B/16's and
+    ViT-L/14's vision towers get 4 tiles, a ViT-L/14 at 336 px (S = 577) 2."""
+    assert tiled_fwd_tiles(197, hd) == tiled_fwd_tiles(257, hd) == 4
+    assert tiled_fwd_tiles(577, hd) == 2
+    for s in range(BF16_MAX_S["fwd"][hd] + 1, 1400):
+        n = tiled_fwd_tiles(s, hd)
+        if tiled_fwd_smem(s, hd, 1) <= 113 * 1024:
+            assert 2 * (tiled_fwd_smem(s, hd, n) + 1024) <= 228 * 1024
+            assert n == 4 or tiled_fwd_smem(s, hd, n + 1) > 113 * 1024
+        else:
+            assert n == 1
+
+
+@pytest.mark.parametrize("which,dtype,s", [("fwd", torch.bfloat16, 3153),
+                                             ("fwd", torch.float32, 257),
+                                             ("bwd", torch.float32, 257)])
+def test_cpu_tensors_count_no_row_tiled_launch(which, dtype, s):
+    """A CPU tensor on a CUDA-core row-tiled route takes the plain version
+    and counts no launch, row-tiled or CUDA-core."""
+    from cmh_torch.ops.attention import attention_bwd, attention_bwd_plain, attention_plain
+
+    way = route(dtype, which, s, 64)
+    assert way == ("tiled_fma" if dtype == torch.bfloat16 else "tiled")
+    gen = torch.Generator().manual_seed(s)
+    q, k, v, do = (torch.randn(1, 2, s, 64, generator=gen).to(dtype) for _ in range(4))
+    fn = fused_attention if which == "fwd" else attention_bwd
+    before = (fn.launches, fn.launches_tiled, fn.launches_tiled_fma)
+    if which == "fwd":
+        assert torch.equal(fused_attention(q, k, v, 0.125), attention_plain(q, k, v, 0.125))
+    else:
+        got = attention_bwd(q, k, v, 0.125, None, None, do)
+        want = attention_bwd_plain(q, k, v, 0.125, None, None, do)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (fn.launches, fn.launches_tiled, fn.launches_tiled_fma) == before

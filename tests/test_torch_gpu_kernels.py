@@ -493,26 +493,46 @@ def _long_case(dtype, b, h, s, hd, masks, seed):
     return q, k, v, do, mask, bias
 
 
+def _rows_limit(hd):
+    """The longest S the bf16 tensor-core row-tiled forward takes at ``hd``
+    (one tile's logit rows in 227 KB of shared memory)."""
+    from cmh_torch.ops.attention import tiled_fwd_tiles
+
+    return max(s for s in range(1, 4000) if tiled_fwd_tiles(s, hd) > 0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("masks", ["none", "causal", "causal+kpm"])
 @pytest.mark.parametrize("hd", [32, 64])
-@pytest.mark.parametrize("s", ["limit", "limit+1", 197, 257, 300])
+@pytest.mark.parametrize("s", ["limit", "limit+1", 197, 257, 300, 577, "rows-limit",
+                               "rows-limit+1"])
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 def test_attention_row_tiled_kernels_match_plain(cuda, which, s, hd, masks, dtype):
     """Each direction at its one-block limit (the one-block kernel), one row
-    past it and at ViT-B/16's, ViT-L/14's and a longer S (the row-tiled
-    kernels): fp32 within 1e-5 (summation order), bf16 within one bf16 step
-    (P and the outputs round to bf16 in both)."""
+    past it (at hd 32 in bf16: S 209 forward, 145 backward), at ViT-B/16's,
+    ViT-L/14's, a longer S and a ViT-L/14 at 336 px (577 tokens), and at the
+    bf16 forward's logit-row limit and one past it (there the CUDA-core row
+    tiles take the bf16 forward): fp32 within 1e-5 (summation order), bf16
+    within one bf16 step (P and the outputs round to bf16 in both)."""
     from cmh_torch.ops.attention import (attention_bwd, attention_bwd_plain,
                                          attention_plain, route)
 
     limit = _limit(dtype, which, hd)
-    s = {"limit": limit, "limit+1": limit + 1}.get(s, s)
+    rows = _rows_limit(hd)
+    s = {"limit": limit, "limit+1": limit + 1, "rows-limit": rows,
+         "rows-limit+1": rows + 1}.get(s, s)
     way = route(dtype, which, s, hd)
-    assert way == ("one_block" if s <= limit else "tiled")
+    if s <= limit:
+        assert way == "one_block"
+    elif dtype == torch.bfloat16 and which == "fwd" and s > rows:
+        assert way == "tiled_fma"
+    else:
+        assert way == "tiled"
     q, k, v, do, mask, bias = _long_case(dtype, 2, 3, s, hd, masks, seed=s * hd + len(masks))
     scale = hd**-0.5
-    before = (fused_attention.launches_tiled, attention_bwd.launches_tiled)
+    counts = lambda: (fused_attention.launches_tiled, attention_bwd.launches_tiled,
+                      fused_attention.launches_tiled_fma, attention_bwd.launches_tiled_fma)
+    before = counts()
     if which == "fwd":
         got = (fused_attention(q, k, v, scale, mask, None if bias is None else bias < 0),)
         want = (attention_plain(q, k, v, scale, mask, bias),)
@@ -520,10 +540,12 @@ def test_attention_row_tiled_kernels_match_plain(cuda, which, s, hd, masks, dtyp
         got = attention_bwd(q, k, v, scale, mask, bias, do)
         want = attention_bwd_plain(q, k, v, scale, mask, bias, do)
     torch.cuda.synchronize()
-    tiled = int(way == "tiled")
-    assert (fused_attention.launches_tiled - before[0],
-            attention_bwd.launches_tiled - before[1]) == \
-        ((tiled, 0) if which == "fwd" else (0, tiled))
+    tiled = int(way != "one_block")
+    # of the row-tiled launches, those on the CUDA cores: fp32, and bf16 past
+    # the logit rows
+    fma = tiled * int(way == "tiled_fma" or dtype == torch.float32)
+    assert tuple(a - b for a, b in zip(counts(), before)) == \
+        ((tiled, 0, fma, 0) if which == "fwd" else (0, tiled, 0, fma))
     for a, r in zip(got, want):
         assert a.shape == r.shape == q.shape
         if dtype == torch.float32:
@@ -604,6 +626,22 @@ def test_attention_route_agrees_with_the_one_block_smem_sizes(cuda):
         for hd in (32, 64, 128):
             assert one_block_smem("fwd", s, hd) == lib.cmh_attention_smem_bytes(s, hd)
             assert one_block_smem("bwd", s, hd) == lib.cmh_attention_bwd_smem_bytes(s, hd)
+
+
+def test_attention_route_agrees_with_the_row_tiled_smem_sizes(cuda):
+    """``tiled_fwd_tiles`` and ``tiled_fwd_smem`` (which route the bf16
+    forward by S on the host) give the tiles and bytes the tensor-core
+    row-tiled forward takes, up to its logit-row limit and past it."""
+    from cmh_torch.ops.attention import _tiled_lib, tiled_fwd_smem, tiled_fwd_tiles
+
+    lib = _tiled_lib()
+    for hd in (32, 64):
+        rows = _rows_limit(hd)
+        for s in (177, 197, 209, 257, 300, 304, 305, 577, 1000, 1329, rows, rows + 1):
+            tiles = tiled_fwd_tiles(s, hd)
+            assert lib.cmh_attention_tiled_fwd_tiles(s, hd) == tiles, (s, hd)
+            assert lib.cmh_attention_tiled_fwd_smem(s, hd) == tiled_fwd_smem(s, hd, max(tiles, 1))
+        assert tiled_fwd_tiles(rows + 1, hd) == 0 < tiled_fwd_tiles(rows, hd)
 
 
 def test_autograd_reaches_the_kernels(cuda):
