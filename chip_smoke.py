@@ -120,7 +120,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
       the row tiles) and 256 captions from ``api.tokenize``;
    c. phases 4 and 5 for ViT-L/14 in fp32 at batch 4 (head outputs, loss
       and gradients, card against CPU, TF32 off): its vision K2 (S = 257)
-      on the CUDA-core row tiles both ways, 46 forward and 23 backward;
+      on the fp32 row tiles (3xTF32 on the tensor cores) both ways, 46
+      forward and 23 backward;
    d. MITH at 128 bits, one epoch of 2 steps through the CLI (its fp32
       backward at S = 128 on the row tiles);
    e. an RN50 tower at its published geometry from a seeded archive in
@@ -131,12 +132,12 @@ Phase 3 holds K1 in fp32 at UMoED's decoder rows (6400, 512) too, and K2 on
 the text tower with the causal mask alone (DIMCH's and UMoED's text tower
 runs without the key-padding mask), forward and backward; the bf16 K2 rows
 carry their cold-L2 time; the row-tiled K2 kernels, each row named after the
-kernel its route launches: on mma (``tiled_fwd_mma``, ``tiled_bwd_mma``)
+kernel it launches: with bf16 operands (``tiled_fwd_mma``, ``tiled_bwd_mma``)
 ViT-B/16's (256, 12, 197, 64) and ViT-L/14's (100, 16, 257, 64) forward and
-ViT-L/14's backward in bf16; on the CUDA cores (``attention_fwd_tiled``,
-``attention_bwd_tiled``) ViT-L/14's (4, 16, 257, 64) both ways and MITH's
-128-bit (100, 8, 128, 64) backward in fp32, and the bf16 forward one past
-the logit rows' limit at (4, 16, 3153, 64).
+ViT-L/14's backward, and the forward one past the logit rows' shared-memory
+limit at (4, 16, 3153, 64), its rows in device memory; in 3xTF32
+(``tiled_fwd_tf32``, ``tiled_bwd_tf32``) ViT-L/14's (4, 16, 257, 64) both
+ways and MITH's 128-bit (100, 8, 128, 64) backward in fp32.
 
 The last lines are the card's name and power limit, one JSON object with a
 ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -164,6 +165,7 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12,      # dense tensor-core bf16
+            "tf32": 495e12,      # dense tensor-core TF32
             "fp32": 67e12}       # fp32 (and 32-bit integer) outside the tensor cores
 B = 256                          # serving batch
 TRAIN_B = 100                    # configs/DCMHT/synthetic_tpu.yaml batch
@@ -178,12 +180,13 @@ FP32_LN_ROWS = ((TRAIN_B * MITH_K, 512, "MITH"), (TRAIN_B * UMOED_SLOTS, 512, "U
 ATTENTION_CASES = (("vision", 12, 50, None), ("text", 8, MAX_WORDS, "causal+kpm"),
                    ("text", 8, MAX_WORDS, "causal"))
 # the row-tiled K2 (S past the one-block limits): (what, batch, heads, S,
-# dtype, route); the bf16 "tiled" route runs on mma, the others on the CUDA
-# cores; the bf16 forward past 3152 (hd 64) is no model's, it holds that route
+# dtype, route); bf16 runs on mma with bf16 operands, fp32 on mma in 3xTF32;
+# the bf16 forward past 3152 (hd 64), whose logit rows live in device memory,
+# is no model's
 TILED_FWD_CASES = (("ViT-B/16 vision", B, 12, 197, "bf16", "tiled"),
                    ("ViT-L/14 vision", TRAIN_B, 16, 257, "bf16", "tiled"),
                    ("ViT-L/14 vision", 4, 16, 257, "fp32", "tiled"),
-                   ("past the logit rows", 4, 16, 3153, "bf16", "tiled_fma"))
+                   ("past the logit rows", 4, 16, 3153, "bf16", "tiled"))
 TILED_BWD_CASES = (("ViT-L/14 vision", TRAIN_B, 16, 257, "bf16", "tiled"),
                    ("ViT-L/14 vision", 4, 16, 257, "fp32", "tiled"),
                    ("MITH 128-bit concepts", TRAIN_B, 8, 128, "fp32", "tiled"))
@@ -292,7 +295,7 @@ def entry(name, source, replaces, shape, err, ms, plain_ms, lib_ms, nbytes, ops,
 def reset_counts(counters):
     for c in counters.values():
         c.launches = 0
-        for part in ("launches_fp32", "launches_tiled", "launches_tiled_fma"):
+        for part in ("launches_fp32", "launches_tiled", "launches_tiled_tf32"):
             if hasattr(c, part):
                 setattr(c, part, 0)
 
@@ -308,28 +311,28 @@ def read_fp32(counters):
 
 def read_tiled(counters):
     """Of the K2 launches, those of the row-tiled kernels (S past the
-    one-block limits), and under ``<name>_fma`` those of them that ran on
-    the CUDA cores."""
+    one-block limits), and under ``<name>_tf32`` those of them in fp32
+    (3xTF32)."""
     out = {}
     for k, c in counters.items():
         if hasattr(c, "launches_tiled"):
-            out[k], out[f"{k}_fma"] = c.launches_tiled, c.launches_tiled_fma
+            out[k], out[f"{k}_tf32"] = c.launches_tiled, c.launches_tiled_tf32
     return out
 
 
-def tiled_kernel(which: str, dt: str, way: str) -> str:
-    """The name of the row-tiled kernel a route launches (``which`` is
-    "fwd" or "bwd"): bf16's "tiled" route on mma, the rest on the CUDA
-    cores."""
-    return f"tiled_{which}_mma" if (dt, way) == ("bf16", "tiled") else f"attention_{which}_tiled"
+def tiled_kernel(which: str, dt: str) -> str:
+    """The name of the row-tiled kernel the "tiled" route launches
+    (``which`` is "fwd" or "bwd"): bf16 on mma with bf16 operands
+    (tiled_*_mma), fp32 in 3xTF32 (tiled_*_tf32)."""
+    return f"tiled_{which}_{'mma' if dt == 'bf16' else 'tf32'}"
 
 
 def tiled_launches(tiled: dict, name: str) -> int:
     """The launches of the row-tiled kernel ``name`` in a ``read_tiled``
     count."""
     k = "attention" if "_fwd_" in name else "attention_bwd"
-    fma = tiled[f"{k}_fma"]
-    return tiled[k] - fma if name.endswith("_mma") else fma
+    tf32 = tiled[f"{k}_tf32"]
+    return tiled[k] - tf32 if name.endswith("_mma") else tf32
 
 
 def check_layernorm(torch, gen):
@@ -643,13 +646,15 @@ def check_attention_bwd(torch, gen):
 
 def check_attention_tiled(torch, gen):
     """The row-tiled K2 pair at the lengths past the one-block kernels, each
-    row named after the kernel its route launches: on mma, ViT-B/16's and
-    ViT-L/14's vision forward and ViT-L/14's backward in bf16; on the CUDA
-    cores, ViT-L/14's vision both ways in fp32 (phase 14c's shapes), MITH's
-    128 concept tokens backward in fp32 and the bf16 forward one past the
-    logit rows' limit. bf16 is held to the one-bf16-step check, fp32 within
-    1e-5; each row has its cold-L2 time, the plain version's and SDPA's; the
-    mma forward rows also the floor of their fp32 FMA logit walk."""
+    row named after the kernel it launches: tiled_*_mma, ViT-B/16's and
+    ViT-L/14's vision forward and ViT-L/14's backward in bf16, and the bf16
+    forward one past the logit rows' shared-memory limit (its rows in device
+    memory); tiled_*_tf32, ViT-L/14's vision both ways in fp32 (phase 14c's
+    shapes) and MITH's 128 concept tokens backward in fp32. bf16 is held to
+    the one-bf16-step check, fp32 within 1e-5; each row has its cold-L2
+    time, the plain version's and SDPA's; the bf16 forward rows also the
+    floor of their fp32 FMA logit walk. The fp32 rows' bound counts the
+    three TF32 products of each fp32 one at the TF32 peak."""
     import torch.nn.functional as F
 
     from cmh_torch.ops.attention import (attention_bwd, attention_bwd_plain, attention_plain,
@@ -661,14 +666,14 @@ def check_attention_tiled(torch, gen):
         for what, n, h, s, dt, way in cases:
             if route(dtypes[dt], which, s, 64) != way:
                 raise AssertionError(f"{what} S={s} {dt} {which} does not take the {way} route")
-            name = tiled_kernel(which, dt, way)
-            on_cores = not name.endswith("_mma")
+            name = tiled_kernel(which, dt)
+            tf32 = name.endswith("_tf32")
             args = [torch.randn(n, h, s, 64, generator=gen, device="cuda").to(dtypes[dt])
                     for _ in range(3 if which == "fwd" else 4)]
             shape = f"{what} ({n},{h},{s},64) {dt}"
             counts = lambda: (fused_attention.launches_tiled, attention_bwd.launches_tiled,
-                              fused_attention.launches_tiled_fma,
-                              attention_bwd.launches_tiled_fma)
+                              fused_attention.launches_tiled_tf32,
+                              attention_bwd.launches_tiled_tf32)
             before = counts()
             if which == "fwd":
                 got = (fused_attention(*args, scale),)
@@ -679,7 +684,7 @@ def check_attention_tiled(torch, gen):
             torch.cuda.synchronize()
             one = (1, 0) if which == "fwd" else (0, 1)
             if tuple(a - b for a, b in zip(counts(), before)) != \
-                    one + (one if on_cores else (0, 0)):
+                    one + (one if tf32 else (0, 0)):
                 raise AssertionError(f"{shape}: the kernel {name} was not launched")
             for part, a, b in zip(("out",) if which == "fwd" else ("dq", "dk", "dv"), got, want):
                 if dt == "bf16":
@@ -711,7 +716,7 @@ def check_attention_tiled(torch, gen):
                 "cmh_tpu/ops/attention_pallas.py:" + ("60" if which == "fwd" else "84"),
                 shape, err, cuda_ms(kernel, iters=20, warmup=3),
                 cuda_ms(plain, iters=10, warmup=2), cuda_ms(library, iters=20, warmup=3),
-                nbytes, ops, dt))
+                nbytes, 3 * ops if tf32 else ops, "tf32" if tf32 else dt))
             rows[-1]["cold_ms"] = cold
             if name == "tiled_fwd_mma":
                 # the check keeps the logits off the tensor cores: one walk of
@@ -1014,7 +1019,7 @@ def training(torch, counters):
 
 
 def expected_launches(cfg, remat=False, fp32=(0, 0), widths=None, layers=(12, 12),
-                      tiled=None, tiled_fma=(0, 0)):
+                      tiled=None, tiled_tf32=(0, 0)):
     """(train steps, kernel launches) of a training run of the config
     ``cfg`` (a dict) through the CLI, worked out from the code: per image +
     text pair of full-width towers of ``layers`` (vision, text) blocks, 2 K1
@@ -1026,8 +1031,8 @@ def expected_launches(cfg, remat=False, fp32=(0, 0), widths=None, layers=(12, 12
     one K3 pass each per query chunk of a ``valid`` for each code width
     (``widths``, default ``run.output_dim``). With ``fp32`` a third dict
     gives the fp32 launches alone; with ``tiled`` (row-tiled K2 launches a
-    forward, a backward, and ``tiled_fma`` of them on the CUDA cores) a last
-    dict gives the row-tiled K2 launches as ``read_tiled`` counts them."""
+    forward, a backward, and ``tiled_tf32`` of them in fp32) a last dict
+    gives the row-tiled K2 launches as ``read_tiled`` counts them."""
     import math
 
     from cmh_torch.ops.map_kernel import query_chunk
@@ -1053,8 +1058,8 @@ def expected_launches(cfg, remat=False, fp32=(0, 0), widths=None, layers=(12, 12
                     "attention": fp32[1] * fwd, "attention_bwd": fp32[1] * steps})
     if tiled is not None:
         out.append({"attention": tiled[0] * fwd, "attention_bwd": tiled[1] * steps,
-                    "attention_fma": tiled_fma[0] * fwd,
-                    "attention_bwd_fma": tiled_fma[1] * steps})
+                    "attention_tf32": tiled_tf32[0] * fwd,
+                    "attention_bwd_tf32": tiled_tf32[1] * steps})
     return tuple(out)
 
 
@@ -2436,8 +2441,8 @@ def vit_l14_training(torch, counters, root):
 
 def vit_l14_fp32(torch, counters):
     """14c: ViT-L/14 in fp32 at batch 4, phases 4 and 5 (card against CPU):
-    its vision tower's 23 fused blocks a pass (S = 257) take the CUDA-core
-    row tiles both ways. The launches are those of the card's side."""
+    its vision tower's 23 fused blocks a pass (S = 257) take the fp32 row
+    tiles (3xTF32) both ways. The launches are those of the card's side."""
     lv = VIT_L14["vision_layers"]
     reset_counts(counters)
     # ---- the main path: an encode and a train step's forward and backward
@@ -2450,7 +2455,7 @@ def vit_l14_fp32(torch, counters):
     launches, tiled = read_counts(counters), read_tiled(counters)
     # ---- end of the main path
     expect_tiled = {"attention": 2 * (lv - 1), "attention_bwd": lv - 1,
-                    "attention_fma": 2 * (lv - 1), "attention_bwd_fma": lv - 1}
+                    "attention_tf32": 2 * (lv - 1), "attention_bwd_tf32": lv - 1}
     print(f"[ViT-L/14 parity] fp32 card against CPU, batch 4: {time.perf_counter() - t0:.1f} s; "
           f"launches {launches}, row-tiled {tiled} expected {expect_tiled}", flush=True)
     if tiled != expect_tiled:
@@ -2477,8 +2482,8 @@ def vit_b16_encode(torch, counters):
     # ---- end of the main path
     expect = {k: 0 for k in counters}
     expect.update(layernorm=51, attention=22)
-    expect_tiled = {"attention": 11, "attention_bwd": 0, "attention_fma": 0,
-                    "attention_bwd_fma": 0}
+    expect_tiled = {"attention": 11, "attention_bwd": 0, "attention_tf32": 0,
+                    "attention_bwd_tf32": 0}
     with torch.no_grad():
         image_ms = cuda_ms(lambda: model.encode_image(images), iters=3, warmup=1)
     print(f"[ViT-B/16] api.load: {cfg}; 256 images and 256 captions encoded to {tuple(img.shape)} "
@@ -2507,7 +2512,7 @@ def mith_128(torch, counters, root):
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f)
     steps, expect, expect32, expect_tiled = expected_launches(cfg, fp32=(8, 2), tiled=(0, 2),
-                                                              tiled_fma=(0, 2))
+                                                              tiled_tf32=(0, 2))
     reset_counts(counters)
     # ---- the main path: python -m cmh_torch.main, in-process
     tr = train_cli(cfg_path, os.path.join(root, "mith128"))
@@ -2668,12 +2673,12 @@ def main() -> int:
             if idle:
                 raise AssertionError(f"{path}: kernels {idle} were never launched")
         # the row-tiled kernels, apart from the one-block K2 (which the text
-        # tower still takes on the ViT-L/14 paths): on mma in bf16, on the
-        # CUDA cores in fp32
+        # tower still takes on the ViT-L/14 paths): bf16 operands on mma in
+        # bf16, 3xTF32 on mma in fp32
         for path, need in (("ViT-L/14", ("tiled_fwd_mma", "tiled_bwd_mma")),
                            ("ViT-B/16 encode", ("tiled_fwd_mma",)),
-                           ("ViT-L/14 fp32", ("attention_fwd_tiled", "attention_bwd_tiled")),
-                           ("MITH 128-bit", ("attention_bwd_tiled",))):
+                           ("ViT-L/14 fp32", ("tiled_fwd_tf32", "tiled_bwd_tf32")),
+                           ("MITH 128-bit", ("tiled_bwd_tf32",))):
             idle = [k for k in need if tiled_launches(tiled_by_path[path], k) == 0]
             if idle:
                 raise AssertionError(f"{path}: the row-tiled kernels {idle} were never launched")
@@ -2688,12 +2693,12 @@ def main() -> int:
         key = {"layernorm_fwd": "layernorm", "attention_fwd": "attention", "hamming": "hamming",
                "layernorm_bwd": "layernorm_bwd", "attention_bwd": "attention_bwd",
                "map_hist": "map_hist", "map_ap": "map_ap",
-               "attention_fwd_tiled": "attention", "attention_bwd_tiled": "attention_bwd",
+               "tiled_fwd_tf32": "attention", "tiled_bwd_tf32": "attention_bwd",
                "tiled_fwd_mma": "attention", "tiled_bwd_mma": "attention_bwd"}
         kernels, seen = [], {}
         for r in rows:   # one entry per kernel at its first shape, the rest under "shapes"
             k = key[r["name"]]
-            tiled = r["name"].endswith(("_tiled", "_mma"))
+            tiled = r["name"].endswith(("_mma", "_tf32"))
             # launches over the main-path runs, and per path: K2's one-block and
             # row-tiled kernels apart
             if tiled:

@@ -17,24 +17,25 @@
 // masked gives NaN, as the plain version does; a key block that is wholly
 // masked adds 0 to the row sum.
 //
-// bf16, on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
-// accumulators; helpers in attention_mma.cuh). Query (or key) rows go in
-// tiles of 16, in mma accumulator layout, up to 4 tiles a block of one
-// (batch, head); the other side streams through shared memory in chunks of
-// 64 rows by cp.async, double-buffered. hd is 32 or 64.
-//  - Forward (tiled_fwd_mma), one launch and ONE walk over the keys. The
-//    logits stay fp32 FMA chains over hd in order from 0 on the CUDA cores:
-//    P is rounded to bf16, and tensor-core sums, which round differently,
-//    would move a P across a rounding step often enough that the one-step
-//    check fails (attention.cu, attention_fwd_mma). Each K chunk is converted
-//    once as it lands into fp32 K^T (hd x 64), and each tile keeps its Q rows
-//    as fp32 Q^T (hd x 16); a lane that owns 4 rows and 4 keys reads 32
-//    bytes for 16 FMAs per hd element. Each tile writes its 16 x S logits
-//    once, into its own shared-memory rows (16 ceil(S / 16) + 8 words a row:
-//    17.5 KB at S = 257), and those rows bound how many tiles an SM holds:
-//    8 at S = 257. So two warps share a tile, 16 warps an SM: in the walk
-//    each takes half of each chunk's keys, in the softmax half the rows, in
-//    P V half the output columns; they trade row maxima and sums through
+// Every kernel here runs its products on the tensor cores (mma.sync, fp32
+// accumulators; bf16 helpers in attention_mma.cuh). Query (or key) rows go
+// in tiles of 16, in mma accumulator layout; the other side streams through
+// shared memory in chunks of 64 rows by cp.async, double-buffered.
+//
+// bf16 (mma.sync m16n8k16, bf16 operands), hd 32 or 64:
+//  - Forward (tiled_fwd_mma), one launch and ONE walk over the keys, up to 4
+//    tiles a block. The logits stay fp32 FMA chains over hd in order from 0
+//    on the CUDA cores: P is rounded to bf16, and tensor-core sums, which
+//    round differently, would move a P across a rounding step often enough
+//    that the one-step check fails (attention.cu, attention_fwd_mma). Each K
+//    chunk is converted once as it lands into fp32 K^T (hd x 64), and each
+//    tile keeps its Q rows as fp32 Q^T (hd x 16); a lane that owns 4 rows and
+//    4 keys reads 32 bytes for 16 FMAs per hd element. Each tile writes its
+//    16 x S logits once, into its own logit rows (16 ceil(S / 16) + 8 words
+//    a row: 17.5 KB at S = 257), and those rows bound how many tiles an SM
+//    holds: 8 at S = 257. So two warps share a tile, 16 warps an SM: in the
+//    walk each takes half of each chunk's keys, in the softmax half the rows,
+//    in P V half the output columns; they trade row maxima and sums through
 //    shared memory. The softmax runs from the logit rows as torch.softmax
 //    forms it: the row max (exact in any order); the row sum for S <= 2048
 //    in its warp's lane order (per lane L = c mod 32 a sequential sum over
@@ -45,9 +46,14 @@
 //    online rescaling, so that w is the plain version's to the bit; a
 //    correctly rounded division; the rounding to bf16. P is then the A
 //    operand of P V on mma (V through ldmatrix.trans), and the output leaves
-//    through a 16-row stage with 16-byte stores. The logit rows bound S: past
-//    3152 (hd 64) or 3376 (hd 32) one tile's rows no longer fit in 227 KB, and
-//    the route sends the forward to the CUDA-core kernel below.
+//    through a 16-row stage with 16-byte stores. The logit rows live in
+//    shared memory up to S = 3152 (hd 64) or 3376 (hd 32); past that one
+//    tile's rows no longer fit in 227 KB, and they live in device memory
+//    (tiled_fwd_mma_rows, the same code): a persistent grid of
+//    kRowsBlocksPerSm blocks of kRowsTiles tiles an SM, each block with its
+//    own slot of rows, so that the scratch is sized by the blocks the card
+//    holds (214 MB at S = 3153) and not by B H. Sixteen warps an SM, as in
+//    shared memory, beat fewer whose rows would stay in the 50 MB L2.
 //  - Backward, three launches over fp32 scratch (4, B H, S), none with
 //    atomics, so a rerun gives the same bits: (1) tiled_bwd_stats_mma, per
 //    query tile, one walk over K and V for the row max m, the sum l (each
@@ -63,22 +69,37 @@
 //    dlog = w (dW - D) straight from the accumulators as kPieces bf16
 //    pieces (split_pair). No shared memory grows with S, so every S runs.
 //
-// fp32 (MITH's concept tokens; the tensor cores have no fp32 product that
-// meets the 1e-5 check), and the bf16 forward past the logit rows' limit: on
-// the CUDA cores. Tiles of 32 rows are fp32 in shared memory with rows padded
-// to HDP + 4 words (HDP = hd rounded up to 32, 64 or 128; padding is zero),
-// so the logits read 16 bytes of a row at a time and the 16 rows a half-warp
-// reads fall in distinct banks. 256 threads as a 16 x 16 grid: thread
-// (ty, tx) owns rows ty and ty + 16 and columns tx + 16 j of every 32-row
-// output tile. Three walks over the key blocks: the row max; the row sum in
-// torch.softmax's order (thread tx holds lanes tx and tx + 16; in bf16 past
-// S = 2048 the block order, each warp-of-threads sum kept in sp); w rounded
-// and multiplied by V. The backward: (1) m, l and D into the scratch; (2) dK, dV
-// per key tile; (3) dQ per query tile, each recomputing w.
+// fp32 (MITH's concept tokens past S 117, fp32 towers past S 162), hd up to
+// 128 (padded with zeros to 32, 64 or 128): mma.sync m16n8k8 in TF32 as
+// 3xTF32. Each fp32 operand x is split into hi = cvt.rna.tf32(x) and
+// lo = cvt.rna.tf32(x - hi); a product is lo hi + hi lo + hi hi with fp32
+// sums, which leaves out only lo lo (about 2^-22 of the product). Q, K, V
+// and dO stay fp32 in shared memory (rows padded to hd + 4 words, so that
+// every fragment read falls in distinct banks) and each warp splits the
+// fragments it reads. A warp owns 16 rows: eight warps a forward block, four
+// a backward one. The products of a chunk are straight-line code with no
+// guard (the last chunk, if it holds at most 16 keys, takes 2 n-tiles for
+// 8), so that independent mma chains interleave.
+//  - Forward (tiled_fwd_tf32), ONE walk over the keys with an online
+//    softmax: per 64-key chunk S on mma, the logits, the running row max,
+//    the row sum and the output rescaled as the max grows, then P V on mma
+//    with the unnormalised fp32 P straight from the accumulators (fp32 P is
+//    not rounded, so no order of torch.softmax's need be kept); the output
+//    is divided by the row sum at the end.
+//  - Backward (tiled_bwd_{stats,dkdv,dq}_tf32), the three launches of bf16
+//    over the same scratch: (1) m, l, 1 / l and D in one walk, rescaling as
+//    the max grows; (2) and (3) form S (S^T in (2), its cross terms issued in
+//    swapped order) and dW with the same instructions in the same k order,
+//    so w is bit-equal between them; dV, dK and dQ on mma from W and dlog in
+//    the accumulators.
+// An mma's fp32 sums do not round to nearest: the long products (P V, dV,
+// dK, dQ, over S) add each 8-deep step's three mma sums, formed from zero,
+// to their totals by a rounded fp32 add, so no chain of mma sums is longer
+// than three; S and dW chain over hd (24 sums at hd 64).
 //
 // Every kernel reads its inputs through element strides (b, h, s) with hd
-// contiguous (the head views of a packed projection in place) and writes its
-// outputs through their own strides.
+// contiguous (the head views of a packed projection) and writes its outputs
+// through their own strides.
 //
 // Bound on the card: at ViT-L/14's (100, 16, 257, 64) in bf16 the forward
 // moves 210 MB (0.063 ms at 3.35 TB/s), but its one logit walk is 13.5 GFLOP
@@ -90,7 +111,10 @@
 // (S and dW in each launch, and each of dV, dK and dQ in three pieces), is
 // 0.21 ms at 989 TFLOP/s, and the exps and the pieces run on the CUDA cores
 // beside it. Past S = 1024 (kChunkSumsS) the backward sums each chunk's
-// products apart before adding them to its totals.
+// products apart before adding them to its totals. In fp32 a product costs
+// three TF32 ones: 1.08 GFLOP of fp32 work in the forward at (4, 16, 257, 64)
+// is 3.24 GFLOP on mma, 0.0065 ms at 495 TFLOP/s; the fragment splits run on
+// the CUDA cores beside it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -101,13 +125,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 32;           // rows of a query or key tile
-constexpr int kLdP = kTile + 1;     // leading dimension of a 32 x 32 tile
 constexpr int kMaxDevices = 64;
 // torch.softmax (CUDA, fp32 rows) sums a row of up to 2048 in one warp's lane
-// order and a longer one over a block of 1024 threads; the bf16 kernels
-// follow it, so that P rounds as in the plain version
+// order and a longer one over a block of 1024 threads; the bf16 forward
+// follows it, so that P rounds as in the plain version
 constexpr int kWarpSoftmaxMax = 2048;
 
 template <typename Kernel>
@@ -122,472 +143,17 @@ cudaError_t allow_smem(Kernel* kernel, size_t smem, int device,
   return e;
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-// the probability as the PV product takes it: rounded to the input dtype
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// rows [row0, row0 + 32) of one (batch, head) of a strided tensor into an fp32
-// tile with leading dimension HDP + 4; rows >= s and columns >= hd are 0
-template <typename T, int HDP>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
-                                          Strides st, int b, int h, int row0, int s,
-                                          int hd) {
-  const T* base = src + b * st.b + h * st.h;
-  for (int i = threadIdx.x; i < kTile * HDP; i += kThreads) {
-    const int r = i / HDP, c = i - r * HDP, row = row0 + r;
-    dst[r * (HDP + 4) + c] = (row < s && c < hd) ? to_f(base[row * st.s + c]) : 0.f;
-  }
-}
-
-// x[i][j] = dot(a row ty + 16 i, b row tx + 16 j): FMA chains over hd in
-// order (the zero padding past hd, up to a multiple of 4, adds exact zeros)
-template <int LD>
-__device__ __forceinline__ void dot_tile(float (&x)[2][2], const float* a, const float* b,
-                                         int hd, int ty, int tx) {
-  x[0][0] = x[0][1] = x[1][0] = x[1][1] = 0.f;
-  for (int t = 0; t < hd; t += 4) {
-    const float4 a0 = *reinterpret_cast<const float4*>(a + ty * LD + t);
-    const float4 a1 = *reinterpret_cast<const float4*>(a + (ty + 16) * LD + t);
-    const float4 b0 = *reinterpret_cast<const float4*>(b + tx * LD + t);
-    const float4 b1 = *reinterpret_cast<const float4*>(b + (tx + 16) * LD + t);
-    const float av[2][4] = {{a0.x, a0.y, a0.z, a0.w}, {a1.x, a1.y, a1.z, a1.w}};
-    const float bv[2][4] = {{b0.x, b0.y, b0.z, b0.w}, {b1.x, b1.y, b1.z, b1.w}};
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) x[i][j] = fmaf(av[i][e], bv[j][e], x[i][j]);
-  }
-}
-
-// The logits of query rows q0 + ty + 16 i against key columns k0 + tx + 16 j:
-// dot * scale + mask + key-padding bias; key columns >= s are -inf
-template <int LD>
-__device__ __forceinline__ void logits(float (&x)[2][2], const float* sq, const float* sk,
-                                       int hd, int q0, int k0, int s, int b, float scale,
-                                       const float* __restrict__ mask,
-                                       const float* __restrict__ kpm, int ty, int tx) {
-  dot_tile<LD>(x, sq, sk, hd, ty, tx);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int r = q0 + ty + 16 * i, c = k0 + tx + 16 * j;
-      float lg = __fmul_rn(x[i][j], scale);
-      if (c >= s) {
-        lg = -INFINITY;
-      } else {
-        if (mask != nullptr && r < s) lg = __fadd_rn(lg, __ldg(mask + (long long)r * s + c));
-        if (kpm != nullptr) lg = __fadd_rn(lg, __ldg(kpm + (long long)b * s + c));
-      }
-      x[i][j] = lg;
-    }
-}
-
-// reductions over the 16 threads (tx) that share a row: lanes of one half-warp
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// The first walk over the key blocks: the max m of each of the thread's two
-// query rows (-inf when every key is masked)
-template <typename T, int HDP>
-__device__ __forceinline__ void max_walk(float (&m)[2], const float* sq, float* sk,
-                                         const T* __restrict__ k, Strides stk, int b, int h,
-                                         int q0, int s, int hd, float scale,
-                                         const float* __restrict__ mask,
-                                         const float* __restrict__ kpm, int ty, int tx) {
-  constexpr int LD = HDP + 4;
-  m[0] = m[1] = -INFINITY;
-  for (int k0 = 0; k0 < s; k0 += kTile) {
-    __syncthreads();
-    load_rows<T, HDP>(sk, k, stk, b, h, k0, s, hd);
-    __syncthreads();
-    float x[2][2];
-    logits<LD>(x, sq, sk, hd, q0, k0, s, b, scale, mask, kpm, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) m[i] = fmaxf(m[i], fmaxf(x[i][0], x[i][1]));
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) m[i] = row_max(m[i]);
-}
-
-// A row's sum from this thread's lane partials (lanes tx and tx + 16) in
-// torch.softmax's butterfly order
-__device__ __forceinline__ float lane_total(const float (&p)[2]) {
-  return row_sum(p[0] + p[1]);
-}
-
-// A walk over the key blocks k0 = first, first + step, ...: each row's sum of
-// exp(logit - m) in torch.softmax's lane order (per lane a sequential sum,
-// then the butterfly)
-template <typename T, int HDP>
-__device__ __forceinline__ void sum_walk(float (&l)[2], const float (&m)[2], const float* sq,
-                                         float* sk, const T* __restrict__ k, Strides stk,
-                                         int b, int h, int q0, int s, int hd, float scale,
-                                         const float* __restrict__ mask,
-                                         const float* __restrict__ kpm, int ty, int tx,
-                                         int first, int step) {
-  constexpr int LD = HDP + 4;
-  float p[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  for (int k0 = first; k0 < s; k0 += step) {
-    __syncthreads();
-    load_rows<T, HDP>(sk, k, stk, b, h, k0, s, hd);
-    __syncthreads();
-    float x[2][2];
-    logits<LD>(x, sq, sk, hd, q0, k0, s, b, scale, mask, kpm, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) p[i][j] += expf(x[i][j] - m[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) l[i] = lane_total(p[i]);
-}
-
-// ------------------------------------------------------------------ forward
-
-template <typename T, int HDP>
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_tiled(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ mask,
-                    const float* __restrict__ kpm, T* __restrict__ out, Strides stq,
-                    Strides stk, Strides stv, Strides sto, int heads, int s, int hd,
-                    int tiles, float scale) {
-  constexpr int LD = HDP + 4, NJ = HDP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* sq = smem;
-  float* sk = sq + kTile * LD;
-  float* sv = sk + kTile * LD;
-  float* sp = sv + kTile * LD;      // 32 x 32 probabilities
-
-  const int bh = blockIdx.x / tiles, q0 = (blockIdx.x - bh * tiles) * kTile;
-  const int b = bh / heads, h = bh - b * heads;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  load_rows<T, HDP>(sq, q, stq, b, h, q0, s, hd);
-
-  float m[2];
-  max_walk<T, HDP>(m, sq, sk, k, stk, b, h, q0, s, hd, scale, mask, kpm, ty, tx);
-  // the sum walk in torch.softmax's order: its warp's lane order; in bf16
-  // past kWarpSoftmaxMax keys its block order, per w = (c mod 1024) / 32 a
-  // walk over c = 32 w + L + 1024 i whose lane sums are reduced into sp,
-  // then the 32 of them by the same butterfly (fp32 has the lane order alone)
-  float l[2];
-  if constexpr (sizeof(T) == 2) {
-    if (s > kWarpSoftmaxMax) {
-      for (int w = 0; w < 32; ++w) {
-        sum_walk<T, HDP>(l, m, sq, sk, k, stk, b, h, q0, s, hd, scale, mask, kpm, ty, tx,
-                         kTile * w, 1024);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          if (tx == 0) sp[(ty + 16 * i) * kLdP + w] = l[i];
-      }
-      __syncwarp();        // a row's 32 sums were written by its own half-warp
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float pw[2] = {sp[(ty + 16 * i) * kLdP + tx], sp[(ty + 16 * i) * kLdP + tx + 16]};
-        l[i] = lane_total(pw);
-      }
-    } else {
-      sum_walk<T, HDP>(l, m, sq, sk, k, stk, b, h, q0, s, hd, scale, mask, kpm, ty, tx, 0,
-                       kTile);
-    }
-  } else {
-    sum_walk<T, HDP>(l, m, sq, sk, k, stk, b, h, q0, s, hd, scale, mask, kpm, ty, tx, 0,
-                     kTile);
-  }
-
-  float o[2][NJ];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) o[i][j] = 0.f;
-  for (int k0 = 0; k0 < s; k0 += kTile) {
-    __syncthreads();
-    load_rows<T, HDP>(sk, k, stk, b, h, k0, s, hd);
-    load_rows<T, HDP>(sv, v, stv, b, h, k0, s, hd);
-    __syncthreads();
-    float x[2][2];
-    logits<LD>(x, sq, sk, hd, q0, k0, s, b, scale, mask, kpm, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        sp[(ty + 16 * i) * kLdP + tx + 16 * j] = round_to<T>(expf(x[i][j] - m[i]) / l[i]);
-    __syncthreads();
-    // padded keys have P = 0 (or NaN in an all-masked row) and V = 0
-    for (int t = 0; t < kTile; ++t) {
-      const float p0 = sp[ty * kLdP + t], p1 = sp[(ty + 16) * kLdP + t];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float vv = sv[t * LD + tx + 16 * j];
-        o[0][j] = fmaf(p0, vv, o[0][j]);
-        o[1][j] = fmaf(p1, vv, o[1][j]);
-      }
-    }
-  }
-  T* base = out + b * sto.b + h * sto.h;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= s) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < hd) base[row * sto.s + c] = from_f<T>(o[i][j]);
-    }
-  }
-}
-
-// ----------------------------------------------------------------- backward
-
-// 1. per query tile: m, l and D = sum_j w dW into stats[0..2][bh][row]
-template <typename T, int HDP>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_stats(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ mask,
-                    const float* __restrict__ kpm, const T* __restrict__ dout,
-                    float* __restrict__ stats, Strides stq, Strides stk, Strides stv,
-                    Strides sto, int bhs, int heads, int s, int hd, int tiles, float scale) {
-  constexpr int LD = HDP + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* sq = smem;
-  float* sdo = sq + kTile * LD;
-  float* sk = sdo + kTile * LD;
-  float* sv = sk + kTile * LD;
-
-  const int bh = blockIdx.x / tiles, q0 = (blockIdx.x - bh * tiles) * kTile;
-  const int b = bh / heads, h = bh - b * heads;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  load_rows<T, HDP>(sq, q, stq, b, h, q0, s, hd);
-  load_rows<T, HDP>(sdo, dout, sto, b, h, q0, s, hd);
-
-  float m[2];
-  max_walk<T, HDP>(m, sq, sk, k, stk, b, h, q0, s, hd, scale, mask, kpm, ty, tx);
-  // the sum walk, and sum_j exp(s_ij - m) dW_ij beside it
-  float p[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, l[2], d[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < s; k0 += kTile) {
-    __syncthreads();
-    load_rows<T, HDP>(sk, k, stk, b, h, k0, s, hd);
-    load_rows<T, HDP>(sv, v, stv, b, h, k0, s, hd);
-    __syncthreads();
-    float x[2][2], g[2][2];
-    logits<LD>(x, sq, sk, hd, q0, k0, s, b, scale, mask, kpm, ty, tx);
-    dot_tile<LD>(g, sdo, sv, hd, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float e = expf(x[i][j] - m[i]);
-        p[i][j] += e;
-        d[i] = fmaf(e, g[i][j], d[i]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] = lane_total(p[i]);
-    d[i] = row_sum(d[i]) / l[i];
-    const int row = q0 + ty + 16 * i;
-    if (tx == 0 && row < s) {
-      const long long at = (long long)bh * s + row;
-      stats[at] = m[i];
-      stats[(long long)bhs * s + at] = l[i];
-      stats[2LL * bhs * s + at] = d[i];
-    }
-  }
-}
-
-// w and dlog = w (dW - D) of query rows q0.. against key columns k0.. into the
-// 32 x 32 tiles sw and sg (rows = query); padded query rows give 0
-template <int LD>
-__device__ __forceinline__ void grad_tiles(float* sw, float* sg, const float* sq,
-                                           const float* sdo, const float* sk, const float* sv,
-                                           const float (&m)[2], const float (&l)[2],
-                                           const float (&d)[2], int hd, int q0, int k0, int s,
-                                           int b, float scale, const float* __restrict__ mask,
-                                           const float* __restrict__ kpm, int ty, int tx) {
-  float x[2][2], g[2][2];
-  logits<LD>(x, sq, sk, hd, q0, k0, s, b, scale, mask, kpm, ty, tx);
-  dot_tile<LD>(g, sdo, sv, hd, ty, tx);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool real = q0 + ty + 16 * i < s;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float w = real ? expf(x[i][j] - m[i]) / l[i] : 0.f;
-      sw[(ty + 16 * i) * kLdP + tx + 16 * j] = w;
-      sg[(ty + 16 * i) * kLdP + tx + 16 * j] = w * (g[i][j] - d[i]);
-    }
-  }
-}
-
-// 2. per key tile: dV = sum over query rows of w^T dO, dK = scale sum dlog^T Q
-template <typename T, int HDP>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ mask,
-                   const float* __restrict__ kpm, const T* __restrict__ dout,
-                   const float* __restrict__ stats, T* __restrict__ dk, T* __restrict__ dv,
-                   Strides stq, Strides stk, Strides stv, Strides sto, Strides sdk,
-                   Strides sdv, int bhs, int heads, int s, int hd, int tiles, float scale) {
-  constexpr int LD = HDP + 4, NJ = HDP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* sk = smem;
-  float* sv = sk + kTile * LD;
-  float* sq = sv + kTile * LD;
-  float* sdo = sq + kTile * LD;
-  float* sw = sdo + kTile * LD;
-  float* sg = sw + kTile * kLdP;
-  float* srow = sg + kTile * kLdP;   // m, l, D of the query tile's rows
-
-  const int bh = blockIdx.x / tiles, k0 = (blockIdx.x - bh * tiles) * kTile;
-  const int b = bh / heads, h = bh - b * heads;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  load_rows<T, HDP>(sk, k, stk, b, h, k0, s, hd);
-  load_rows<T, HDP>(sv, v, stv, b, h, k0, s, hd);
-
-  float av[2][NJ], ak[2][NJ];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) av[i][j] = ak[i][j] = 0.f;
-  for (int q0 = 0; q0 < s; q0 += kTile) {
-    __syncthreads();
-    load_rows<T, HDP>(sq, q, stq, b, h, q0, s, hd);
-    load_rows<T, HDP>(sdo, dout, sto, b, h, q0, s, hd);
-    if (threadIdx.x < 3 * kTile) {
-      const int w = threadIdx.x / kTile, r = threadIdx.x - w * kTile, row = q0 + r;
-      srow[threadIdx.x] = row < s ? stats[(long long)w * bhs * s + (long long)bh * s + row]
-                                  : (w == 1 ? 1.f : 0.f);
-    }
-    __syncthreads();
-    const float m[2] = {srow[ty], srow[ty + 16]};
-    const float l[2] = {srow[kTile + ty], srow[kTile + ty + 16]};
-    const float d[2] = {srow[2 * kTile + ty], srow[2 * kTile + ty + 16]};
-    grad_tiles<LD>(sw, sg, sq, sdo, sk, sv, m, l, d, hd, q0, k0, s, b, scale, mask, kpm,
-                   ty, tx);
-    __syncthreads();
-    // this thread's key rows ty, ty + 16; contract over the 32 query rows
-    for (int t = 0; t < kTile; ++t) {
-      const float w0 = sw[t * kLdP + ty], w1 = sw[t * kLdP + ty + 16];
-      const float g0 = sg[t * kLdP + ty], g1 = sg[t * kLdP + ty + 16];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float dov = sdo[t * LD + tx + 16 * j], qv = sq[t * LD + tx + 16 * j];
-        av[0][j] = fmaf(w0, dov, av[0][j]);
-        av[1][j] = fmaf(w1, dov, av[1][j]);
-        ak[0][j] = fmaf(g0, qv, ak[0][j]);
-        ak[1][j] = fmaf(g1, qv, ak[1][j]);
-      }
-    }
-  }
-  T* bk = dk + b * sdk.b + h * sdk.h;
-  T* bv = dv + b * sdv.b + h * sdv.h;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= s) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < hd) {
-        bv[row * sdv.s + c] = from_f<T>(av[i][j]);
-        bk[row * sdk.s + c] = from_f<T>(ak[i][j] * scale);
-      }
-    }
-  }
-}
-
-// 3. per query tile: dQ = scale sum over key rows of dlog K
-template <typename T, int HDP>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ mask,
-                 const float* __restrict__ kpm, const T* __restrict__ dout,
-                 const float* __restrict__ stats, T* __restrict__ dq, Strides stq,
-                 Strides stk, Strides stv, Strides sto, Strides sdq, int bhs, int heads,
-                 int s, int hd, int tiles, float scale) {
-  constexpr int LD = HDP + 4, NJ = HDP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* sq = smem;
-  float* sdo = sq + kTile * LD;
-  float* sk = sdo + kTile * LD;
-  float* sv = sk + kTile * LD;
-  float* sw = sv + kTile * LD;
-  float* sg = sw + kTile * kLdP;
-
-  const int bh = blockIdx.x / tiles, q0 = (blockIdx.x - bh * tiles) * kTile;
-  const int b = bh / heads, h = bh - b * heads;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  load_rows<T, HDP>(sq, q, stq, b, h, q0, s, hd);
-  load_rows<T, HDP>(sdo, dout, sto, b, h, q0, s, hd);
-  float m[2], l[2], d[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + ty + 16 * i;
-    const long long at = (long long)bh * s + row;
-    m[i] = row < s ? stats[at] : 0.f;
-    l[i] = row < s ? stats[(long long)bhs * s + at] : 1.f;
-    d[i] = row < s ? stats[2LL * bhs * s + at] : 0.f;
-  }
-
-  float aq[2][NJ];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) aq[i][j] = 0.f;
-  for (int k0 = 0; k0 < s; k0 += kTile) {
-    __syncthreads();
-    load_rows<T, HDP>(sk, k, stk, b, h, k0, s, hd);
-    load_rows<T, HDP>(sv, v, stv, b, h, k0, s, hd);
-    __syncthreads();
-    grad_tiles<LD>(sw, sg, sq, sdo, sk, sv, m, l, d, hd, q0, k0, s, b, scale, mask, kpm,
-                   ty, tx);
-    __syncthreads();
-    for (int t = 0; t < kTile; ++t) {
-      const float g0 = sg[ty * kLdP + t], g1 = sg[(ty + 16) * kLdP + t];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float kv = sk[t * LD + tx + 16 * j];
-        aq[0][j] = fmaf(g0, kv, aq[0][j]);
-        aq[1][j] = fmaf(g1, kv, aq[1][j]);
-      }
-    }
-  }
-  T* base = dq + b * sdq.b + h * sdq.h;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= s) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < hd) base[row * sdq.s + c] = from_f<T>(aq[i][j] * scale);
-    }
-  }
-}
-
 // ------------------------------------------------- bf16 on the tensor cores
 
 constexpr int kChunk = 64;       // rows of a streamed K, V, Q or dO chunk
 constexpr int kMmaWarps = 4;     // warps of a backward block
 constexpr int kFwdTiles = 4;     // most 16-row tiles (two warps each) of a forward block
+// Past the S at which one tile's logit rows fit in shared memory: tiles of a
+// forward block, and its resident blocks an SM, each with its own slot of
+// rows in device memory (214 MB at S = 3153, hd 64, on 132 SMs)
+constexpr int kRowsTiles = 2;
+constexpr int kRowsBlocksPerSm = 4;
+constexpr int kTfFwdWarps = 8;   // warps (16-row tiles) of an fp32 forward block
 constexpr int kPieces = 3;       // bf16 pieces of W and dlog in dV, dK and dQ
 // Past this S the backward sums each 64-row chunk's products apart and adds
 // the chunk sums to the totals: an mma's fp32 sums do not round to nearest,
@@ -601,19 +167,24 @@ constexpr size_t kHalfSmem = 113 * 1024;   // each of two blocks on one SM (228 
 // reads of P V's A fragments (8 rows, 4 lanes a row) fall in distinct banks
 __host__ __device__ constexpr int logit_ld(int s) { return 16 * ((s + 15) / 16) + 8; }
 
-// The forward's shared memory: per 16-row tile (two warps) its logit rows,
-// its Q rows transposed to fp32 (hd x 16) and 48 floats through which its
-// warps trade row maxima and sums; per block one K chunk transposed to fp32
-// (hd x 64) and the bf16 tile it lands in (V's two bf16 chunks take their
-// place after the walk)
+// The forward's shared memory but its logit rows: per 16-row tile (two
+// warps) its Q rows transposed to fp32 (hd x 16) and 48 floats through which
+// its warps trade row maxima and sums; per block one K chunk transposed to
+// fp32 (hd x 64) and the bf16 tile it lands in (V's two bf16 chunks take
+// their place after the walk)
+__host__ __device__ constexpr size_t fwd_rest_smem(int hd, int tiles) {
+  return (size_t)tiles * (16 * hd * 4 + 48 * 4) + (size_t)kChunk * hd * 4 +
+         (size_t)kChunk * (hd + 8) * 2;
+}
+
+// ... and with each tile's 16 logit rows
 __host__ __device__ constexpr size_t fwd_mma_smem(int s, int hd, int tiles) {
-  return (size_t)tiles * (16 * (size_t)logit_ld(s) * 4 + 16 * hd * 4 + 48 * 4) +
-         (size_t)kChunk * hd * 4 + (size_t)kChunk * (hd + 8) * 2;
+  return (size_t)tiles * 16 * (size_t)logit_ld(s) * 4 + fwd_rest_smem(hd, tiles);
 }
 
 // 16-row tiles of a forward block: the most, of 4 down to 1, that leave room
 // for a second block on the SM; else 1 while one tile's rows fit; else 0
-// (the CUDA-core kernel takes s)
+// (the rows then live in device memory: tiled_fwd_mma_rows)
 int fwd_mma_tiles(int s, int hd) {
   for (int n = kFwdTiles; n >= 1; --n)
     if (fwd_mma_smem(s, hd, n) <= kHalfSmem) return n;
@@ -788,31 +359,34 @@ __device__ __forceinline__ void row_sums(float (&p)[N], float* lrow, int ls, int
   if (block_order) warp_sums(p);
 }
 
-// Forward: block blockIdx.x holds 16-row query tiles of one (batch, head),
-// per_bh blocks to it, two warps to a tile; see the file's head for the
-// design.
-template <int HD>
-__global__ void __launch_bounds__(64 * kFwdTiles, 2)
-tiled_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const float* __restrict__ mask,
-              const float* __restrict__ kpm, bf16* __restrict__ out, Strides stq,
-              Strides stk, Strides stv, Strides sto, int heads, int s, int per_bh,
-              float scale) {
+// The forward of work item `item` (with ROWS; else blockIdx.x): 16-row query
+// tiles of one (batch, head), per_bh items to it, two warps to a tile, each
+// tile's logit rows in shared memory or, with ROWS, in block blockIdx.x's
+// slot of rows; see the file's head for the design.
+template <int HD, bool ROWS>
+__device__ __forceinline__ void fwd_mma_item(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ mask, const float* __restrict__ kpm, bf16* __restrict__ out,
+    Strides stq, Strides stk, Strides stv, Strides sto, int heads, int s, int per_bh,
+    float scale, unsigned item, float* rows) {
   constexpr int LD = HD + 8, CH = HD / 8, NO = HD / 16;   // NO: a warp's output n-tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int np = blockDim.x >> 6, ls = logit_ld(s), kc = (s + 15) / 16, cols = 16 * kc;
-  float* slog = reinterpret_cast<float*>(smem_raw);
-  float* sqt = slog + (size_t)np * 16 * ls;   // per tile Q^T, hd x 16
+  float* slog = ROWS ? rows + (size_t)blockIdx.x * np * 16 * ls
+                     : reinterpret_cast<float*>(smem_raw);
+  float* sqt = ROWS ? reinterpret_cast<float*>(smem_raw)
+                    : slog + (size_t)np * 16 * ls;   // per tile Q^T, hd x 16
   float* sred = sqt + np * 16 * HD;           // per tile: two warps' row maxima, row sums
   float* skt = sred + np * 48;                // K^T, hd x 64
   bf16* skb = reinterpret_cast<bf16*>(skt + kChunk * HD);   // where a K chunk lands
   bf16* sv = reinterpret_cast<bf16*>(skt);    // V's two chunks, after the walk
 
-  const int bh = blockIdx.x / per_bh, b = bh / heads, h = bh - b * heads;
+  const unsigned it = ROWS ? item : blockIdx.x;
+  const int bh = it / per_bh, b = bh / heads, h = bh - b * heads;
   const int tid = threadIdx.x, nth = blockDim.x, lane = tid & 31, pl = tid & 63;
   const int pair = tid >> 6, half = (tid >> 5) & 1;
   const int g = lane >> 2, t = lane & 3, rg = lane >> 3, cg = lane & 7;
-  const int tile = (blockIdx.x - bh * per_bh) * np + pair, row0 = tile * 16;
+  const int tile = (it - bh * per_bh) * np + pair, row0 = tile * 16;
   const bool active = tile < kc;             // uniform over the tile's two warps
   float* lrow = slog + (size_t)pair * 16 * ls;
   float* qt = sqt + pair * 16 * HD;
@@ -959,6 +533,35 @@ tiled_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (row < s)
       *reinterpret_cast<uint4*>(ob + row * sto.s + c * 8) =
           *reinterpret_cast<const uint4*>(stage + r * LD + c * 8);
+  }
+}
+
+// Forward, logit rows in shared memory: one item a block
+template <int HD>
+__global__ void __launch_bounds__(64 * kFwdTiles, 2)
+tiled_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const float* __restrict__ mask,
+              const float* __restrict__ kpm, bf16* __restrict__ out, Strides stq,
+              Strides stk, Strides stv, Strides sto, int heads, int s, int per_bh,
+              float scale) {
+  fwd_mma_item<HD, false>(q, k, v, mask, kpm, out, stq, stk, stv, sto, heads, s, per_bh,
+                          scale, 0, nullptr);
+}
+
+// Forward, logit rows in device memory (S past what shared memory holds): a
+// persistent grid over the items, block i's rows in slot i of rows
+// (kRowsTiles tiles of 16 rows of logit_ld(s) floats)
+template <int HD>
+__global__ void __launch_bounds__(64 * kRowsTiles, 2 * kFwdTiles / kRowsTiles)
+tiled_fwd_mma_rows(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const float* __restrict__ mask,
+                   const float* __restrict__ kpm, bf16* __restrict__ out, Strides stq,
+                   Strides stk, Strides stv, Strides sto, int heads, int s, int per_bh,
+                   int items, float* __restrict__ rows, float scale) {
+  for (unsigned item = blockIdx.x; item < (unsigned)items; item += gridDim.x) {
+    __syncthreads();   // the last item's stage and sums are read
+    fwd_mma_item<HD, true>(q, k, v, mask, kpm, out, stq, stk, stv, sto, heads, s, per_bh,
+                           scale, item, rows);
   }
 }
 
@@ -1333,10 +936,638 @@ tiled_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (active) store_tile<HD>(dq + b * sdq.b + h * sdq.h, sdq.s, acc, scale, my, row0, s, lane);
 }
 
-// --------------------------------------------------------------- launchers
+// ------------------------------------------- fp32 on the tensor cores, 3xTF32
 
-constexpr size_t tile_bytes(int hdp) { return (size_t)kTile * (hdp + 4) * sizeof(float); }
-constexpr size_t sq_bytes() { return (size_t)kTile * kLdP * sizeof(float); }
+// x rounded to tf32 (10 explicit mantissa bits), to nearest with ties away
+// from zero, as the bit pattern mma takes
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + (what lo drops), hi = cvt.rna.tf32(x) and
+// lo = cvt.rna.tf32(x - hi); x - hi is exact in fp32. hi is formed on the
+// integer units, (bits + 0x1000) with the low 13 bits cleared, which is
+// cvt.rna's value for every finite x at a fraction of the conversion's
+// cost; a NaN x gives hi = -0 there, and lo keeps the NaN.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a (16 x 8, row) * b (8 x 8, col), tf32 products, fp32 sums; not
+// volatile, so that independent products interleave
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: a_lo b_hi, a_hi b_lo, a_hi b_hi, in that order. With
+// SWAP the two cross terms trade places, so that S^T = K Q^T (a = K) chains
+// the same three products in the same order as S = Q K^T (a = Q).
+template <bool SWAP>
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  if (SWAP) {
+    mma_tf32(c, ah, bl[0], bl[1]);
+    mma_tf32(c, al, bh[0], bh[1]);
+  } else {
+    mma_tf32(c, al, bh[0], bh[1]);
+    mma_tf32(c, ah, bl[0], bl[1]);
+  }
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+// The A operand (16 x 8) at rows 0.., columns 0.. of an fp32 tile (leading
+// dimension LD), split
+template <int LD>
+__device__ __forceinline__ void a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* tile,
+                                       int g, int t) {
+  split_tf32(tile[g * LD + t], hi[0], lo[0]);
+  split_tf32(tile[(g + 8) * LD + t], hi[1], lo[1]);
+  split_tf32(tile[g * LD + t + 4], hi[2], lo[2]);
+  split_tf32(tile[(g + 8) * LD + t + 4], hi[3], lo[3]);
+}
+
+// The A operand from a 16 x 8 accumulator tile x (rows g, g + 8, columns
+// 2t, 2t + 1), split, with k slot t holding column 2t and slot t + 4 column
+// 2t + 1: the accumulator layout is then the operand layout, and the B side
+// takes its k rows in the same slots (b_krows_tf32)
+__device__ __forceinline__ void a_acc_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                           const float (&x)[4]) {
+  split_tf32(x[0], hi[0], lo[0]);
+  split_tf32(x[2], hi[1], lo[1]);
+  split_tf32(x[1], hi[2], lo[2]);
+  split_tf32(x[3], hi[3], lo[3]);
+}
+
+// The B operand (k x n = 8 x 8) from 8 rows n of a tile whose rows run
+// along k (B = tile^T: K for S = Q K^T), split
+template <int LD>
+__device__ __forceinline__ void b_rows_tf32(uint32_t (&hi)[2], uint32_t (&lo)[2],
+                                            const float* tile, int g, int t) {
+  split_tf32(tile[g * LD + t], hi[0], lo[0]);
+  split_tf32(tile[g * LD + t + 4], hi[1], lo[1]);
+}
+
+// The B operand from 8 k rows of a tile whose rows run along n (V for P V),
+// k slot t holding row 2t and slot t + 4 row 2t + 1 (a_acc_tf32's slots),
+// split
+template <int LD>
+__device__ __forceinline__ void b_krows_tf32(uint32_t (&hi)[2], uint32_t (&lo)[2],
+                                             const float* tile, int g, int t) {
+  split_tf32(tile[2 * t * LD + g], hi[0], lo[0]);
+  split_tf32(tile[(2 * t + 1) * LD + g], hi[1], lo[1]);
+}
+
+// x[j] = the 16 rows of a (the A operand, k = hd) against rows 8 j .. 8 j + 7
+// of b, and y[j] likewise of c against d: S and dW (or S^T and dW^T, SWAP),
+// in 3xTF32 chained over hd in order from 0. Straight-line code with no
+// guard, so that the products of the 2 NT independent sums interleave.
+template <int HD, int NT, bool SWAP>
+__device__ __forceinline__ void rows_dot2_tf32(float (&x)[NT][4], float (&y)[NT][4],
+                                               const float* a, const float* b, const float* c,
+                                               const float* d, int g, int t) {
+  constexpr int LD = HD + 4;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    uint32_t ah[4], al[4], ch[4], cl[4];
+    a_tf32<LD>(ah, al, a + 8 * kk, g, t);
+    a_tf32<LD>(ch, cl, c + 8 * kk, g, t);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t bh[2], bl[2], dh[2], dl[2];
+      b_rows_tf32<LD>(bh, bl, b + 8 * j * LD + 8 * kk, g, t);
+      b_rows_tf32<LD>(dh, dl, d + 8 * j * LD + 8 * kk, g, t);
+      mma3<SWAP>(x[j], ah, al, bh, bl);
+      mma3<SWAP>(y[j], ch, cl, dh, dl);
+    }
+  }
+}
+
+// x[j] = S alone, as rows_dot2_tf32 forms it
+template <int HD, int NT>
+__device__ __forceinline__ void rows_dot_tf32(float (&x)[NT][4], const float* a, const float* b,
+                                              int g, int t) {
+  constexpr int LD = HD + 4;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    a_tf32<LD>(ah, al, a + 8 * kk, g, t);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t bh[2], bl[2];
+      b_rows_tf32<LD>(bh, bl, b + 8 * j * LD + 8 * kk, g, t);
+      mma3<false>(x[j], ah, al, bh, bl);
+    }
+  }
+}
+
+// acc (16 rows x HD) += X B for a 16 x 8 slice X of an accumulator tile
+// (a_acc_tf32) and the 8 k rows of b (b_krows_tf32): each n-tile's three mma
+// sums formed from zero, then added to acc in rounded fp32
+template <int HD>
+__device__ __forceinline__ void acc_product_tf32(float (&acc)[HD / 8][4], const float (&x)[4],
+                                                 const float* b, int g, int t) {
+  constexpr int LD = HD + 4;
+  uint32_t xh[4], xl[4];
+  a_acc_tf32(xh, xl, x);
+#pragma unroll
+  for (int nn = 0; nn < HD / 8; ++nn) {
+    uint32_t bh[2], bl[2];
+    b_krows_tf32<LD>(bh, bl, b + 8 * nn, g, t);
+    float p[4] = {0.f, 0.f, 0.f, 0.f};
+    mma3<false>(p, xh, xl, bh, bl);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nn][e] += p[e];
+  }
+}
+
+// rows [row0, row0 + rows) of one (batch, head) of a strided fp32 tensor
+// (base at the (batch, head)) into a tile with leading dimension HD + 4, by
+// cp.async; rows >= s and columns >= hd are zero-filled. 16-byte copies when
+// hd is a multiple of 4 (rows then start on 16 bytes: ops/attention.py:
+// kernel_strides), else 4-byte ones
+template <int HD>
+__device__ __forceinline__ void load_f32_async(float* dst, const float* base, long long st_s,
+                                               int row0, int rows, int s, int hd, int tid,
+                                               int nthreads) {
+  constexpr int LD = HD + 4;
+  if ((hd & 3) == 0) {
+    constexpr int CH = HD / 4;
+    for (int i = tid; i < rows * CH; i += nthreads) {
+      const int r = i / CH, c = 4 * (i - r * CH), row = row0 + r;
+      const bool ok = row < s && c < hd;
+      cp_async16(dst + r * LD + c, ok ? base + row * st_s + c : base, ok);
+    }
+  } else {
+    for (int i = tid; i < rows * HD; i += nthreads) {
+      const int r = i / HD, c = i - r * HD, row = row0 + r;
+      const bool ok = row < s && c < hd;
+      cp_async4(dst + r * LD + c, ok ? base + row * st_s + c : base, ok);
+    }
+  }
+}
+
+// A warp's 16 x HD fp32 accumulators (times mul) into rows row0.. (< s),
+// columns < hd, of dst (at the (batch, head))
+template <int HD>
+__device__ __forceinline__ void store_f32(float* dst, long long st_s,
+                                          const float (&acc)[HD / 8][4], const float (&mul)[2],
+                                          int row0, int s, int hd, int g, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= s) continue;
+#pragma unroll
+    for (int nn = 0; nn < HD / 8; ++nn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * nn + 2 * t + e;
+        if (c < hd) dst[row * st_s + c] = acc[nn][2 * r + e] * mul[r];
+      }
+  }
+}
+
+// the logits of the warp's rows row0 + g (+ 8) against keys k0 + 8 j + 2 t
+// (+ 1) in place of the dots x, and each row's max over them and m
+template <int N>
+__device__ __forceinline__ void chunk_logits(float (&x)[N][4], float (&mx)[2],
+                                             const float (&m)[2], int row0, int k0, int s,
+                                             int b, float scale, const float* __restrict__ mask,
+                                             const float* __restrict__ kpm, int g, int t) {
+  mx[0] = m[0];
+  mx[1] = m[1];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[j][e] = logit_at(x[j][e], row0 + g + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1), s, b,
+                           scale, mask, kpm);
+        mx[e >> 1] = fmaxf(mx[e >> 1], x[j][e]);
+      }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {   // over the quad that shares the row
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+}
+
+// One key chunk of the forward (N n-tiles of 8 keys from k0: 8, or 2 for a
+// last chunk of at most 16 keys): S on mma, the logits, the online softmax's
+// rescale, then P V added to o, P unnormalised
+template <int HD, int N>
+__device__ __forceinline__ void fwd_chunk_tf32(float (&o)[HD / 8][4], float (&m)[2],
+                                               float (&l)[2], const float* myq, const float* sk,
+                                               const float* sv, int row0, int k0, int s, int b,
+                                               float scale, const float* __restrict__ mask,
+                                               const float* __restrict__ kpm, int g, int t) {
+  constexpr int LD = HD + 4;
+  float x[N][4], mx[2], mu[2];
+  rows_dot_tf32<HD, N>(x, myq, sk, g, t);
+  chunk_logits<N>(x, mx, m, row0, k0, s, b, scale, mask, kpm, g, t);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {   // rescale to the new max (-inf: nothing yet)
+    mu[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+    const float rs = expf(m[r] - mu[r]);
+    l[r] *= rs;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[j][2 * r] *= rs;
+      o[j][2 * r + 1] *= rs;
+    }
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[j][e] = expf(x[j][e] - mu[e >> 1]);
+      l[e >> 1] += x[j][e];
+    }
+    acc_product_tf32<HD>(o, x[j], sv + 8 * j * LD, g, t);   // P V, P unnormalised
+  }
+}
+
+// the n-tiles of 8 keys a chunk from k0 needs: 8, or 2 for a last chunk of
+// at most 16 keys (keys past s give -inf logits and zero rows)
+__device__ __forceinline__ bool whole_chunk(int s, int k0) { return s - k0 > 16; }
+
+// Forward: block blockIdx.x holds 128 query rows of one (batch, head),
+// per_bh blocks to it, a warp to each 16-row tile; one walk over the key
+// chunks (see the file's head)
+template <int HD>
+__global__ void __launch_bounds__(32 * kTfFwdWarps, HD == 128 ? 1 : 2)
+tiled_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ mask,
+               const float* __restrict__ kpm, float* __restrict__ out, Strides stq,
+               Strides stk, Strides stv, Strides sto, int heads, int s, int hd, int per_bh,
+               float scale) {
+  constexpr int LD = HD + 4, NO = HD / 8, ROWS = kTfFwdWarps * 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sq = reinterpret_cast<float*>(smem_raw);   // the block's Q rows
+  float* sbuf = sq + ROWS * LD;                       // two chunks of (K, V)
+  const int bh = blockIdx.x / per_bh, b = bh / heads, h = bh - b * heads;
+  const int tid = threadIdx.x, nth = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int blk0 = (blockIdx.x - bh * per_bh) * ROWS, row0 = blk0 + warp * 16;
+  const bool active = row0 < s;
+  const float* kbase = k + b * stk.b + h * stk.h;
+  const float* vbase = v + b * stv.b + h * stv.h;
+  const int chunks = (s + kChunk - 1) / kChunk;
+  auto fetch = [&](int n) {
+    if (n < chunks) {
+      float* buf = sbuf + (n & 1) * 2 * kChunk * LD;
+      load_f32_async<HD>(buf, kbase, stk.s, n * kChunk, kChunk, s, hd, tid, nth);
+      load_f32_async<HD>(buf + kChunk * LD, vbase, stv.s, n * kChunk, kChunk, s, hd, tid, nth);
+    }
+    cp_async_commit();
+  };
+  load_f32_async<HD>(sq, q + b * stq.b + h * stq.h, stq.s, blk0, ROWS, s, hd, tid,
+                     nth);   // joins chunk 0's group
+  fetch(0);
+  fetch(1);
+
+  const float* myq = sq + warp * 16 * LD;
+  float o[NO][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int n = 0; n < chunks; ++n) {
+    cp_async_wait_group<1>();
+    __syncthreads();
+    if (active) {
+      const float* sk = sbuf + (n & 1) * 2 * kChunk * LD;
+      const float* sv = sk + kChunk * LD;
+      const int k0 = n * kChunk;
+      if (whole_chunk(s, k0))
+        fwd_chunk_tf32<HD, kChunk / 8>(o, m, l, myq, sk, sv, row0, k0, s, b, scale, mask, kpm,
+                                       g, t);
+      else
+        fwd_chunk_tf32<HD, 2>(o, m, l, myq, sk, sv, row0, k0, s, b, scale, mask, kpm, g, t);
+    }
+    __syncthreads();
+    fetch(n + 2);
+  }
+  if (!active) return;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];   // an all-masked row: l = 0 and o = 0, so NaN
+  }
+  store_f32<HD>(out + b * sto.b + h * sto.h, sto.s, o, inv, row0, s, hd, g, t);
+}
+
+// One key chunk of backward launch 1: S and dW on mma, then per thread the
+// running max, sum and sum of exp(logit - max) dW, rescaled as the max grows
+template <int HD, int N>
+__device__ __forceinline__ void stats_chunk_tf32(float (&m)[2], float (&l)[2], float (&d)[2],
+                                                 const float* myq, const float* mydo,
+                                                 const float* sk, const float* sv, int row0,
+                                                 int k0, int s, int b, float scale,
+                                                 const float* __restrict__ mask,
+                                                 const float* __restrict__ kpm, int g, int t) {
+  float x[N][4], y[N][4], mx[2], mu[2];
+  rows_dot2_tf32<HD, N, false>(x, y, myq, sk, mydo, sv, g, t);
+  chunk_logits<N>(x, mx, m, row0, k0, s, b, scale, mask, kpm, g, t);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mu[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+    const float rs = expf(m[r] - mu[r]);
+    l[r] *= rs;
+    d[r] *= rs;
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float ex = expf(x[j][e] - mu[e >> 1]);
+      l[e >> 1] += ex;
+      d[e >> 1] = fmaf(ex, y[j][e], d[e >> 1]);
+    }
+}
+
+// Backward 1: per query tile, one walk over K and V: S and dW on mma, and
+// per thread, for each of its two rows, the running max, the sum of
+// exp(logit - max) and of exp(logit - max) dW, rescaled as the max grows
+// (the max is the row's, taken over the quad each chunk). Into the scratch
+// go m, l, 1 / l and D = (sum_j exp(logit - m) dW) / l, as in bf16.
+template <int HD>
+__global__ void __launch_bounds__(32 * kMmaWarps)
+tiled_bwd_stats_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ mask,
+                     const float* __restrict__ kpm, const float* __restrict__ dout,
+                     float* __restrict__ stats, Strides stq, Strides stk, Strides stv,
+                     Strides sto, int bhs, int heads, int s, int hd, int per_bh, float scale) {
+  constexpr int LD = HD + 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sq = reinterpret_cast<float*>(smem_raw);   // the block's 64 Q rows, then dO's
+  float* sdo = sq + kMmaWarps * 16 * LD;
+  float* sbuf = sdo + kMmaWarps * 16 * LD;            // two chunks of (K, V)
+  const int bh = blockIdx.x / per_bh, b = bh / heads, h = bh - b * heads;
+  const int tid = threadIdx.x, nth = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int blk0 = (blockIdx.x - bh * per_bh) * kMmaWarps * 16, row0 = blk0 + warp * 16;
+  const bool active = row0 < s;
+  const float* kbase = k + b * stk.b + h * stk.h;
+  const float* vbase = v + b * stv.b + h * stv.h;
+  const int chunks = (s + kChunk - 1) / kChunk;
+  auto fetch = [&](int n) {
+    if (n < chunks) {
+      float* buf = sbuf + (n & 1) * 2 * kChunk * LD;
+      load_f32_async<HD>(buf, kbase, stk.s, n * kChunk, kChunk, s, hd, tid, nth);
+      load_f32_async<HD>(buf + kChunk * LD, vbase, stv.s, n * kChunk, kChunk, s, hd, tid, nth);
+    }
+    cp_async_commit();
+  };
+  load_f32_async<HD>(sq, q + b * stq.b + h * stq.h, stq.s, blk0, kMmaWarps * 16, s, hd, tid, nth);
+  load_f32_async<HD>(sdo, dout + b * sto.b + h * sto.h, sto.s, blk0, kMmaWarps * 16, s, hd, tid,
+                     nth);
+  fetch(0);
+  fetch(1);
+
+  const float* myq = sq + warp * 16 * LD;
+  const float* mydo = sdo + warp * 16 * LD;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
+  for (int n = 0; n < chunks; ++n) {
+    cp_async_wait_group<1>();
+    __syncthreads();
+    if (active) {
+      const float* sk = sbuf + (n & 1) * 2 * kChunk * LD;
+      const float* sv = sk + kChunk * LD;
+      const int k0 = n * kChunk;
+      if (whole_chunk(s, k0))
+        stats_chunk_tf32<HD, kChunk / 8>(m, l, d, myq, mydo, sk, sv, row0, k0, s, b, scale,
+                                         mask, kpm, g, t);
+      else
+        stats_chunk_tf32<HD, 2>(m, l, d, myq, mydo, sk, sv, row0, k0, s, b, scale, mask, kpm,
+                                g, t);
+    }
+    __syncthreads();
+    fetch(n + 2);
+  }
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {   // m is the row's already: the quad's sums add
+    float lt = l[r], dt = d[r];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    dt += __shfl_xor_sync(0xffffffffu, dt, 1);
+    dt += __shfl_xor_sync(0xffffffffu, dt, 2);
+    const int row = row0 + g + 8 * r;
+    if (t == 0 && row < s) {
+      const long long at = (long long)bh * s + row, plane = (long long)bhs * s;
+      stats[at] = m[r];
+      stats[plane + at] = lt;
+      stats[2 * plane + at] = __frcp_rn(lt);
+      stats[3 * plane + at] = dt / lt;
+    }
+  }
+}
+
+// Backward 2: per key tile (the warp's 16 keys as the A operand), over the
+// query chunks, 32 queries at a time: S^T = K Q^T and dW^T = V dO^T (the
+// cross terms swapped), w and dlog in place, then dV += W^T dO and
+// dK += dlog^T Q
+template <int HD>
+__global__ void __launch_bounds__(32 * kMmaWarps)
+tiled_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ mask,
+                    const float* __restrict__ kpm, const float* __restrict__ dout,
+                    const float* __restrict__ stats, float* __restrict__ dk,
+                    float* __restrict__ dv, Strides stq, Strides stk, Strides stv, Strides sto,
+                    Strides sdk, Strides sdv, int bhs, int heads, int s, int hd, int per_bh,
+                    float scale) {
+  constexpr int LD = HD + 4, NO = HD / 8, QS = 32;   // QS: queries a step
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sk = reinterpret_cast<float*>(smem_raw);   // the block's 64 K rows, then V's
+  float* sv = sk + kMmaWarps * 16 * LD;
+  float* sbuf = sv + kMmaWarps * 16 * LD;             // two chunks of (Q, dO)
+  float* sst = sbuf + 2 * 2 * kChunk * LD;            // two of (m, l, 1/l, D)
+  const int bh = blockIdx.x / per_bh, b = bh / heads, h = bh - b * heads;
+  const int tid = threadIdx.x, nth = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int blk0 = (blockIdx.x - bh * per_bh) * kMmaWarps * 16, key0 = blk0 + warp * 16;
+  const bool active = key0 < s;
+  const float* qbase = q + b * stq.b + h * stq.h;
+  const float* dbase = dout + b * sto.b + h * sto.h;
+  const int chunks = (s + kChunk - 1) / kChunk;
+  auto fetch = [&](int n) {
+    if (n < chunks) {
+      float* buf = sbuf + (n & 1) * 2 * kChunk * LD;
+      load_f32_async<HD>(buf, qbase, stq.s, n * kChunk, kChunk, s, hd, tid, nth);
+      load_f32_async<HD>(buf + kChunk * LD, dbase, sto.s, n * kChunk, kChunk, s, hd, tid, nth);
+      float* st = sst + (n & 1) * 4 * kChunk;   // m, l, 1 / l, D; 0 past s
+      for (int i = tid; i < 4 * kChunk; i += nth) {
+        const int a = i / kChunk, row = n * kChunk + i - a * kChunk;
+        const bool ok = row < s;
+        cp_async4(st + i, ok ? stats + (a * (long long)bhs + bh) * s + row : stats, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  load_f32_async<HD>(sk, k + b * stk.b + h * stk.h, stk.s, blk0, kMmaWarps * 16, s, hd, tid, nth);
+  load_f32_async<HD>(sv, v + b * stv.b + h * stv.h, stv.s, blk0, kMmaWarps * 16, s, hd, tid, nth);
+  fetch(0);
+  fetch(1);
+
+  const float* myk = sk + warp * 16 * LD;
+  const float* myv = sv + warp * 16 * LD;
+  float av[NO][4], ak[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) av[j][e] = ak[j][e] = 0.f;
+  for (int n = 0; n < chunks; ++n) {
+    cp_async_wait_group<1>();
+    __syncthreads();
+    if (active) {
+      const float* sq = sbuf + (n & 1) * 2 * kChunk * LD;
+      const float* sdo = sq + kChunk * LD;
+      const float* st = sst + (n & 1) * 4 * kChunk;
+      const int steps = (min(s - n * kChunk, kChunk) + QS - 1) / QS;
+      for (int qs = 0; qs < steps; ++qs) {
+        float x[QS / 8][4], y[QS / 8][4];   // S^T, dW^T
+        rows_dot2_tf32<HD, QS / 8, true>(x, y, myk, sq + qs * QS * LD, myv, sdo + qs * QS * LD,
+                                         g, t);
+#pragma unroll
+        for (int j = 0; j < QS / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = qs * QS + 8 * j + 2 * t + (e & 1);
+            grad_pair(x[j][e], y[j][e], n * kChunk + qc, key0 + g + 8 * (e >> 1), s, b, scale,
+                      mask, kpm, st[qc], st[kChunk + qc], st[2 * kChunk + qc],
+                      st[3 * kChunk + qc]);
+          }
+#pragma unroll
+        for (int j = 0; j < QS / 8; ++j) {
+          acc_product_tf32<HD>(av, x[j], sdo + (qs * QS + 8 * j) * LD, g, t);   // W^T dO
+          acc_product_tf32<HD>(ak, y[j], sq + (qs * QS + 8 * j) * LD, g, t);    // dlog^T Q
+        }
+      }
+    }
+    __syncthreads();
+    fetch(n + 2);
+  }
+  if (!active) return;
+  const float one[2] = {1.f, 1.f}, sc[2] = {scale, scale};
+  store_f32<HD>(dv + b * sdv.b + h * sdv.h, sdv.s, av, one, key0, s, hd, g, t);
+  store_f32<HD>(dk + b * sdk.b + h * sdk.h, sdk.s, ak, sc, key0, s, hd, g, t);
+}
+
+// One key chunk of backward launch 3: S and dW as in launch 1, w and dlog in
+// place, then dQ += dlog K
+template <int HD, int N>
+__device__ __forceinline__ void dq_chunk_tf32(float (&acc)[HD / 8][4], const float (&m)[2],
+                                              const float (&l)[2], const float (&inv)[2],
+                                              const float (&dd)[2], const float* myq,
+                                              const float* mydo, const float* sk,
+                                              const float* sv, int row0, int k0, int s, int b,
+                                              float scale, const float* __restrict__ mask,
+                                              const float* __restrict__ kpm, int g, int t) {
+  constexpr int LD = HD + 4;
+  float x[N][4], y[N][4];
+  rows_dot2_tf32<HD, N, false>(x, y, myq, sk, mydo, sv, g, t);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      grad_pair(x[j][e], y[j][e], row0 + g + 8 * r, k0 + 8 * j + 2 * t + (e & 1), s, b, scale,
+                mask, kpm, m[r], l[r], inv[r], dd[r]);
+    }
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc_product_tf32<HD>(acc, y[j], sk + 8 * j * LD, g, t);   // dlog K
+}
+
+// Backward 3: per query tile, over the key chunks: S and dW as in launch 1,
+// w and dlog in place, then dQ += dlog K
+template <int HD>
+__global__ void __launch_bounds__(32 * kMmaWarps)
+tiled_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ mask,
+                  const float* __restrict__ kpm, const float* __restrict__ dout,
+                  const float* __restrict__ stats, float* __restrict__ dq, Strides stq,
+                  Strides stk, Strides stv, Strides sto, Strides sdq, int bhs, int heads, int s,
+                  int hd, int per_bh, float scale) {
+  constexpr int LD = HD + 4, NO = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sq = reinterpret_cast<float*>(smem_raw);   // the block's 64 Q rows, then dO's
+  float* sdo = sq + kMmaWarps * 16 * LD;
+  float* sbuf = sdo + kMmaWarps * 16 * LD;            // two chunks of (K, V)
+  const int bh = blockIdx.x / per_bh, b = bh / heads, h = bh - b * heads;
+  const int tid = threadIdx.x, nth = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int blk0 = (blockIdx.x - bh * per_bh) * kMmaWarps * 16, row0 = blk0 + warp * 16;
+  const bool active = row0 < s;
+  const float* kbase = k + b * stk.b + h * stk.h;
+  const float* vbase = v + b * stv.b + h * stv.h;
+  const int chunks = (s + kChunk - 1) / kChunk;
+  auto fetch = [&](int n) {
+    if (n < chunks) {
+      float* buf = sbuf + (n & 1) * 2 * kChunk * LD;
+      load_f32_async<HD>(buf, kbase, stk.s, n * kChunk, kChunk, s, hd, tid, nth);
+      load_f32_async<HD>(buf + kChunk * LD, vbase, stv.s, n * kChunk, kChunk, s, hd, tid, nth);
+    }
+    cp_async_commit();
+  };
+  load_f32_async<HD>(sq, q + b * stq.b + h * stq.h, stq.s, blk0, kMmaWarps * 16, s, hd, tid, nth);
+  load_f32_async<HD>(sdo, dout + b * sto.b + h * sto.h, sto.s, blk0, kMmaWarps * 16, s, hd, tid,
+                     nth);
+  fetch(0);
+  fetch(1);
+
+  float m[2], l[2], inv[2], dd[2];   // 0 past s, where w is 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const long long at = (long long)bh * s + row, plane = (long long)bhs * s;
+    m[r] = row < s ? stats[at] : 0.f;
+    l[r] = row < s ? stats[plane + at] : 0.f;
+    inv[r] = row < s ? stats[2 * plane + at] : 0.f;
+    dd[r] = row < s ? stats[3 * plane + at] : 0.f;
+  }
+  const float* myq = sq + warp * 16 * LD;
+  const float* mydo = sdo + warp * 16 * LD;
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int n = 0; n < chunks; ++n) {
+    cp_async_wait_group<1>();
+    __syncthreads();
+    if (active) {
+      const float* sk = sbuf + (n & 1) * 2 * kChunk * LD;
+      const float* sv = sk + kChunk * LD;
+      const int k0 = n * kChunk;
+      if (whole_chunk(s, k0))
+        dq_chunk_tf32<HD, kChunk / 8>(acc, m, l, inv, dd, myq, mydo, sk, sv, row0, k0, s, b,
+                                      scale, mask, kpm, g, t);
+      else
+        dq_chunk_tf32<HD, 2>(acc, m, l, inv, dd, myq, mydo, sk, sv, row0, k0, s, b, scale, mask,
+                             kpm, g, t);
+    }
+    __syncthreads();
+    fetch(n + 2);
+  }
+  const float sc[2] = {scale, scale};
+  if (active) store_f32<HD>(dq + b * sdq.b + h * sdq.h, sdq.s, acc, sc, row0, s, hd, g, t);
+}
+
+// --------------------------------------------------------------- launchers
 
 struct Args {
   const void *q, *k, *v, *dout;
@@ -1349,64 +1580,71 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int HDP>
-cudaError_t launch_fwd(const Args& a) {
+// blocks of `warps` 16-row tiles over each (batch, head)
+int tf32_per_bh(int s, int warps) { return ((s + 15) / 16 + warps - 1) / warps; }
+
+// The fp32 kernels' shared memory: `rows` tiles of 64 fp32 rows (hd + 4
+// words) and, with stats, two chunks of (m, l, 1 / l, D)
+constexpr size_t tf32_smem(int hd, int rows, bool stats) {
+  return (size_t)rows * kChunk * (hd + 4) * 4 + (stats ? (size_t)2 * 4 * kChunk * 4 : 0);
+}
+
+template <int HD>
+cudaError_t launch_fwd_tf32(const Args& a) {
   static size_t configured[kMaxDevices] = {};
-  const int tiles = (a.s + kTile - 1) / kTile;
-  const size_t smem = 3 * tile_bytes(HDP) + sq_bytes();
-  cudaError_t e = allow_smem(attention_fwd_tiled<T, HDP>, smem, a.device, configured);
+  const int per_bh = tf32_per_bh(a.s, kTfFwdWarps);
+  // 16 kTfFwdWarps Q rows, two chunks of (K, V)
+  const size_t smem = tf32_smem(HD, kTfFwdWarps / 4 + 4, false);
+  cudaError_t e = allow_smem(tiled_fwd_tf32<HD>, smem, a.device, configured);
   if (e != cudaSuccess) return e;
-  attention_fwd_tiled<T, HDP><<<a.bh * tiles, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.mask, a.kpm, static_cast<T*>(a.out), a.st[0], a.st[1], a.st[2], a.st[3], a.heads,
-      a.s, a.hd, tiles, a.scale);
+  tiled_fwd_tf32<HD><<<a.bh * per_bh, 32 * kTfFwdWarps, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.mask, a.kpm, static_cast<float*>(a.out), a.st[0],
+      a.st[1], a.st[2], a.st[3], a.heads, a.s, a.hd, per_bh, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HDP>
-cudaError_t launch_bwd(const Args& a) {
+template <int HD>
+cudaError_t launch_bwd_tf32(const Args& a) {
   static size_t configured[3][kMaxDevices] = {};
-  const int tiles = (a.s + kTile - 1) / kTile;
-  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k);
-  const T *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
-  const size_t s1 = 4 * tile_bytes(HDP);
-  cudaError_t e = allow_smem(attention_bwd_stats<T, HDP>, s1, a.device, configured[0]);
+  const int per_bh = tf32_per_bh(a.s, kMmaWarps), grid = a.bh * per_bh;
+  const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k);
+  const float *v = static_cast<const float*>(a.v), *dout = static_cast<const float*>(a.dout);
+  // Q and dO (or K and V) rows, two chunks of the other pair
+  const size_t s13 = tf32_smem(HD, 6, false), s2 = tf32_smem(HD, 6, true);
+  cudaError_t e = allow_smem(tiled_bwd_stats_tf32<HD>, s13, a.device, configured[0]);
   if (e != cudaSuccess) return e;
-  attention_bwd_stats<T, HDP><<<a.bh * tiles, kThreads, s1, a.stream>>>(
+  tiled_bwd_stats_tf32<HD><<<grid, 32 * kMmaWarps, s13, a.stream>>>(
       q, k, v, a.mask, a.kpm, dout, a.stats, a.st[0], a.st[1], a.st[2], a.st[3], a.bh,
-      a.heads, a.s, a.hd, tiles, a.scale);
+      a.heads, a.s, a.hd, per_bh, a.scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const size_t s2 = 4 * tile_bytes(HDP) + 2 * sq_bytes() + 3 * kTile * sizeof(float);
-  e = allow_smem(attention_bwd_dkdv<T, HDP>, s2, a.device, configured[1]);
+  e = allow_smem(tiled_bwd_dkdv_tf32<HD>, s2, a.device, configured[1]);
   if (e != cudaSuccess) return e;
-  attention_bwd_dkdv<T, HDP><<<a.bh * tiles, kThreads, s2, a.stream>>>(
-      q, k, v, a.mask, a.kpm, dout, a.stats, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      a.st[0], a.st[1], a.st[2], a.st[3], a.st[5], a.st[6], a.bh, a.heads, a.s, a.hd, tiles,
-      a.scale);
+  tiled_bwd_dkdv_tf32<HD><<<grid, 32 * kMmaWarps, s2, a.stream>>>(
+      q, k, v, a.mask, a.kpm, dout, a.stats, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.st[0], a.st[1], a.st[2], a.st[3], a.st[5], a.st[6], a.bh,
+      a.heads, a.s, a.hd, per_bh, a.scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const size_t s3 = 4 * tile_bytes(HDP) + 2 * sq_bytes();
-  e = allow_smem(attention_bwd_dq<T, HDP>, s3, a.device, configured[2]);
+  e = allow_smem(tiled_bwd_dq_tf32<HD>, s13, a.device, configured[2]);
   if (e != cudaSuccess) return e;
-  attention_bwd_dq<T, HDP><<<a.bh * tiles, kThreads, s3, a.stream>>>(
-      q, k, v, a.mask, a.kpm, dout, a.stats, static_cast<T*>(a.dq), a.st[0], a.st[1],
-      a.st[2], a.st[3], a.st[4], a.bh, a.heads, a.s, a.hd, tiles, a.scale);
+  tiled_bwd_dq_tf32<HD><<<grid, 32 * kMmaWarps, s13, a.stream>>>(
+      q, k, v, a.mask, a.kpm, dout, a.stats, static_cast<float*>(a.dq), a.st[0], a.st[1],
+      a.st[2], a.st[3], a.st[4], a.bh, a.heads, a.s, a.hd, per_bh, a.scale);
   return cudaGetLastError();
 }
 
-// hd padded to 32, 64 or 128 (16 columns a thread-column step)
-template <typename T>
-cudaError_t dispatch_fwd(const Args& a) {
-  if (a.hd <= 32) return launch_fwd<T, 32>(a);
-  if (a.hd <= 64) return launch_fwd<T, 64>(a);
-  if (a.hd <= 128) return launch_fwd<T, 128>(a);
+// hd padded with zeros to 32, 64 or 128
+cudaError_t dispatch_fwd_tf32(const Args& a) {
+  if (a.hd <= 32) return launch_fwd_tf32<32>(a);
+  if (a.hd <= 64) return launch_fwd_tf32<64>(a);
+  if (a.hd <= 128) return launch_fwd_tf32<128>(a);
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t dispatch_bwd(const Args& a) {
-  if (a.hd <= 32) return launch_bwd<T, 32>(a);
-  if (a.hd <= 64) return launch_bwd<T, 64>(a);
-  if (a.hd <= 128) return launch_bwd<T, 128>(a);
+cudaError_t dispatch_bwd_tf32(const Args& a) {
+  if (a.hd <= 32) return launch_bwd_tf32<32>(a);
+  if (a.hd <= 64) return launch_bwd_tf32<64>(a);
+  if (a.hd <= 128) return launch_bwd_tf32<128>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -1421,6 +1659,34 @@ cudaError_t launch_fwd_mma(const Args& a, int tiles) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), a.mask, a.kpm, static_cast<bf16*>(a.out), a.st[0],
       a.st[1], a.st[2], a.st[3], a.heads, a.s, per_bh, a.scale);
+  return cudaGetLastError();
+}
+
+// the blocks of tiled_fwd_mma_rows, one slot of rows each: kRowsBlocksPerSm
+// an SM
+cudaError_t rows_slots(int device, int* slots) {
+  int sms = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *slots = sms * kRowsBlocksPerSm;
+  return e;
+}
+
+size_t rows_slot_bytes(int s) { return (size_t)kRowsTiles * 16 * logit_ld(s) * 4; }
+
+template <int HD>
+cudaError_t launch_fwd_mma_rows(const Args& a, float* rows) {
+  static size_t configured[kMaxDevices] = {};
+  int slots = 0;
+  cudaError_t e = rows_slots(a.device, &slots);
+  if (e != cudaSuccess) return e;
+  const int per_bh = ((a.s + 15) / 16 + kRowsTiles - 1) / kRowsTiles, items = a.bh * per_bh;
+  const size_t smem = fwd_rest_smem(HD, kRowsTiles);
+  e = allow_smem(tiled_fwd_mma_rows<HD>, smem, a.device, configured);
+  if (e != cudaSuccess) return e;
+  tiled_fwd_mma_rows<HD><<<min(slots, items), 64 * kRowsTiles, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.mask, a.kpm, static_cast<bf16*>(a.out), a.st[0],
+      a.st[1], a.st[2], a.st[3], a.heads, a.s, per_bh, items, rows, a.scale);
   return cudaGetLastError();
 }
 
@@ -1454,13 +1720,24 @@ cudaError_t launch_bwd_mma(const Args& a) {
 
 Strides strides_at(const long long* st, int i) { return {st[3 * i], st[3 * i + 1], st[3 * i + 2]}; }
 
+Args fwd_args(const void* q, const void* k, const void* v, const void* mask, const void* kpm,
+              void* out, const long long* strides, int b, int heads, int s, int hd,
+              float scale, int device, void* stream) {
+  Args a{q, k, v, nullptr, static_cast<const float*>(mask), static_cast<const float*>(kpm),
+         out, nullptr, nullptr, nullptr, nullptr, {}, b * heads, heads, s, hd, device, scale,
+         static_cast<cudaStream_t>(stream)};
+  for (int i = 0; i < 4; ++i) a.st[i] = strides_at(strides, i);
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
 
 // 16-row tiles of a bf16 forward block at (s, hd), 0 when one tile's logit
-// rows do not fit (the CUDA-core kernel then takes s), and that block's
-// dynamic shared memory (with 0 tiles, what one tile would need).
+// rows do not fit in shared memory (cmh_attention_tiled_fwd_rows then takes
+// s), and that block's dynamic shared memory (with 0 tiles, what one tile
+// would need).
 int cmh_attention_tiled_fwd_tiles(int s, int hd) { return fwd_mma_tiles(s, hd); }
 
 long cmh_attention_tiled_fwd_smem(int s, int hd) {
@@ -1471,7 +1748,8 @@ long cmh_attention_tiled_fwd_smem(int s, int hd) {
 // dtype 0 = fp32, 1 = bf16. q, k, v are read through element strides (b, h, s)
 // with hd contiguous; strides holds (b, h, s) of q, k, v and out. mask (s, s)
 // and kpm (b, s) are fp32 and may be null. fp32 takes hd <= 128, bf16 hd 32
-// or 64 (the CUDA-core kernel, past the logit rows' limit, hd <= 128).
+// or 64 while one tile's logit rows fit in shared memory
+// (cmh_attention_tiled_fwd_tiles > 0; past that, cmh_attention_tiled_fwd_rows).
 int cmh_attention_tiled_fwd(int dtype, const void* q, const void* k, const void* v,
                             const void* mask, const void* kpm, void* out,
                             const long long* strides, int b, int heads, int s, int hd,
@@ -1479,22 +1757,45 @@ int cmh_attention_tiled_fwd(int dtype, const void* q, const void* k, const void*
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if (b == 0 || heads == 0 || s == 0) return cudaSuccess;
-  Args a{q, k, v, nullptr, static_cast<const float*>(mask), static_cast<const float*>(kpm),
-         out, nullptr, nullptr, nullptr, nullptr, {}, b * heads, heads, s, hd, device, scale,
-         static_cast<cudaStream_t>(stream)};
-  for (int i = 0; i < 4; ++i) a.st[i] = strides_at(strides, i);
-  if (dtype != 1) return dispatch_fwd<float>(a);
+  const Args a = fwd_args(q, k, v, mask, kpm, out, strides, b, heads, s, hd, scale, device,
+                          stream);
+  if (dtype != 1) return dispatch_fwd_tf32(a);
   const int tiles = fwd_mma_tiles(s, hd);
-  if (tiles == 0) return dispatch_fwd<__nv_bfloat16>(a);   // S past the logit rows' limit
+  if (tiles == 0) return cudaErrorInvalidValue;   // the rows need device memory
   if (hd == 64) return launch_fwd_mma<64>(a, tiles);
   if (hd == 32) return launch_fwd_mma<32>(a, tiles);
   return cudaErrorInvalidValue;
 }
 
+// Bytes of device memory the bf16 forward's logit rows take at s on device
+// (one slot a resident block of cmh_attention_tiled_fwd_rows, whatever b and
+// heads), or -1 on an error.
+long cmh_attention_tiled_fwd_rows_bytes(int s, int device) {
+  int slots = 0;
+  if (rows_slots(device, &slots) != cudaSuccess) return -1;
+  return (long)(slots * rows_slot_bytes(s));
+}
+
+// The bf16 forward (hd 32 or 64) with its logit rows in `rows`, at least
+// cmh_attention_tiled_fwd_rows_bytes(s, device) bytes of device memory,
+// 16-byte aligned; at any s. The other arguments as cmh_attention_tiled_fwd's.
+int cmh_attention_tiled_fwd_rows(const void* q, const void* k, const void* v,
+                                 const void* mask, const void* kpm, void* out,
+                                 const long long* strides, int b, int heads, int s, int hd,
+                                 float scale, void* rows, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (b == 0 || heads == 0 || s == 0) return cudaSuccess;
+  const Args a = fwd_args(q, k, v, mask, kpm, out, strides, b, heads, s, hd, scale, device,
+                          stream);
+  if (hd == 64) return launch_fwd_mma_rows<64>(a, static_cast<float*>(rows));
+  if (hd == 32) return launch_fwd_mma_rows<32>(a, static_cast<float*>(rows));
+  return cudaErrorInvalidValue;
+}
+
 // strides holds (b, h, s) of q, k, v, dout, dq, dk, dv; stats is fp32 scratch
 // of 4 b heads s floats that the first launch writes: the row max, the row
-// sum and D (fp32), or the row max, the row sum, 1 / sum and D (bf16).
-// fp32 takes hd <= 128, bf16 hd 32 or 64.
+// sum, 1 / sum and D. fp32 takes hd <= 128, bf16 hd 32 or 64.
 int cmh_attention_tiled_bwd(int dtype, const void* q, const void* k, const void* v,
                             const void* mask, const void* kpm, const void* dout, void* dq,
                             void* dk, void* dv, void* stats, const long long* strides, int b,
@@ -1506,7 +1807,7 @@ int cmh_attention_tiled_bwd(int dtype, const void* q, const void* k, const void*
          nullptr, dq, dk, dv, static_cast<float*>(stats), {}, b * heads, heads, s, hd, device,
          scale, static_cast<cudaStream_t>(stream)};
   for (int i = 0; i < 7; ++i) a.st[i] = strides_at(strides, i);
-  if (dtype != 1) return dispatch_bwd<float>(a);
+  if (dtype != 1) return dispatch_bwd_tf32(a);
   const bool chunks = s > kChunkSumsS;
   if (hd == 64) return chunks ? launch_bwd_mma<64, true>(a) : launch_bwd_mma<64, false>(a);
   if (hd == 32) return chunks ? launch_bwd_mma<32, true>(a) : launch_bwd_mma<32, false>(a);

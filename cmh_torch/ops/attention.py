@@ -23,21 +23,23 @@ Two CUDA routes, chosen by S alone (``route``):
   (B, H, S, hd) tensors.
 - row tiles, ``csrc/attention_tiled.cu``, for every longer S (ViT-B/16's
   197, ViT-L/14's 257, MITH's concept tokens above 117 bits), with the same
-  in-place reads and output layout. In bf16 (hd ∈ {32, 64}) tiles of 16
-  rows (two warps each in the forward, one in the backward) and the other
-  side streams through shared memory: the forward walks the keys once, its
-  logits fp32 FMA chains written once into the tile's shared-memory rows,
-  then the softmax from those rows (in
-  ``torch.softmax``'s summation order) and P·V on the tensor cores; the
-  backward is three launches over fp32 scratch (row max, row sum, its
-  reciprocal and D = Σ w·dW; dK and dV per key tile; dQ per query tile)
-  with all five products on the tensor cores, W and dlog in three bf16
-  pieces. The forward's logit rows bound S (``tiled_fwd_tiles``: past 3152
-  at hd 64, 3376 at hd 32), beyond which it takes the CUDA-core row tiles
-  ("tiled_fma"), 32 rows a block with fp32 walks, as fp32 does at every
-  length (hd ≤ 128). Their launches are counted apart in
-  ``launches_tiled``, and those of the CUDA-core row tiles also in
-  ``launches_tiled_fma``.
+  in-place reads and output layout, every product on the tensor cores:
+  tiles of 16 rows, the other side streamed through shared memory. In bf16
+  (hd ∈ {32, 64}) the forward walks the keys once, its logits fp32 FMA
+  chains written once into the tile's logit rows, then the softmax from
+  those rows (in ``torch.softmax``'s summation order) and P·V on the tensor
+  cores; the rows live in shared memory while one tile's fit
+  (``tiled_fwd_tiles`` > 0: S ≤ 3152 at hd 64, 3376 at hd 32) and past that
+  in device memory (``_launch_rows``: one slot of rows a resident block of a
+  persistent grid, so the scratch does not grow with B·H). The backward is
+  three launches over fp32 scratch (row max, row sum, its reciprocal and
+  D = Σ w·dW; dK and dV per key tile; dQ per query tile) with all five
+  products on the tensor cores, W and dlog in three bf16 pieces. In fp32
+  (hd ≤ 128) the same shape of kernels in TF32 as 3xTF32 (each operand
+  split into two TF32 pieces, three products): a forward of one walk with
+  an online softmax, and the three backward launches. Their launches are
+  counted apart in ``launches_tiled``, and the fp32 ones also in
+  ``launches_tiled_tf32``.
 
 The scale multiplies the fp32 logits, as in the Pallas kernel. (The JAX
 einsum path, ``cmh_tpu/models/clip/model.py:226-228``, scales q in the
@@ -87,7 +89,7 @@ def tiled_fwd_tiles(s: int, hd: int) -> int:
     """16-row tiles of a bf16 row-tiled forward block (csrc/attention_tiled.cu:
     fwd_mma_tiles): the most, of 4 down to 1, that leave room for a second
     block on the SM; else 1 while one tile's logit rows fit; else 0, and the
-    CUDA-core row tiles take S."""
+    rows live in device memory (``_launch_rows``)."""
     for n in (4, 3, 2, 1):
         if tiled_fwd_smem(s, hd, n) <= _HALF_SMEM:
             return n
@@ -95,15 +97,11 @@ def tiled_fwd_tiles(s: int, hd: int) -> int:
 
 
 def route(dtype: torch.dtype, which: str, s: int, hd: int) -> str:
-    """"one_block", "tiled" or "tiled_fma": the CUDA kernel that takes
-    sequence length ``s`` (``which`` is "fwd" or "bwd"). bf16 goes to the
-    row tiles past ``BF16_MAX_S``, and its forward on to the CUDA-core row
-    tiles once one tile's logit rows outgrow shared memory; fp32 goes to the
-    (CUDA-core) row tiles once one (batch, head) outgrows shared memory."""
+    """"one_block" or "tiled": the CUDA kernels that take sequence length
+    ``s`` (``which`` is "fwd" or "bwd"). bf16 goes to the row tiles past
+    ``BF16_MAX_S``, fp32 once one (batch, head) outgrows shared memory."""
     if dtype == torch.bfloat16:
-        if s <= BF16_MAX_S[which].get(hd, 0):
-            return "one_block"
-        return "tiled_fma" if which == "fwd" and tiled_fwd_tiles(s, hd) == 0 else "tiled"
+        return "one_block" if s <= BF16_MAX_S[which].get(hd, 0) else "tiled"
     return "tiled" if one_block_smem(which, s, hd) > _MAX_SMEM else "one_block"
 
 
@@ -194,9 +192,12 @@ def _tiled_lib():
     if lib.cmh_attention_tiled_fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cmh_attention_tiled_fwd.argtypes = [i] + [p] * 7 + [i, i, i, i, f, i, p]
+        lib.cmh_attention_tiled_fwd_rows.argtypes = [p] * 7 + [i, i, i, i, f, p, i, p]
         lib.cmh_attention_tiled_bwd.argtypes = [i] + [p] * 11 + [i, i, i, i, f, i, p]
-        for name in ("fwd", "bwd", "fwd_tiles"):
+        for name in ("fwd", "fwd_rows", "bwd", "fwd_tiles"):
             getattr(lib, f"cmh_attention_tiled_{name}").restype = i
+        lib.cmh_attention_tiled_fwd_rows_bytes.argtypes = [i, i]
+        lib.cmh_attention_tiled_fwd_rows_bytes.restype = ctypes.c_long
         lib.cmh_attention_tiled_fwd_tiles.argtypes = [i, i]
         lib.cmh_attention_tiled_fwd_smem.argtypes = [i, i]
         lib.cmh_attention_tiled_fwd_smem.restype = ctypes.c_long
@@ -241,11 +242,35 @@ def _stream(t: torch.Tensor):
     return t.device.index or 0, torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launch_rows(q, k, v, scale, mask, bias) -> torch.Tensor:
+    """The bf16 row-tiled forward with its logit rows in device memory, a
+    scratch sized by the blocks the card holds (``tiled_fwd_tiles`` is 0
+    past the S at which one tile's rows fit in shared memory; this runs at
+    any S). Counts no launch: ``_launch`` does."""
+    b, h, s, hd = q.shape
+    lib = _tiled_lib()
+    (q, sq), (k, sk), (v, sv) = (kernel_strides(t) for t in (q, k, v))
+    out = kernel_output(q)
+    device, stream = _stream(q)
+    nbytes = lib.cmh_attention_tiled_fwd_rows_bytes(s, device)
+    if nbytes < 0:
+        raise RuntimeError("attention_fwd: could not size the logit rows' scratch")
+    rows = torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*sq, *sk, *sv, *out.stride()[:3])
+    rc = lib.cmh_attention_tiled_fwd_rows(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(bias), out.data_ptr(),
+        strides, b, h, s, hd, float(scale), rows.data_ptr(), device, stream)
+    _build.check(rc, "attention_fwd")
+    return out
+
+
 def _launch(q, k, v, scale, mask, bias) -> torch.Tensor:
     way, mask, bias = _prepare(q, k, v, mask, bias, "fwd")
     b, h, s, hd = q.shape
     bf16 = q.dtype == torch.bfloat16
-    if way != "one_block":
+    if way != "one_block" and bf16 and tiled_fwd_tiles(s, hd) == 0:
+        out, rc = _launch_rows(q, k, v, scale, mask, bias), 0   # checked there
+    elif way != "one_block":
         (q, sq), (k, sk), (v, sv) = (kernel_strides(t) for t in (q, k, v))
         out = kernel_output(q) if bf16 else torch.empty_like(q)
         strides = (ctypes.c_longlong * 12)(*sq, *sk, *sv, *out.stride()[:3])
@@ -269,7 +294,7 @@ def _launch(q, k, v, scale, mask, bias) -> torch.Tensor:
     fused_attention.launches += 1
     fused_attention.launches_fp32 += not bf16
     fused_attention.launches_tiled += way != "one_block"
-    fused_attention.launches_tiled_fma += way == "tiled_fma" or (way == "tiled" and not bf16)
+    fused_attention.launches_tiled_tf32 += way == "tiled" and not bf16
     return out
 
 
@@ -310,7 +335,7 @@ def _launch_bwd(q, k, v, scale, mask, bias, dout):
     attention_bwd.launches += 1
     attention_bwd.launches_fp32 += not bf16
     attention_bwd.launches_tiled += way != "one_block"
-    attention_bwd.launches_tiled_fma += way == "tiled" and not bf16
+    attention_bwd.launches_tiled_tf32 += way == "tiled" and not bf16
     return dq, dk, dv
 
 
@@ -324,8 +349,8 @@ def attention_bwd(q, k, v, scale: float, mask, bias, dout):
     """(dq, dk, dv) of the attention at (B, H, S, hd). On a CUDA tensor this
     launches the backward kernel (counted in ``attention_bwd.launches``, the
     fp32 ones also in ``launches_fp32``, the row-tiled ones in
-    ``launches_tiled`` and of those the CUDA-core ones in
-    ``launches_tiled_fma``); on a CPU tensor it runs ``attention_bwd_plain``."""
+    ``launches_tiled`` and of those the fp32 (3xTF32) ones in
+    ``launches_tiled_tf32``); on a CPU tensor it runs ``attention_bwd_plain``."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, scale, mask, bias, dout)
     return _launch_bwd(q, k, v, scale, mask, bias, dout)
@@ -356,8 +381,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     True at pads. Differentiable in q, k and v. On a CUDA tensor this
     launches the kernel (counted in ``fused_attention.launches``, an fp32
     one also in ``launches_fp32``, a row-tiled one in ``launches_tiled`` and, if
-    it ran on the CUDA cores, in ``launches_tiled_fma``); on a CPU tensor it
-    runs ``attention_plain``. Outside autograd nothing is saved
+    it is fp32 (3xTF32), in ``launches_tiled_tf32``); on a CPU tensor it runs
+    ``attention_plain``. Outside autograd nothing is saved
     for a backward."""
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
@@ -372,7 +397,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # launches, and of them those of the fp32 kernels, of the row-tiled ones and
-# of the CUDA-core row-tiled ones (fp32, and the bf16 forward past the logit
-# rows' limit)
+# of the fp32 (3xTF32) row-tiled ones
 for _fn in (fused_attention, attention_bwd):
-    _fn.launches = _fn.launches_fp32 = _fn.launches_tiled = _fn.launches_tiled_fma = 0
+    _fn.launches = _fn.launches_fp32 = _fn.launches_tiled = _fn.launches_tiled_tf32 = 0

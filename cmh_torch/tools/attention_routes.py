@@ -6,11 +6,14 @@ checkout, on the card.
 The bf16 one-block kernels (``csrc/attention.cu``) at the shapes the ViT-B/32
 towers give them: the forward at batch 256, the backward at batch 100,
 vision (12 heads, S = 50, no mask) and text (8 heads, S = 32, causal and
-key-padding masks); and the bf16 row-tiled kernels (``csrc/attention_tiled.cu``)
+key-padding masks); the bf16 row-tiled kernels (``csrc/attention_tiled.cu``)
 at the vision towers of ViT-B/16 (forward, 256 images, 12 heads, S = 197)
-and ViT-L/14 (forward and backward, batch 100, 16 heads, S = 257), and at
-ViT-L/14's in fp32 the CUDA-core row tiles both ways. All run on the head
-views of a packed projection, timed with ``chip_smoke.cuda_ms``.
+and ViT-L/14 (forward and backward, batch 100, 16 heads, S = 257) and the
+forward one past the logit rows' shared-memory limit (4, 16, 3153, 64);
+the fp32 row tiles at ViT-L/14's vision shape at batch 4 (phase 14c's) both
+ways and MITH's 128-bit concept tokens (100, 8, 128, 64) backward. All run
+on the head views of a packed projection, timed with ``chip_smoke.cuda_ms``;
+the last four shapes also time their plain versions (``... plain``).
 Each run is a process of its own that imports ``cmh_torch`` from the tree
 named; with ``--earlier DIR`` (an unpacked ``git archive`` of an earlier
 commit, inside a git-ignored directory of this repository) the runs go
@@ -30,16 +33,18 @@ import shutil
 import subprocess
 import sys
 
-# (direction, tower, batch, heads, S, masks, dtype)
-SHAPES = (("fwd", "vision", 256, 12, 50, False, "bf16"),
-          ("fwd", "text", 256, 8, 32, True, "bf16"),
-          ("bwd", "vision", 100, 12, 50, False, "bf16"),
-          ("bwd", "text", 100, 8, 32, True, "bf16"),
-          ("fwd", "ViT-B/16 vision", 256, 12, 197, False, "bf16"),
-          ("fwd", "ViT-L/14 vision", 100, 16, 257, False, "bf16"),
-          ("bwd", "ViT-L/14 vision", 100, 16, 257, False, "bf16"),
-          ("fwd", "ViT-L/14 vision", 100, 16, 257, False, "fp32"),
-          ("bwd", "ViT-L/14 vision", 100, 16, 257, False, "fp32"))
+# (direction, tower, batch, heads, S, masks, dtype, time the plain version too)
+SHAPES = (("fwd", "vision", 256, 12, 50, False, "bf16", False),
+          ("fwd", "text", 256, 8, 32, True, "bf16", False),
+          ("bwd", "vision", 100, 12, 50, False, "bf16", False),
+          ("bwd", "text", 100, 8, 32, True, "bf16", False),
+          ("fwd", "ViT-B/16 vision", 256, 12, 197, False, "bf16", False),
+          ("fwd", "ViT-L/14 vision", 100, 16, 257, False, "bf16", False),
+          ("bwd", "ViT-L/14 vision", 100, 16, 257, False, "bf16", False),
+          ("fwd", "ViT-L/14 vision", 4, 16, 257, False, "fp32", True),
+          ("bwd", "ViT-L/14 vision", 4, 16, 257, False, "fp32", True),
+          ("bwd", "MITH 128-bit concepts", 100, 8, 128, False, "fp32", True),
+          ("fwd", "past the logit rows", 4, 16, 3153, False, "bf16", True))
 
 
 def _times() -> dict:
@@ -47,11 +52,12 @@ def _times() -> dict:
     import torch
 
     from chip_smoke import cuda_ms
-    from cmh_torch.ops.attention import attention_bwd, fused_attention, kpm_bias
+    from cmh_torch.ops.attention import (attention_bwd, attention_bwd_plain, attention_plain,
+                                         fused_attention, kpm_bias)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    for which, tower, n, h, s, masks, dt in SHAPES:
+    for which, tower, n, h, s, masks, dt, plain in SHAPES:
         packed = torch.randn(n, s, 4 * h * 64, generator=gen, device="cuda")
         packed = packed.bfloat16() if dt == "bf16" else packed
         q, k, v, do = (t.reshape(n, s, h, 64).transpose(1, 2)
@@ -61,12 +67,17 @@ def _times() -> dict:
             mask = torch.full((s, s), float("-inf"), device="cuda").triu(1)
             kpm = torch.arange(s, device="cuda")[None] >= torch.randint(
                 2, s + 1, (n, 1), generator=gen, device="cuda")
+        bias = None if kpm is None else kpm_bias(kpm)
         if which == "fwd":
             fn = lambda: fused_attention(q, k, v, 0.125, mask, kpm)
+            ref = lambda: attention_plain(q, k, v, 0.125, mask, bias)
         else:
-            bias = None if kpm is None else kpm_bias(kpm)
             fn = lambda: attention_bwd(q, k, v, 0.125, mask, bias, do)
-        out[f"{which} {tower} ({n},{h},{s},64) {dt}"] = cuda_ms(fn)
+            ref = lambda: attention_bwd_plain(q, k, v, 0.125, mask, bias, do)
+        name = f"{which} {tower} ({n},{h},{s},64) {dt}"
+        out[name] = cuda_ms(fn)
+        if plain:
+            out[f"{name} plain"] = cuda_ms(ref, iters=10, warmup=2)
     return out
 
 

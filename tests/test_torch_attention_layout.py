@@ -11,11 +11,14 @@ mode) with the same one-bf16-step check the card's tests use. The
 row-tiled kernels (``csrc/attention_tiled.cu``, every S past the one-block
 limits) walk the keys once in bf16, form each logit as an fp32 FMA chain,
 take the row sum in ``torch.softmax``'s lane order from the logit rows they
-keep in shared memory, and run the backward's products on the tensor cores
-with W and dlog in bf16 pieces; an emulation of that arithmetic is held
-against the Pallas kernel at ViT-B/16's S = 197 and ViT-L/14's 257 the same
-way, and the host's mirror of the forward's shared memory, which routes S,
-against the source.
+keep, and run the backward's products on the tensor cores with W and dlog
+in bf16 pieces; in fp32 every product runs on the tensor cores as 3xTF32
+(each operand split into two TF32 pieces) with an online softmax over
+64-key chunks. An emulation of that arithmetic, with each mma's sum
+truncated toward zero, is held against the Pallas kernel at MITH-128's
+S = 128, ViT-B/16's 197, ViT-L/14's 257 and at 600 the same way, and the
+host's mirror of the forward's shared memory, which decides where the
+logit rows live, against the source.
 """
 
 import re
@@ -338,19 +341,121 @@ def _tiled_pieces_product(x, b, n, tile=16):
     return acc
 
 
+def _tf32(x):
+    """cvt.rna.tf32.f32 on the int32 view: (bits + 0x1000) with the low 13
+    bits cleared, i.e. 10 explicit mantissa bits, ties away from zero."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_terms(a, b, passes=3):
+    """The products of a 3xTF32 step (csrc/attention_tiled.cu:mma3), in its
+    order: a_lo b_hi, a_hi b_lo, a_hi b_hi; with ``passes`` 1, a_hi b_hi
+    alone (one TF32 pass)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return [(al, bh), (ah, bl), (ah, bh)][3 - passes:]
+
+
+def _mma_rz(c, a, b):
+    """One mma.sync with k = 8: c + a·b summed exactly (TF32 products are
+    exact in fp64) and rounded toward zero to fp32, as the tensor cores
+    truncate their sums."""
+    x = c.double() + torch.matmul(a.double(), b.double())
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _pad8(a, dim):
+    """a zero-padded along ``dim`` to a multiple of 8 (the kernels' k steps)."""
+    pad = [0, 0] * (a.dim() - 1 - dim % a.dim()) + [0, -a.shape[dim] % 8]
+    return torch.nn.functional.pad(a, pad)
+
+
+def _tf32_dot(a, b, passes=3):
+    """a @ b as rows_dot_tf32 forms S and dW: over k in 8-deep steps from 0,
+    each step's products one mma each, chained from zero."""
+    a, b = _pad8(a, -1), _pad8(b, -2)
+    c = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in _tf32_terms(a[..., k0:k0 + 8], b[..., k0:k0 + 8, :], passes):
+            c = _mma_rz(c, x, y)
+    return c
+
+
+def _tf32_product(a, b, acc=None, passes=3):
+    """acc + a @ b as acc_product_tf32 forms P·V, dV, dK and dQ: per 8-deep
+    step of k the mma sums chained from zero, then added to acc in rounded
+    fp32."""
+    a, b = _pad8(a, -1), _pad8(b, -2)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:]) if acc is None else acc
+    for k0 in range(0, a.shape[-1], 8):
+        p = torch.zeros_like(acc)
+        for x, y in _tf32_terms(a[..., k0:k0 + 8], b[..., k0:k0 + 8, :], passes):
+            p = _mma_rz(p, x, y)
+        acc = acc + p
+    return acc
+
+
+def tf32_emulation(q, k, v, scale, mask, bias, dout, passes=3, chunk=64):
+    """The fp32 row-tiled kernels' arithmetic in plain torch; returns (out,
+    dq, dk, dv). Logits: S by ``_tf32_dot``, then scale, mask and bias each
+    rounded on its own. The forward (tiled_fwd_tf32) walks the keys once in
+    ``chunk``-key chunks with an online softmax: the running row max m
+    (0 stands in while it is −inf), the row sum l and the output rescaled by
+    exp(m_old − m) as it grows, the unnormalised P·V added by
+    ``_tf32_product``, the output times 1 / l at the end. The backward:
+    launch 1 takes m, l and d = Σ exp(logit − m)·dW the same way in one
+    walk (dW = dO Vᵀ by ``_tf32_dot``), D = d / l; launches 2 and 3
+    w = exp(logit − m) / l and dlog = w (dW − D), and dV = Wᵀ dO,
+    dK = dlogᵀ Q · scale and dQ = dlog K · scale by ``_tf32_product``."""
+    qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
+    s = q.shape[-2]
+    inf = float("inf")
+
+    def logits(k0, k1):
+        x = _tf32_dot(qf, kf[..., k0:k1, :].transpose(-1, -2), passes) * scale
+        if mask is not None:
+            x = x + mask[:, k0:k1]
+        if bias is not None:
+            x = x + bias[:, None, None, k0:k1]
+        return x
+
+    rows = q.shape[:-1] + (1,)
+    m, l, d = torch.full(rows, -inf), torch.zeros(rows), torch.zeros(rows)
+    o = torch.zeros(q.shape)
+    for k0 in range(0, s, chunk):
+        x = logits(k0, k0 + chunk)
+        y = _tf32_dot(do, vf[..., k0:k0 + chunk, :].transpose(-1, -2), passes)
+        mx = torch.maximum(m, x.amax(-1, keepdim=True))
+        mu = torch.where(mx == -inf, torch.zeros_like(mx), mx)
+        rs = torch.exp(m - mu)
+        l, d, o, m = l * rs, d * rs, o * rs, mx
+        e = torch.exp(x - mu)
+        l = l + e.sum(-1, keepdim=True)
+        d = d + (e * y).sum(-1, keepdim=True)
+        o = _tf32_product(e, vf[..., k0:k0 + chunk, :], o, passes)
+    out = o * (1 / l)
+    w = torch.exp(logits(0, s) - m) / l
+    dlog = w * (_tf32_dot(do, vf.transpose(-1, -2), passes) - d / l)
+    dv = _tf32_product(w.transpose(-1, -2), do, passes=passes)
+    dk = _tf32_product(dlog.transpose(-1, -2), qf, passes=passes) * scale
+    dq = _tf32_product(dlog, kf, passes=passes) * scale
+    return out, dq, dk, dv
+
+
 def tiled_emulation(q, k, v, scale, mask, bias, dout):
     """The row-tiled kernels' arithmetic in plain torch; returns (out, dq,
-    dk, dv). The forward: logits as FMA chains (the CUDA cores, both dtypes),
-    scale, mask and bias each rounded on its own, ``torch.softmax``'s lane
-    order, P rounded to the input dtype, P·V with fp32 sums. The backward:
-    each row's max m, l = Σ exp(logit − m) and D = Σ exp(logit − m)·dW / l
-    from fp32 sums (the kernel takes them in one walk, rescaling as the max
-    grows); w = exp(logit − m) / l unrounded and dlog = w (dW − D).
-    In bf16 the logits and dW are bf16 products with fp32 sums (the tensor
-    cores) and dV = Wᵀ dO, dK = scale dlogᵀ Q and dQ = scale dlog K take W
-    and dlog in three bf16 pieces over 16-row tiles; in fp32 every product
-    is an fp32 one."""
-    bf16 = q.dtype == torch.bfloat16
+    dk, dv). fp32: ``tf32_emulation``. bf16: the forward's logits as FMA
+    chains (the CUDA cores), scale, mask and bias each rounded on its own,
+    ``torch.softmax``'s lane order, P rounded to bf16, P·V with fp32 sums;
+    the backward's row max m, l = Σ exp(logit − m) and D = Σ exp(logit −
+    m)·dW / l from fp32 sums (the kernel takes them in one walk, rescaling
+    as the max grows), w = exp(logit − m) / l unrounded and dlog = w (dW −
+    D), the logits and dW bf16 products with fp32 sums (the tensor cores),
+    and dV = Wᵀ dO, dK = scale dlogᵀ Q and dQ = scale dlog K with W and dlog
+    in three bf16 pieces over 16-row tiles."""
+    if q.dtype == torch.float32:
+        return tf32_emulation(q, k, v, scale, mask, bias, dout)
 
     def masked(x):
         x = x * scale
@@ -369,30 +474,29 @@ def tiled_emulation(q, k, v, scale, mask, bias, dout):
     l = e.sum(-1, keepdim=True)
     w = e / l
     dlog = w * (dw - (e * dw).sum(-1, keepdim=True) / l)
-    if bf16:
-        dv = _tiled_pieces_product(w.transpose(-1, -2), do, 3)
-        dk = _tiled_pieces_product(dlog.transpose(-1, -2), q.float(), 3) * scale
-        dq = _tiled_pieces_product(dlog, k.float(), 3) * scale
-    else:
-        dv = torch.matmul(w.transpose(-1, -2), do)
-        dk = torch.matmul(dlog.transpose(-1, -2), q.float()) * scale
-        dq = torch.matmul(dlog, k.float()) * scale
+    dv = _tiled_pieces_product(w.transpose(-1, -2), do, 3)
+    dk = _tiled_pieces_product(dlog.transpose(-1, -2), q.float(), 3) * scale
+    dq = _tiled_pieces_product(dlog, k.float(), 3) * scale
     return out, dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _tiled_walk_against_pallas(dtype, s, masked_keys):
-    """tiled_emulation at (2, 2, s, 64) against cmh_tpu's fused attention in
-    interpret mode, forward and gradients: fp32 within 1e-5, bf16 within one
-    bf16 step. The keys ``masked_keys`` are padding in every row (a wholly
-    masked key block) and query row 5 has every key masked: NaN exactly
-    where Pallas gives NaN."""
+def _tiled_walk_against_pallas(dtype, s, masked_keys, emulation=tiled_emulation,
+                               all_masked_row=True):
+    """``emulation`` (default tiled_emulation) at (2, 2, s, 64) against
+    cmh_tpu's fused attention in interpret mode, forward and gradients: fp32
+    within 1e-5, bf16 within one bf16 step. The keys ``masked_keys`` are
+    padding in every row (a wholly masked key block) and, with
+    ``all_masked_row``, query row 5 has every key masked: NaN exactly where
+    Pallas gives NaN (which is every element of dK and dV; without that row
+    they are compared as values)."""
     b, h, hd = 2, 2, 64
     rng = np.random.RandomState(s)
     q, k, v, do = (torch.from_numpy(rng.randn(b, h, s, hd).astype(np.float32)).to(dtype)
                    for _ in range(4))
     m = np.triu(np.full((s, s), -np.inf, np.float32), 1)
     m[:, 0] = 0.0        # key 0 visible to every row but 5, so no other row is all masked
-    m[5] = -np.inf
+    if all_masked_row:
+        m[5] = -np.inf
     p = rng.rand(b, s) > 0.7
     p[:, masked_keys] = True
     p[:, 0] = False
@@ -405,8 +509,8 @@ def _tiled_walk_against_pallas(dtype, s, masked_keys):
                                                      jnp.asarray(p)), jx(q), jx(k), jx(v))
     want = [torch.from_numpy(np.array(jnp.asarray(t, jnp.float32))).to(dtype)
             for t in (out, *vjp(jx(do)))]
-    got = tiled_emulation(q, k, v, scale, torch.from_numpy(m), kpm_bias(torch.from_numpy(p)), do)
-    assert bool(torch.isnan(want[0][:, :, 5]).all())
+    got = emulation(q, k, v, scale, torch.from_numpy(m), kpm_bias(torch.from_numpy(p)), do)
+    assert bool(torch.isnan(want[0][:, :, 5]).all()) == all_masked_row
     assert not bool(torch.isnan(want[0][:, :, 6]).any())
     for a, r in zip(got, want):
         nan = torch.isnan(r)
@@ -431,22 +535,55 @@ def test_row_tiled_walk_matches_pallas_at_vit_l14_length(dtype):
     _tiled_walk_against_pallas(dtype, 257, slice(64, 128))
 
 
+@pytest.mark.parametrize("all_masked_row", [True, False])
+@pytest.mark.parametrize("s,masked_keys", [(128, slice(64, 128)), (257, slice(64, 128)),
+                                           (600, slice(128, 192))])
+def test_row_tiled_tf32_arithmetic_matches_pallas(s, masked_keys, all_masked_row):
+    """The fp32 row tiles' 3xTF32 products and online softmax over 64-key
+    chunks, both directions, at MITH-128's S = 128, ViT-L/14's 257 and 600,
+    each with a wholly masked key chunk, with and without an all-masked row,
+    against Pallas within 1e-5."""
+    _tiled_walk_against_pallas(torch.float32, s, masked_keys, tf32_emulation, all_masked_row)
+
+
+@pytest.mark.parametrize("which", ["forward", "gradients"])
+def test_one_tf32_pass_fails_the_fp32_check(which):
+    """One TF32 pass (a_hi b_hi alone), the fault the three-pass split
+    exists to avoid, misses Pallas by far more than 1e-5 at S = 128, in the
+    forward and in the gradients alike."""
+    b, h, s, hd = 2, 2, 128, 64
+    rng = np.random.RandomState(s)
+    q, k, v, do = (torch.from_numpy(rng.randn(b, h, s, hd).astype(np.float32))
+                   for _ in range(4))
+    scale = hd**-0.5
+    out, vjp = jax.vjp(lambda a, c, e: jax_attention(a, c, e, scale, None, None),
+                       *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    want = [torch.from_numpy(np.array(t)) for t in (out, *vjp(jnp.asarray(do.numpy())))]
+    pick = slice(0, 1) if which == "forward" else slice(1, 4)
+    for passes, ok in ((3, True), (1, False)):
+        got = tf32_emulation(q, k, v, scale, None, None, do, passes=passes)
+        close = all(torch.allclose(a, r, rtol=1e-5, atol=1e-5)
+                    for a, r in zip(got[pick], want[pick]))
+        assert close == ok, passes
+
+
 @pytest.mark.parametrize("hd,limit", [(64, 3152), (32, 3376)])
 def test_bf16_forward_routes_past_the_logit_rows_limit(hd, limit):
     """The bf16 row-tiled forward holds each tile's 16 × S fp32 logit rows
-    in shared memory; past the S at which one tile's rows no longer fit in
-    227 KB the route sends the forward to the CUDA-core row tiles, before
-    any library is loaded. The backward keeps no row of S and takes every S."""
+    in shared memory up to the S at which one tile's rows no longer fit in
+    227 KB (``tiled_fwd_tiles`` 1 there, 0 past it: the rows then live in
+    device memory); the route stays "tiled", the tensor-core row tiles, at
+    every S, decided before any library is loaded. The backward keeps no row
+    of S and takes every S."""
     loaded = set(_build._loaded)
     assert tiled_fwd_smem(limit, hd, 1) <= _MAX_SMEM < tiled_fwd_smem(limit + 1, hd, 1)
     assert tiled_fwd_tiles(limit, hd) == 1 and tiled_fwd_tiles(limit + 1, hd) == 0
-    assert route(torch.bfloat16, "fwd", limit, hd) == "tiled"
-    assert route(torch.bfloat16, "fwd", limit + 1, hd) == "tiled_fma"
-    for s in (limit + 1, 10_000):
-        assert route(torch.bfloat16, "bwd", s, hd) == "tiled"
+    for s in (limit, limit + 1, 10_000):
+        assert route(torch.bfloat16, "fwd", s, hd) == route(torch.bfloat16, "bwd", s, hd) \
+            == "tiled"
         assert route(torch.float32, "fwd", s, hd) == route(torch.float32, "bwd", s, hd) == "tiled"
     q = torch.zeros(1, 1, limit + 1, hd, dtype=torch.bfloat16)
-    assert _prepare(q, q, q, None, None, "fwd")[0] == "tiled_fma"
+    assert _prepare(q, q, q, None, None, "fwd")[0] == "tiled"
     assert _prepare(q, q, q, None, None, "bwd")[0] == "tiled"
     assert set(_build._loaded) == loaded
 
@@ -472,20 +609,21 @@ def test_tiled_forward_blocks_leave_room_for_a_second(hd):
                                              ("fwd", torch.float32, 257),
                                              ("bwd", torch.float32, 257)])
 def test_cpu_tensors_count_no_row_tiled_launch(which, dtype, s):
-    """A CPU tensor on a CUDA-core row-tiled route takes the plain version
-    and counts no launch, row-tiled or CUDA-core."""
+    """A CPU tensor on a row-tiled route (the bf16 forward past the logit
+    rows' shared-memory limit, fp32 on 3xTF32) takes the plain version and
+    counts no launch, row-tiled or fp32 row-tiled."""
     from cmh_torch.ops.attention import attention_bwd, attention_bwd_plain, attention_plain
 
     way = route(dtype, which, s, 64)
-    assert way == ("tiled_fma" if dtype == torch.bfloat16 else "tiled")
+    assert way == "tiled"
     gen = torch.Generator().manual_seed(s)
     q, k, v, do = (torch.randn(1, 2, s, 64, generator=gen).to(dtype) for _ in range(4))
     fn = fused_attention if which == "fwd" else attention_bwd
-    before = (fn.launches, fn.launches_tiled, fn.launches_tiled_fma)
+    before = (fn.launches, fn.launches_tiled, fn.launches_tiled_tf32)
     if which == "fwd":
         assert torch.equal(fused_attention(q, k, v, 0.125), attention_plain(q, k, v, 0.125))
     else:
         got = attention_bwd(q, k, v, 0.125, None, None, do)
         want = attention_bwd_plain(q, k, v, 0.125, None, None, do)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert (fn.launches, fn.launches_tiled, fn.launches_tiled_fma) == before
+    assert (fn.launches, fn.launches_tiled, fn.launches_tiled_tf32) == before

@@ -511,9 +511,10 @@ def test_attention_row_tiled_kernels_match_plain(cuda, which, s, hd, masks, dtyp
     """Each direction at its one-block limit (the one-block kernel), one row
     past it (at hd 32 in bf16: S 209 forward, 145 backward), at ViT-B/16's,
     ViT-L/14's, a longer S and a ViT-L/14 at 336 px (577 tokens), and at the
-    bf16 forward's logit-row limit and one past it (there the CUDA-core row
-    tiles take the bf16 forward): fp32 within 1e-5 (summation order), bf16
-    within one bf16 step (P and the outputs round to bf16 in both)."""
+    bf16 forward's logit-row limit and one past it (there the bf16 forward's
+    logit rows live in device memory): fp32 (3xTF32 on the tensor cores)
+    within 1e-5, bf16 within one bf16 step (P and the outputs round to bf16
+    in both)."""
     from cmh_torch.ops.attention import (attention_bwd, attention_bwd_plain,
                                          attention_plain, route)
 
@@ -522,16 +523,11 @@ def test_attention_row_tiled_kernels_match_plain(cuda, which, s, hd, masks, dtyp
     s = {"limit": limit, "limit+1": limit + 1, "rows-limit": rows,
          "rows-limit+1": rows + 1}.get(s, s)
     way = route(dtype, which, s, hd)
-    if s <= limit:
-        assert way == "one_block"
-    elif dtype == torch.bfloat16 and which == "fwd" and s > rows:
-        assert way == "tiled_fma"
-    else:
-        assert way == "tiled"
+    assert way == ("one_block" if s <= limit else "tiled")
     q, k, v, do, mask, bias = _long_case(dtype, 2, 3, s, hd, masks, seed=s * hd + len(masks))
     scale = hd**-0.5
     counts = lambda: (fused_attention.launches_tiled, attention_bwd.launches_tiled,
-                      fused_attention.launches_tiled_fma, attention_bwd.launches_tiled_fma)
+                      fused_attention.launches_tiled_tf32, attention_bwd.launches_tiled_tf32)
     before = counts()
     if which == "fwd":
         got = (fused_attention(q, k, v, scale, mask, None if bias is None else bias < 0),)
@@ -541,11 +537,9 @@ def test_attention_row_tiled_kernels_match_plain(cuda, which, s, hd, masks, dtyp
         want = attention_bwd_plain(q, k, v, scale, mask, bias, do)
     torch.cuda.synchronize()
     tiled = int(way != "one_block")
-    # of the row-tiled launches, those on the CUDA cores: fp32, and bf16 past
-    # the logit rows
-    fma = tiled * int(way == "tiled_fma" or dtype == torch.float32)
+    tf32 = tiled * int(dtype == torch.float32)   # of the row-tiled launches, the fp32 ones
     assert tuple(a - b for a, b in zip(counts(), before)) == \
-        ((tiled, 0, fma, 0) if which == "fwd" else (0, tiled, 0, fma))
+        ((tiled, 0, tf32, 0) if which == "fwd" else (0, tiled, 0, tf32))
     for a, r in zip(got, want):
         assert a.shape == r.shape == q.shape
         if dtype == torch.float32:
@@ -642,6 +636,35 @@ def test_attention_route_agrees_with_the_row_tiled_smem_sizes(cuda):
             assert lib.cmh_attention_tiled_fwd_tiles(s, hd) == tiles, (s, hd)
             assert lib.cmh_attention_tiled_fwd_smem(s, hd) == tiled_fwd_smem(s, hd, max(tiles, 1))
         assert tiled_fwd_tiles(rows + 1, hd) == 0 < tiled_fwd_tiles(rows, hd)
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("s", [257, "rows-limit"])
+def test_attention_rows_in_device_memory_equal_shared_memory(cuda, s, hd):
+    """The bf16 row-tiled forward with its logit rows in device memory (a
+    persistent grid, one slot of rows a resident block; the route past the
+    rows' shared-memory limit) runs the same code as with its rows in shared
+    memory: at S where both run, the same bits, with more items than slots
+    at S = 257; its scratch does not grow with B·H."""
+    from cmh_torch.ops.attention import _launch, _launch_rows, _tiled_lib
+
+    s = _rows_limit(hd) if s == "rows-limit" else s
+    n = 64 if s == 257 else 2
+    q, k, v, _, mask, bias = _long_case(torch.bfloat16, n, 4, s, hd, "causal+kpm", seed=s + hd)
+    before = fused_attention.launches
+    shared = _launch(q, k, v, hd**-0.5, mask, bias)
+    assert fused_attention.launches == before + 1
+    rows = _launch_rows(q, k, v, hd**-0.5, mask, bias)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1   # counted by _launch alone
+    assert torch.equal(torch.isnan(rows), torch.isnan(shared))
+    assert torch.equal(rows.nan_to_num(), shared.nan_to_num())
+    # whole tiles of 16 rows of 16 ceil(S / 16) + 8 floats, the same count
+    # on every SM, whatever B and H
+    nbytes = _tiled_lib().cmh_attention_tiled_fwd_rows_bytes(s, 0)
+    tile = 16 * (16 * -(-s // 16) + 8) * 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert nbytes > 0 and nbytes % (tile * sms) == 0
 
 
 def test_autograd_reaches_the_kernels(cuda):
