@@ -128,6 +128,23 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
       OpenAI's layout: 256 images in bf16 on the card, and 8 in fp32 held
       against the CPU.
 
+15. ``cmh_tpu``'s full-state checkpoint and data parallelism, on the one card:
+   a. a full-width DCMHT trainer (``configs/DCMHT/synthetic_tpu.yaml`` cut to
+      one epoch of 2 steps) one step past init writes ``checkpoint-last.msgpack``
+      in ``cmh_tpu``'s layout, flat and tree; fresh trainers resume each
+      through ``run.resume_checkpoint``: the state and the meta bit-equal the
+      source's, and one more step on the same batch gives bit-equal
+      parameters in all three (the files' bytes and the load seconds printed);
+   b. the same YAML through ``cmh_torch.main`` with ``run.distribute`` in an
+      NCCL group of one (``run.multi_host``, rank 0 of 1), against the run
+      without it: the first step's loss bit-equal, the second, the parameters,
+      BatchNorm statistics, moments (tree against flat) and mAPs at stated
+      tolerances; both runs' step times;
+   c. the query-sharded mAP at coco scale (16 and 512 bits), shards 0 and 1
+      of 2 in turn, against the unsharded (1e-12), and the gallery-sharded
+      search over ``[cuda:0, cuda:0]`` on phase 7's index against the
+      unsharded, bit for bit; their times.
+
 Phase 3 holds K1 in fp32 at UMoED's decoder rows (6400, 512) too, and K2 on
 the text tower with the causal mask alone (DIMCH's and UMoED's text tower
 runs without the key-padding mask), forward and backward; the bf16 K2 rows
@@ -2583,6 +2600,245 @@ def resnet_tower(torch, counters, root):
         raise AssertionError(f"RN50 fp32 encodings differ card/CPU: {rel}")
 
 
+
+def phase15_config(root, name, **run):
+    """``configs/DCMHT/synthetic_tpu.yaml`` cut to one epoch of 2 steps at
+    batch 100 (200 train items, 100 queries), no full-state checkpoint."""
+    import yaml
+
+    with open(TRAIN_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg["run"].update(epochs=1, train_num=200, query_num=100, display_step=1, seed=0,
+                      checkpoint_every=0, auto_resume=False, save_dir=os.path.join(root, name),
+                      log_dir=os.path.join(root, name + "_log"), **run)
+    return cfg
+
+
+def trainer_from(cfg):
+    from cmh_torch.config import config_from_dict
+    from cmh_torch.registry import load_components
+
+    return load_components().require_runner_class(cfg["run"]["arch"]).from_config(
+        cfg=config_from_dict(cfg), device="cuda", auto_run=False)
+
+
+def jax_checkpoint_resume(torch, counters, root):
+    """15a: cmh_tpu's full-state ``checkpoint-last.msgpack`` at full ViT-B/32
+    width, written by the port's writer (the card's machine has no flax) in
+    the flat and the tree format from a DCMHT trainer one step past init,
+    resumed through ``run.resume_checkpoint`` in fresh trainers: the state
+    and the meta bit-equal the source's, and one more step on the same batch
+    gives bit-equal parameters in all three."""
+    from cmh_torch.runners import jax_checkpoint
+
+    cfg = phase15_config(root, "source")
+    src = trainer_from(cfg)
+    batches = [b for _, b in zip(range(2), src.train_loader)]
+    src.train_step(batches[0])
+    src.global_step, src.max_mapi2t, src.best_epoch_i = 1, 0.125, 0
+    paths, write_s, nbytes = {}, {}, {}
+    for fmt in ("flat", "tree"):
+        paths[fmt] = os.path.join(root, fmt, "checkpoint-last.msgpack")
+        os.makedirs(os.path.dirname(paths[fmt]))
+        t0 = time.perf_counter()
+        jax_checkpoint.write(paths[fmt], src, 1, flat=fmt == "flat")
+        write_s[fmt] = time.perf_counter() - t0
+        nbytes[fmt] = os.path.getsize(paths[fmt])
+
+    reset_counts(counters)
+    # ---- the main path: resume each file, then one more step everywhere
+    resumed, load_s = {}, {}
+    for fmt, path in paths.items():
+        t0 = time.perf_counter()
+        tr = trainer_from(phase15_config(root, "resumed_" + fmt, resume_checkpoint=path))
+        epoch = tr._resume()
+        torch.cuda.synchronize()
+        load_s[fmt] = time.perf_counter() - t0
+        if epoch != 1:
+            raise AssertionError(f"{fmt} checkpoint resumes at epoch {epoch}")
+        bad = same_state(torch, src, tr)
+        if bad or trackers(tr) != trackers(src):
+            raise AssertionError(f"{fmt} checkpoint: the resumed state differs: {bad[:8]}, "
+                                 f"{trackers(tr)} != {trackers(src)}")
+        resumed[fmt] = tr
+    for tr in (src, *resumed.values()):
+        tr.train_step(batches[1])
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    # ---- end of the main path
+    # the parameters bit-equal; the moments too where the step's kernels are
+    # deterministic (the embedding's index backward, on the CPU, adds with
+    # atomics), and within 1e-6 of their largest otherwise
+    moments = {}
+    for fmt, tr in resumed.items():
+        bad = same_state(torch, src, tr)
+        if [b for b in bad if not b.startswith("group ")]:
+            raise AssertionError(f"{fmt} checkpoint: the next step differs: {bad[:8]}")
+        worst = max(float((a[k] - b[k]).abs().max() / b[k].abs().max())
+                    for a, b in zip(tr.optimizer.state_dict()["groups"],
+                                    src.optimizer.state_dict()["groups"]) for k in ("m", "v"))
+        moments[fmt] = "bit-equal" if not bad else f"within {worst:.3e}"
+        if not worst <= 1e-6:
+            raise AssertionError(f"{fmt} checkpoint: the next step's moments differ by {worst}")
+    print(f"[jax ckpt] checkpoint-last.msgpack of a full-width DCMHT trainer: flat "
+          f"{nbytes['flat']} bytes written in {write_s['flat']:.2f} s, tree {nbytes['tree']} "
+          f"bytes in {write_s['tree']:.2f} s; trainer built and resumed in "
+          f"{load_s['flat']:.2f} s (flat) and {load_s['tree']:.2f} s (tree), host clock; "
+          f"state, meta and the next step's parameters bit-equal to the source's, its "
+          f"moments {moments}; launches {launches}", flush=True)
+    for fmt, path in paths.items():
+        os.remove(path)
+    return launches
+
+
+def dp_group_of_one(torch, counters, root):
+    """15b: DCMHT through ``cmh_torch.main`` with ``run.distribute`` in an
+    NCCL group of one (``run.multi_host``, rank 0 of 1, a free local port),
+    one epoch of 2 steps and its ``valid``, against the same YAML without
+    it. The collectives are identities, so the first step's loss is
+    bit-equal; the group runs the tree BertAdam (as cmh_tpu on a mesh) and
+    the other run the flat one, whose per-tensor clip norms are added in
+    another order, so the second step, the parameters, the moments and the
+    mAPs are held at a tolerance."""
+    import numpy as np
+    import yaml
+
+    from cmh_torch.parallel import dp
+    from cmh_torch.runners.base import BaseTrainer
+
+    step = BaseTrainer.train_step
+    record = {}
+
+    def timed(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, loss_dict = step(self, batch)
+        torch.cuda.synchronize()
+        record.setdefault(id(self), []).append((float(loss), (time.perf_counter() - t0) * 1e3))
+        return loss, loss_dict
+
+    runs, launches = {}, None
+    BaseTrainer.train_step = timed
+    try:
+        for name, extra in (("single", {}),
+                            ("dp", {"distribute": True, "multi_host": True,
+                                    "distributed_port": dp.free_port(), "num_processes": 1,
+                                    "process_id": 0})):
+            cfg = phase15_config(root, name, **extra)
+            path = os.path.join(root, name + ".yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            if name == "dp":
+                reset_counts(counters)
+                # ---- the main path: the data-parallel run through the CLI
+            runs[name] = train_cli(path, os.path.join(root, name))
+            torch.cuda.synchronize()
+            if name == "dp":
+                launches = read_counts(counters)
+                # ---- end of the main path
+    finally:
+        BaseTrainer.train_step = step
+    one, single = runs["dp"], runs["single"]
+    if one.dp is None or one.dp.world != 1 or one.optimizer.flat or not single.optimizer.flat:
+        raise AssertionError("the dp run did not run in a group of one with the tree BertAdam")
+    if dp.current() is not None:
+        raise AssertionError("the CLI left its process group behind")
+    (l1, t1), (l2, t2) = record[id(one)]
+    (s1, u1), (s2, u2) = record[id(single)]
+    sd_a, sd_b = one.model.state_dict(), single.model.state_dict()
+    rel = max(float(((sd_a[k].float() - sd_b[k].float()).abs().max()
+                     / sd_b[k].float().abs().max().clamp(min=1e-30))) for k in sd_b)
+    ma, mb = one.optimizer.state_dict(), single.optimizer.state_dict()
+    from cmh_torch.optim.bert_adam import _FlatSpec
+
+    mom = 0.0
+    for g, ga, gb in zip(single.optimizer.param_groups, ma["groups"], mb["groups"]):
+        for slot in ("m", "v"):
+            for x, y in zip(ga[slot], _FlatSpec(g["params"]).views(gb[slot])):
+                mom = max(mom, float((x - y).abs().max() / y.abs().max().clamp(min=1e-30)))
+    maps_a, maps_b = one.history[0]["maps"], single.history[0]["maps"]
+    stats = [k for k in sd_b if "running_" in k]
+    # what average_gradients all-reduces a step: every gradient, by dtype
+    grads = [p for p in one.model.parameters() if p.grad is not None]
+    grad_bytes = sum(p.grad.numel() * p.grad.element_size() for p in grads)
+    print(f"[dp] DCMHT, 2 steps at batch {TRAIN_B} and a valid, NCCL group of one against one "
+          f"process: step losses {[l1, l2]} against {[s1, s2]}; steps {t1:.2f}, {t2:.2f} ms "
+          f"against {u1:.2f}, {u2:.2f} ms (host clock, the second steady); parameters and "
+          f"BatchNorm statistics ({len(stats)}) within {rel:.3e} of the largest, moments "
+          f"within {mom:.3e}; mAPs {maps_a} against {maps_b}; the gradient all-reduce "
+          f"{sum(p.numel() for p in grads)} elements, {grad_bytes} bytes a step; "
+          f"launches {launches}", flush=True)
+    if l1 != s1:
+        raise AssertionError(f"dp: the first step's loss {l1} != {s1}")
+    if not (abs(l2 - s2) <= 1e-5 * abs(s2) and rel <= 1e-5 and mom <= 1e-3
+            and np.allclose(maps_a, maps_b, rtol=0, atol=1e-12)):
+        raise AssertionError("dp: the group of one differs from the single process")
+    return launches
+
+
+def sharded_on_one_card(torch, counters, index_path):
+    """15c: the query-sharded mAP at coco scale, shards 0 and 1 of 2 in turn,
+    summed, against the unsharded ``calc_map_k_4dir`` (1e-12); the
+    gallery-sharded search over ``[cuda:0, cuda:0]`` on phase 7's 16-bit
+    index against the unsharded search, bit for bit."""
+    import numpy as np
+
+    from cmh_torch.ops.map_bucketed import calc_map_k_4dir, map_sums_4dir
+    from cmh_torch.serving import RetrievalIndex
+
+    gen = torch.Generator(device="cuda").manual_seed(150)
+    data = {bits: coco_codes(torch, gen, COCO_Q, COCO_N, bits) for bits in (16, 512)}
+    index = RetrievalIndex.load(index_path, device="cuda")
+    q = torch.randint(0, 2, (64, index.bits), generator=gen, device="cuda").float() * 2 - 1
+    reset_counts(counters)
+    # ---- the main path: every shard of two in turn, on the one card
+    times, got, want = {}, {}, {}
+    for bits, args in data.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sums = [map_sums_4dir(*args, shard=s, n_shards=2) for s in range(2)]
+        got[bits] = ((sums[0] + sums[1]) / COCO_Q).tolist()
+        times[f"{bits}-bit sharded mAP s"] = time.perf_counter() - t0
+    shards = index.search(q, topk=10, devices=["cuda:0", "cuda:0"])
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    # ---- end of the main path
+    for bits, args in data.items():
+        t0 = time.perf_counter()
+        want[bits] = calc_map_k_4dir(*args)
+        times[f"{bits}-bit unsharded mAP s"] = time.perf_counter() - t0
+    whole = index.search(q, topk=10)
+    times["sharded search ms"] = cuda_ms(lambda: index.search(q, topk=10,
+                                                              devices=["cuda:0", "cuda:0"]),
+                                         iters=5, warmup=1)
+    times["unsharded search ms"] = cuda_ms(lambda: index.search(q, topk=10), iters=5, warmup=1)
+    print(f"[sharded] query-sharded mAP, 2 shards of {COCO_Q} queries against {COCO_N} items: "
+          f"{got} against unsharded {want}; gallery-sharded search of 64 queries over "
+          f"[cuda:0, cuda:0] on {len(index)} items equal to the unsharded: "
+          f"{np.array_equal(shards[0], whole[0]) and np.array_equal(shards[1], whole[1])}; "
+          f"times {times} (host clock for the mAPs, CUDA events for the searches); "
+          f"launches {launches}", flush=True)
+    for bits in data:
+        if not np.allclose(got[bits], want[bits], rtol=0, atol=1e-12):
+            raise AssertionError(f"sharded mAP at {bits} bits differs from the unsharded")
+    if not (np.array_equal(shards[0], whole[0]) and np.array_equal(shards[1], whole[1])):
+        raise AssertionError("the gallery-sharded search differs from the unsharded")
+    return launches
+
+
+def phase15(torch, counters):
+    """Phase 15 in a fresh root outside the repository."""
+    root = tempfile.mkdtemp(prefix="cmh_smoke_dp_")
+    try:
+        t0 = time.perf_counter()
+        out = {"cmh_tpu checkpoint": jax_checkpoint_resume(torch, counters, root),
+               "dp group of one": dp_group_of_one(torch, counters, root),
+               "sharded": sharded_on_one_card(torch, counters, os.path.join(WORK, "index.npz"))}
+        print(f"[phase 15] {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
 def main() -> int:
     import torch
 
@@ -2654,6 +2910,7 @@ def main() -> int:
         fp32_by_path.update(fp32_13)
         phase14, tiled_by_path = long_sequences(torch, counters)
         by_path.update(phase14)
+        by_path.update(phase15(torch, counters))
         train_kernels = ("layernorm", "layernorm_bwd", "attention", "attention_bwd",
                          "map_hist", "map_ap")
         for path, need in (("serving", ("layernorm", "attention", "hamming")),
@@ -2668,7 +2925,11 @@ def main() -> int:
                            ("UMoED serving", ("layernorm", "attention", "hamming")),
                            ("TwDH serving", ("layernorm", "attention", "hamming")),
                            ("ViT-L/14", train_kernels), ("ViT-B/16 encode", ("layernorm", "attention")),
-                           ("MITH 128-bit", train_kernels)):
+                           ("MITH 128-bit", train_kernels),
+                           ("cmh_tpu checkpoint", ("layernorm", "layernorm_bwd", "attention",
+                                                   "attention_bwd")),
+                           ("dp group of one", train_kernels),
+                           ("sharded", ("map_hist", "map_ap", "hamming"))):
             idle = [k for k in need if by_path[path][k] == 0]
             if idle:
                 raise AssertionError(f"{path}: kernels {idle} were never launched")

@@ -7,7 +7,10 @@ ViT-B/32 tower → the method's hash head → ±1 codes → packed index → exa
 top-k, on the card or, through ``RetrievalIndex.search_cpu``, on the host. Every Pallas
 kernel on that path has a hand-written CUDA C++ kernel for Hopper under
 ``cmh_torch/csrc/`` (built at first use by ``ops/_build.py``) and a plain
-PyTorch version beside it that runs on CPU tensors.
+PyTorch version beside it that runs on CPU tensors. Runs move to and from
+``cmh_tpu``'s full-state checkpoints (``runners/jax_checkpoint.py``), and
+train and validate over several cards, one process a card
+(``parallel/dp.py``).
 
 The package imports torch and never jax, flax, msgpack or cmh_tpu. Entry points take a
 ``device`` that defaults to ``"cuda"``; without a card they raise unless the

@@ -22,6 +22,9 @@ names), its ``loss``, and how codes are binarized at eval.
 - ``method.read_model_file(path)``: a ``model-N.pt`` of the port or a
   cmh_tpu ``model-N.msgpack`` (through ``utils/flax_msgpack.py`` and the
   method's ``state_from_jax``) as the model's ``state_dict``.
+- ``method.state_to_jax(state_dict)``, the inverse, and
+  ``method.jax_extra_opt_state``: the layouts cmh_tpu's full-state
+  checkpoint holds (``runners/jax_checkpoint.py``).
 - ``method.extra_param_groups(cfg_optimizer)``: parameters that leave
   BertAdam for an optimizer of their own (cmh_tpu's runner hook
   ``extra_optimizers``), as ``torch.optim.SGD`` param groups.
@@ -135,6 +138,17 @@ class Method:
         """cmh_tpu's ``params`` and ``model_state`` trees (a
         ``model-N.msgpack``) → this model's ``state_dict``."""
         raise NotImplementedError(f"{self.arch} has no cmh_tpu weight converter")
+
+    def state_to_jax(self, state_dict: Dict[str, torch.Tensor]):
+        """The inverse of ``state_from_jax``: a ``state_dict`` (or any dict
+        of tensors under its names) → cmh_tpu's ``(params, model_state)``."""
+        raise NotImplementedError(f"{self.arch} has no cmh_tpu weight converter")
+
+    def jax_extra_opt_state(self, name: str, trace) -> Dict:
+        """cmh_tpu's serialized optax state of the extra optimizer ``name``
+        around its momentum ``trace`` (None without momentum): ``optax.sgd``
+        is ``chain(trace or identity, scale_by_learning_rate)``."""
+        return {"0": {} if trace is None else {"trace": trace}, "1": {}}
 
     def read_model_file(self, path: str) -> Dict[str, torch.Tensor]:
         """The weights of a ``model-N.pt`` (the port's) or a

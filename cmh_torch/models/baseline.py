@@ -87,6 +87,9 @@ class BaselineMethod(Method):
     def state_from_jax(self, params, model_state):
         return convert.baseline_state_from_jax(params)
 
+    def state_to_jax(self, state_dict):
+        return convert.baseline_state_to_jax(state_dict)
+
     @classmethod
     def from_config(cls, cfg_model, output_dim: int = 16, train_num: int = 10000,
                     clip_cfg: Optional[CLIPConfig] = None) -> "BaselineMethod":

@@ -13,10 +13,14 @@ out) become torch weights (out, in), the patch kernel HWIO becomes (out, in,
 kh, kw), DIMCH's Conv kernel (k, in, out) becomes (out, in, k), and
 LayerNorm/BatchNorm scale becomes ``weight``.
 
-``dcmht_state_to_jax`` (= ``twdh_state_to_jax``), ``dimch_state_to_jax`` and
-``umoed_state_to_jax`` go the other way, for the tests and for
-``chip_smoke.py``, which write cmh_tpu's file layout from the port's weights
-on a machine without flax.
+``dcmht_state_to_jax`` (= ``twdh_state_to_jax``), ``baseline_state_to_jax``,
+``dsph_state_to_jax``, ``dnph_state_to_jax``, ``mith_state_to_jax``,
+``dimch_state_to_jax`` and ``umoed_state_to_jax`` go the other way, for the
+writer of cmh_tpu's full-state checkpoints (``runners/jax_checkpoint.py``),
+the tests and ``chip_smoke.py``, which write cmh_tpu's file layout from the
+port's weights on a machine without flax. Every converter only moves,
+transposes and renames leaves, so the same functions carry any tree of the
+parameters' layout: the optimizer's moments too.
 
 ``resnet_state_from_jax`` and ``resnet_state_to_jax`` carry cmh_tpu's
 ``ModifiedResNet`` variables (``{'params', 'batch_stats'}``, conv kernels
@@ -298,6 +302,58 @@ def dcmht_state_to_jax(sd: Dict[str, torch.Tensor]):
 
 
 twdh_state_to_jax = dcmht_state_to_jax
+
+
+def baseline_state_to_jax(sd: Dict[str, torch.Tensor]):
+    """The port's Baseline ``state_dict`` → cmh_tpu's ``(params,
+    model_state)``: the inverse of ``baseline_state_from_jax``."""
+    params = {"backbone": clip_state_to_jax(sd)}
+    for side in ("img", "txt"):
+        params[f"hash_{side}"] = {"fc1": _linear_to(sd, f"hash.{side}_hash.0"),
+                                  "fc2": _linear_to(sd, f"hash.{side}_hash.3")}
+    return params, {}
+
+
+def dsph_state_to_jax(sd: Dict[str, torch.Tensor]):
+    """The inverse of ``dsph_state_from_jax``."""
+    return {"proxies": _a(sd["hyp.proxies"]), "backbone": clip_state_to_jax(sd),
+            "hash_img": {"fc": _linear_to(sd, "hash.img_hash.fc")},
+            "hash_txt": {"fc": _linear_to(sd, "hash.txt_hash.fc")}}, {}
+
+
+def dnph_state_to_jax(sd: Dict[str, torch.Tensor]):
+    """The inverse of ``dnph_state_from_jax``."""
+    return {"proxies": _a(sd["loss.proxies"]), "backbone": clip_state_to_jax(sd),
+            "hash_img": {"fc": _linear_to(sd, "hash.image_hash.fc")},
+            "hash_txt": {"fc": _linear_to(sd, "hash.text_hash.fc")},
+            "pre_img": _linear_to(sd, "hash.image_pre.fc"),
+            "pre_txt": _linear_to(sd, "hash.text_pre.fc")}, {}
+
+
+def mith_state_to_jax(sd: Dict[str, torch.Tensor]):
+    """The inverse of ``mith_state_from_jax``: the concept learner is read
+    from ``hash.gcl_i`` (``hash.gcl_t`` is the same module), the per-bit
+    rows are stacked back into one (K, d) kernel."""
+    pre = "hash.gcl_i"
+    mlp = {}
+    for i in sorted({int(k[len(pre) + 10:].split(".")[0]) for k in sd
+                     if k.startswith(f"{pre}.mlp.mlps.")}):
+        mlp[f"fc1_{i}"] = _linear_to(sd, f"{pre}.mlp.mlps.{i}.0")
+        mlp[f"fc2_{i}"] = _linear_to(sd, f"{pre}.mlp.mlps.{i}.3")
+        mlp[f"ln_{i}"] = _norm_to(sd, f"{pre}.mlp.lns.{i}")
+    params = {"backbone": clip_state_to_jax(sd),
+              "gcl": {"mlp": mlp, "concept": {
+                  "kernel": _a(sd[f"{pre}.common_concept_embedding.weight"]).T.copy()}}}
+    for side in ("lct_i", "lct_t"):
+        h = f"hash.{side}.hashing.fc_list"
+        bits = len({k for k in sd if k.startswith(f"{h}.") and k.endswith(".weight")})
+        params[side] = {
+            "transformer": _tower_to(sd, f"hash.{side}.transformer"),
+            "hashing": {"kernel": np.concatenate([_a(sd[f"{h}.{k}.weight"]) for k in range(bits)]),
+                        "bias": np.concatenate([_a(sd[f"{h}.{k}.bias"]) for k in range(bits)])}}
+    params["img_concept_proj"] = _linear_to(sd, "hash.img_concept_proj")
+    params["txt_concept_proj"] = _linear_to(sd, "hash.txt_concept_proj")
+    return params, {}
 
 
 def dimch_state_to_jax(sd: Dict[str, torch.Tensor]):

@@ -132,6 +132,9 @@ class DNPHMethod(Method):
     def state_from_jax(self, params, model_state):
         return convert.dnph_state_from_jax(params)
 
+    def state_to_jax(self, state_dict):
+        return convert.dnph_state_to_jax(state_dict)
+
     def extra_param_groups(self, cfg_optimizer) -> List[dict]:
         """The proxies on plain SGD at ``optimizer.loss.lr`` (cmh_tpu
         ``runners/dnph.py:22-25``)."""

@@ -127,6 +127,13 @@ class DSPHMethod(Method):
     def state_from_jax(self, params, model_state):
         return convert.dsph_state_from_jax(params)
 
+    def state_to_jax(self, state_dict):
+        return convert.dsph_state_to_jax(state_dict)
+
+    def jax_extra_opt_state(self, name, trace):
+        """cmh_tpu chains ``add_decayed_weights`` (no state) before the SGD."""
+        return {"0": {}, "1": super().jax_extra_opt_state(name, trace)}
+
     def extra_param_groups(self, cfg_optimizer) -> List[dict]:
         """The proxies on SGD(lr, momentum, weight_decay) from
         ``optimizer.hyp`` (cmh_tpu ``runners/dsph.py:27-37``): torch couples

@@ -28,12 +28,32 @@ cmh_tpu's ``jax.checkpoint``) on a model without running statistics, and is
 ignored with a warning, as cmh_tpu ignores it, on one with them (DCMHT's
 BatchNorm).
 
+A checkpoint path ending in ``.msgpack`` is cmh_tpu's full-state format
+(``runners/jax_checkpoint.py``): ``run.resume_checkpoint`` reads it,
+``run.auto_resume`` weighs cmh_tpu's ``checkpoint-last.msgpack`` and
+``emergency.ckpt.msgpack`` beside the port's files, and ``save_checkpoint``
+writes it.
+
+Data parallelism (cmh_tpu's ``dp`` mesh, ``runners/base.py:119-129``,
+``:407-451``): in a group of ``parallel/dp.py`` (``run.multi_host``,
+``--distribute``, or ``run.distribute``, for which ``cmh_torch.main`` opens
+a group of one when there is none), each rank runs the CLIP towers on its
+rows of the global batch and computes the global loss from the gathered
+outputs (``dp.gathered_towers``); the gradients are averaged over the ranks.
+BertAdam is then tree-shaped by default, as cmh_tpu's on a mesh. ``valid`` encodes
+each rank's rows of every eval batch, sums the code buffers over the ranks,
+and ranks each rank's query shard through K3 with one all-reduce of the AP
+sums. Every rank holds the same state: a resume reads the checkpoint on
+rank 0 and broadcasts the state, and a SIGTERM that reaches any rank stops
+every rank at the same step. Only rank 0 writes files and logs to a file.
+
 Run keys that this port does not carry yet raise ``NotImplementedError``
 rather than being ignored (see ``UNPORTED_RUN_KEYS``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import signal
@@ -53,17 +73,15 @@ from ..models.clip.loader import read_torch_state_dict
 from ..models.common import dropout_rng
 from ..optim.bert_adam import BertAdam
 from ..optim.partition import param_groups
+from ..parallel import dp
 from ..registry import load_components, registry
 from ..utils.logger import get_color_logger
 from ..utils.seed import set_seed
-from . import checkpoint
+from . import checkpoint, jax_checkpoint
 
 # run key → (values that leave the feature off, the ROADMAP item that ports it)
-_MULTI = "ROADMAP.md Queue 1, 'Multi-GPU'"
 UNPORTED_RUN_KEYS = {
-    "distribute": ((None, 0, False), _MULTI),
-    "multi_host": ((None, 0, False), _MULTI),
-    "tp": ((None, 1), _MULTI),
+    "tp": ((None, 1), "ROADMAP.md Queue 1, 'Tensor parallelism'"),
 }
 
 
@@ -94,8 +112,17 @@ class BaseTrainer:
         self.device = resolve_device(device)
         self.seed = int(cfg.run.get("seed", 1814))
         self.generator = set_seed(self.seed)
+        self.dp = dp.current()
+        if self.dp is None and cfg.run.get("distribute", False):
+            raise ValueError("run.distribute needs a data-parallel group: run the config "
+                             "through cmh_torch.main (run_config), which opens one")
+        if self.dp is not None and self.dp.device.type != self.device.type:
+            raise ValueError(f"the data-parallel group runs on {self.dp.device.type}, "
+                             f"this trainer on {self.device.type}")
+        # only rank 0 writes the model, .mat files, checkpoints and the log file
+        self.is_writer = self.dp is None or self.dp.rank == 0
         self.logger = logger or get_color_logger(
-            cfg.run.get("log_dir"),
+            cfg.run.get("log_dir") if self.is_writer else None,
             str(cfg.dataset.get("name", "dataset")) + "-" + self.device.type)
         self.logger.info(f"parameters: {cfg.to_dict()}")
         if int(cfg.run.get("scan_steps", 1)) > 1:
@@ -113,7 +140,8 @@ class BaseTrainer:
         self.model_state = model_state
         self.batch_size = batch_size
         self.save_dir = save_dir
-        os.makedirs(save_dir, exist_ok=True)
+        if self.is_writer:
+            os.makedirs(save_dir, exist_ok=True)
 
         self.global_step = 0
         self.max_mapi2t = 0.0
@@ -134,6 +162,11 @@ class BaseTrainer:
                            batch_size=batch_size, shuffle=cfg.run.get("shuffle", True))
         self.build_model(cfg.model, output_dim=output_dim)
         self.build_optimizer(cfg.optimizer)
+        if self.dp is not None:
+            # every rank starts from rank 0's model and method state
+            dp.broadcast_([*(p.detach() for p in self.model.parameters()),
+                           *self.model.buffers(), *_tree_leaves(self.method_state)])
+            self.logger.info(f"data parallel: rank {self.dp.rank} of {self.dp.world}")
         if auto_run:
             self.run()
 
@@ -179,6 +212,9 @@ class BaseTrainer:
         self.logger.info(f"retrieval shape: {tuple(self.retrieval_labels.shape)}")
         workers = self.cfg.run.get("num_workers", 0)
         eval_batch = self.cfg.run.get("eval_batch_size", batch_size)
+        if self.dp is not None:
+            dp.check_batch_divisible(batch_size, self.dp.world, "run.batch_size")
+            dp.check_batch_divisible(eval_batch, self.dp.world, "run.eval_batch_size")
         self.train_loader = HostDataLoader(train_data, batch_size=batch_size,
                                            shuffle=shuffle, num_workers=workers)
         self.query_loader = HostDataLoader(query_data, batch_size=eval_batch,
@@ -256,11 +292,12 @@ class BaseTrainer:
         extra = self.method.extra_param_groups(cfg_optimizer)
         self.extra_optimizers = {g["name"]: torch.optim.SGD([dict(g)], lr=g["lr"])
                                  for g in extra}
-        # the flat path by default, as cmh_tpu runs it off a mesh
+        # the flat path by default, the tree path under data parallelism, as
+        # cmh_tpu runs them off and on a mesh (runners/base.py:270-274)
         self.optimizer = BertAdam(
             param_groups(self.model, lr, backbone_lr,
                          exclude=[p for g in extra for p in g["params"]]),
-            lr=lr, flat=bool(cfg_optimizer.get("flat", True)), **common)
+            lr=lr, flat=bool(cfg_optimizer.get("flat", self.dp is None)), **common)
         self._lrs = (lr, backbone_lr)
         self.logger.info("Building optimizer!")
 
@@ -333,8 +370,29 @@ class BaseTrainer:
                 self._restore_meta(pristine["meta"])
         return 0
 
+    def _resume_every_rank(self) -> int:
+        """``_resume`` under data parallelism: rank 0 alone reads the
+        checkpoint (the others may not see its file) and every rank takes
+        rank 0's state, meta and start epoch."""
+        if self.dp is None:
+            return self._resume()
+        state = None
+        if self.dp.rank == 0:
+            try:
+                state = self._state_blob(self._resume())
+            except Exception as e:
+                dp.broadcast_tree(f"{type(e).__name__}: {e}", self.dp)
+                raise
+        state = dp.broadcast_tree(state, self.dp)
+        if isinstance(state, str):
+            raise RuntimeError(f"rank 0 could not resume ({state})")
+        if self.dp.rank != 0:
+            self._load_state_blob(state)
+            self._restore_meta(state["meta"])
+        return int(state["meta"]["epoch"])
+
     def train(self):
-        start_epoch = self._resume()
+        start_epoch = self._resume_every_rank()
         ckpt_every = int(self.cfg.run.get("checkpoint_every", 0) or 0)
         # SIGTERM only sets a flag; the loop raises PreemptionRequested at
         # its next safe point (after a step, between epochs). Only the main
@@ -386,9 +444,14 @@ class BaseTrainer:
             f"mAP: {self.max_mapi2t}, T-I: {self.best_epoch_t}, mAP: {self.max_mapt2i}")
 
     def _check_preempted(self):
-        """Raise PreemptionRequested if SIGTERM arrived (once per signal)."""
-        if self._preempt_signal is not None:
-            sig, self._preempt_signal = self._preempt_signal, None
+        """Raise PreemptionRequested if SIGTERM arrived (once per signal);
+        under data parallelism on every rank when it reached any, so that
+        all stop at the same step and rank 0 saves."""
+        sig = self._preempt_signal
+        if self.dp is not None:
+            sig = dp.agree(sig or 0) or None
+        if sig is not None:
+            self._preempt_signal = None
             raise PreemptionRequested(f"signal {sig}")
 
     def _to_device(self, batch):
@@ -402,13 +465,22 @@ class BaseTrainer:
         """One step of every optimizer on a host batch; returns (loss,
         loss_dict) as device tensors. Dropout masks and a method's per-step
         randomness are functions of (``run.seed``, step), where step is the
-        optimizer step count (cmh_tpu's ``state.step``)."""
+        optimizer step count (cmh_tpu's ``state.step``). Under data
+        parallelism the towers take this rank's rows of the batch and
+        everything after them the gathered global batch."""
         self.model.train()
-        b = self._to_device(batch)
         step = self.optimizer.step_count
+        if self.dp is None:
+            b = self._to_device(batch)
+            towers = contextlib.nullcontext
+        else:
+            b = self._to_device({k: v for k, v in batch.items() if k != "image"})
+            b.update(self._to_device(dp.shard_batch({k: batch[k] for k in dp.ROW_KEYS},
+                                                    self.dp)))
+            towers = lambda: dp.gathered_towers(self.model.backbone, self.dp)  # noqa: E731
 
         def forward_and_loss(image, text, kpm):
-            with dropout_rng(self.seed, step):
+            with dropout_rng(self.seed, step), towers():
                 outputs = self.model(image, text, kpm)
             return self.method.loss(outputs, b, self.method_state, step)
 
@@ -421,6 +493,8 @@ class BaseTrainer:
         for opt in self._optimizers():
             opt.zero_grad(set_to_none=True)
         loss.backward()
+        if self.dp is not None:
+            dp.average_gradients(self.model.parameters(), self.dp)
         for opt in self._optimizers():
             opt.step()
         self.method_state = method_state
@@ -433,7 +507,8 @@ class BaseTrainer:
         for batch in _waited(self.train_loader, wait):
             self.global_step += 1
             times += 1
-            if self.profile_dir and self.global_step == 2 and self._profiler is None:
+            if (self.profile_dir and self.is_writer and self.global_step == 2
+                    and self._profiler is None):
                 self._start_profiler()
             loss, loss_dict = self.train_step(batch)
             all_loss = loss if all_loss is None else all_loss + loss
@@ -498,15 +573,29 @@ class BaseTrainer:
     def get_code(self, data_loader, length: int, wait=None):
         """±1 codes (image, text) of every item, indexed by the batches'
         ``index``; ``wait``, a one-element list, gathers the seconds spent
-        waiting for the loader."""
+        waiting for the loader. Under data parallelism each rank encodes its
+        rows of every batch (``eval_rows``) and ``join_codes`` sums the
+        buffers over the ranks."""
         k = self.method.eval_code_dims()
         bufs = (torch.zeros((length, k), dtype=torch.float32, device=self.device),
                 torch.zeros((length, k), dtype=torch.float32, device=self.device))
         for batch in _waited(data_loader, [0.0] if wait is None else wait):
+            batch = self.eval_rows(batch)
             valid = torch.as_tensor(batch["valid"], device=self.device)
             idx = torch.as_tensor(batch["index"], device=self.device).long()[valid]
             for buf, h in zip(bufs, self.generate_hash(batch)):
                 buf[idx] = self.method.make_hash_code(h)[valid].to(buf.dtype)
+        return self.join_codes(bufs)
+
+    def eval_rows(self, batch):
+        """This rank's rows of an eval batch (all of it off data parallelism)."""
+        return batch if self.dp is None else dp.shard_batch(batch, self.dp, batch.keys())
+
+    def join_codes(self, bufs):
+        """Code buffers (a tree of tensors) summed over the ranks: each item
+        is written by one rank, the others hold zeros."""
+        if self.dp is not None:
+            dp.all_reduce_sum_(_tree_leaves(bufs))
         return bufs
 
     def valid_codes_and_maps(self, epoch: int, k: Optional[int] = None):
@@ -533,8 +622,7 @@ class BaseTrainer:
         return (query_img, query_txt, retrieval_img, retrieval_txt), maps
 
     def valid(self, epoch: int, k: Optional[int] = None):
-        save_dir = os.path.join(self.save_dir, "mat_files")
-        os.makedirs(save_dir, exist_ok=True)
+        save_dir = self.mat_dir()
         (query_img, query_txt, retrieval_img, retrieval_txt), maps = \
             self.valid_codes_and_maps(epoch, k)
         mapi2t, mapt2i, mapi2i, mapt2t = maps
@@ -561,18 +649,27 @@ class BaseTrainer:
     def calc_map_4dir(self, query_img, query_txt, retrieval_img, retrieval_txt,
                       k: Optional[int]):
         """Four-direction mAP: K3 on the card, the plain counting rank on the
-        CPU, the argsort route for codes over 4094 bits."""
-        from ..ops.map_bucketed import calc_map_k_4dir_auto
+        CPU, the argsort route for codes over 4094 bits; under data
+        parallelism sharded over the queries of the group."""
+        from ..ops.map_bucketed import calc_map_k_4dir_auto, calc_map_k_4dir_sharded
 
-        return calc_map_k_4dir_auto(query_img, query_txt, retrieval_img,
-                                    retrieval_txt, self.query_labels,
-                                    self.retrieval_labels, k)
+        args = (query_img, query_txt, retrieval_img, retrieval_txt, self.query_labels,
+                self.retrieval_labels, k)
+        if self.dp is not None:
+            return calc_map_k_4dir_sharded(*args, group=self.dp)
+        return calc_map_k_4dir_auto(*args)
+
+    def mat_dir(self) -> str:
+        """``<save_dir>/mat_files``, made by the rank that writes."""
+        path = os.path.join(self.save_dir, "mat_files")
+        if self.is_writer:
+            os.makedirs(path, exist_ok=True)
+        return path
 
     def test(self):
         assert self.model_state != "", "test step must provide the model file!"
         self.logger.info("Test.")
-        save_dir = os.path.join(self.save_dir, "mat_files")
-        os.makedirs(save_dir, exist_ok=True)
+        save_dir = self.mat_dir()
         # the first two buffers: TwDH's get_code gives its long codes there
         query_img, query_txt = self.get_code(self.query_loader, self.query_num)[:2]
         retrieval_img, retrieval_txt = self.get_code(self.retrieval_loader,
@@ -588,13 +685,14 @@ class BaseTrainer:
         return maps
 
     # ------------------------------------------------------------- artifacts
-    @staticmethod
-    def save_mat(query_img, query_txt, query_labels, retrieval_img,
+    def save_mat(self, query_img, query_txt, query_labels, retrieval_img,
                  retrieval_txt, retrieval_labels, save_file="i2t"):
         """The reference ``.mat`` schema: q_img, q_txt, r_img, r_txt (±1
-        codes), q_l, r_l (labels)."""
+        codes), q_l, r_l (labels); written by rank 0 only."""
         import scipy.io as scio
 
+        if not self.is_writer:
+            return
         scio.savemat(save_file, host_arrays(
             q_img=query_img, q_txt=query_txt, r_img=retrieval_img, r_txt=retrieval_txt,
             q_l=query_labels, r_l=retrieval_labels))
@@ -613,6 +711,8 @@ class BaseTrainer:
         BatchNorm's running statistics) as ``model-<epoch>.pt``.
         ``run.resume_model`` reads it back, or a cmh_tpu
         ``model-<epoch>.msgpack`` (``Method.read_model_file``)."""
+        if not self.is_writer:
+            return
         path = os.path.join(save_dir, "model-" + other + str(epoch) + ".pt")
         state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
         torch.save(state, path)
@@ -679,24 +779,36 @@ class BaseTrainer:
         return converted
 
     def save_checkpoint(self, path: str, epoch: int = 0):
-        """``_state_blob`` written to ``path`` with its sidecar."""
-        checkpoint.write(path, self._state_blob(epoch))
+        """``_state_blob`` written to ``path`` with its sidecar, by rank 0
+        only; a path ending in ``.msgpack`` gets cmh_tpu's layout, its
+        BertAdam state flat or tree as this trainer's optimizer keeps it
+        (``jax_checkpoint.write`` takes either)."""
+        if not self.is_writer:
+            return
+        if checkpoint.is_jax(path):
+            jax_checkpoint.write(path, self, epoch, self.optimizer.flat)
+        else:
+            checkpoint.write(path, self._state_blob(epoch))
         self.logger.info(f"checkpoint saved to {path}")
 
     def load_checkpoint(self, path: str) -> int:
-        """Restore a checkpoint of ``save_checkpoint``; returns the epoch to
-        resume at. An optimizer state of the other path (flat or tree) is
-        converted. A fingerprint that differs from this run's is named in a
-        warning and the load goes on (it was asked for explicitly)."""
-        blob = checkpoint.read(path)
+        """Restore a checkpoint of ``save_checkpoint``, or cmh_tpu's (a
+        ``.msgpack`` path); returns the epoch to resume at. An optimizer
+        state of the other path (flat or tree) is converted. A fingerprint
+        that differs from this run's is named in a warning and the load goes
+        on (it was asked for explicitly)."""
+        jax = checkpoint.is_jax(path)
+        blob = jax_checkpoint.decode(path) if jax else checkpoint.read(path)
         try:
+            if jax:
+                blob = jax_checkpoint.blob_from_jax(blob, self)
             meta = blob["meta"]
             converted = self._load_state_blob(blob)
         except (KeyError, TypeError, ValueError, RuntimeError) as e:
             raise ValueError(
                 f"checkpoint at {path} does not match this trainer's state structure "
                 f"(different method/model config?): {type(e).__name__}: {e}") from e
-        if converted:
+        if converted and not jax:   # cmh_tpu's moments always come as per-parameter lists
             self.logger.info("optimizer state format converted (flat↔tree) on restore")
         fp, mine = meta.get("fingerprint"), self._config_fingerprint()
         if fp is not None and fp != mine:
@@ -771,6 +883,15 @@ def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     return tree.to(device, copy=True)
+
+
+def _tree_leaves(tree):
+    """The tensors of a nested dict, tuple or list, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tree_leaves(v)]
+    return [tree]
 
 
 def _tree_keys(tree):

@@ -10,7 +10,9 @@ sidecar ``<file>.meta.json`` with ``{"epoch", "fingerprint"}``, so a
 restart can tell which run wrote a file without reading a multi-GB state.
 Both are written to a temporary file and moved into place with
 ``os.replace``: a kill mid-write never leaves a truncated file under a
-valid name. cmh_tpu's full-state ``.msgpack`` checkpoints are not read.
+valid name. cmh_tpu's full-state ``checkpoint-last.msgpack`` and
+``emergency.ckpt.msgpack`` (same sidecar) are candidates too; a trainer
+reads and writes them through ``runners/jax_checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import torch
 
 CHECKPOINT_LAST = "checkpoint-last.pt"     # after every ``checkpoint_every`` epochs
 EMERGENCY = "emergency.ckpt.pt"            # on SIGTERM or a crash
+# cmh_tpu's names for the same two files
+JAX_NAMES = ("checkpoint-last.msgpack", "emergency.ckpt.msgpack")
 _SIDECAR = ".meta.json"
 # a checkpoint without a sidecar is opened for its fingerprint only up to
 # this size: larger ones would stall every restart that scans its siblings
@@ -47,7 +51,11 @@ def write(path: str, blob: dict) -> None:
     tmp = path + ".tmp"
     torch.save(blob, tmp)
     os.replace(tmp, path)
-    meta = blob["meta"]
+    write_sidecar(path, blob["meta"])
+
+
+def write_sidecar(path: str, meta: dict) -> None:
+    """``<path>.meta.json`` with the meta's ``epoch`` and ``fingerprint``."""
     tmp = path + _SIDECAR + ".tmp"
     with open(tmp, "w") as f:
         json.dump({"epoch": meta["epoch"], "fingerprint": meta["fingerprint"]}, f,
@@ -57,6 +65,11 @@ def write(path: str, blob: dict) -> None:
 
 def read(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def is_jax(path: str) -> bool:
+    """Whether ``path`` names a cmh_tpu (flax msgpack) checkpoint."""
+    return path.endswith(".msgpack")
 
 
 def read_fingerprint(path: str) -> Optional[dict]:
@@ -72,7 +85,12 @@ def read_fingerprint(path: str) -> Optional[dict]:
     try:
         if os.path.getsize(path) > _FALLBACK_MAX_BYTES:
             return None
-        blob = read(path)
+        if is_jax(path):
+            from ..utils import flax_msgpack
+
+            blob = flax_msgpack.load(path)
+        else:
+            blob = read(path)
         if isinstance(blob, dict) and isinstance(blob.get("meta"), dict):
             return blob["meta"].get("fingerprint")
     except Exception:   # truncated or foreign file: no identity
@@ -89,6 +107,6 @@ def candidates(root: str) -> List[str]:
         except OSError:
             return 0.0
 
-    found = [p for name in (CHECKPOINT_LAST, EMERGENCY)
+    found = [p for name in (CHECKPOINT_LAST, EMERGENCY, *JAX_NAMES)
              for p in glob.glob(os.path.join(root, "*", name))]
     return sorted(found, key=mtime, reverse=True)

@@ -52,7 +52,8 @@ class TwDHTrainer(BaseTrainer):
     @torch.no_grad()
     def get_code(self, data_loader, length: int, wait=None):
         """±1 codes of every item: (long image, long text, {width: short
-        image}, {width: short text})."""
+        image}, {width: short text}); under data parallelism each rank's rows
+        of every batch, summed over the ranks, as the base ``get_code``."""
         self.model.eval()
         dev = self.device
 
@@ -63,7 +64,7 @@ class TwDHTrainer(BaseTrainer):
         bufs = (zeros(self.long_dim), zeros(self.long_dim),
                 {w: zeros(int(w)) for w in widths}, {w: zeros(int(w)) for w in widths})
         for batch in _waited(data_loader, [0.0] if wait is None else wait):
-            b = self._to_device(batch)
+            b = self._to_device(self.eval_rows(batch))
             valid = b["valid"].bool()
             idx = b["index"].long()[valid]
             il, ish = self.method.encode_image(b["image"])
@@ -74,11 +75,10 @@ class TwDHTrainer(BaseTrainer):
             for w in widths:
                 bufs[2][w][idx] = make(ish[w])[valid]
                 bufs[3][w][idx] = make(tsh[w])[valid]
-        return bufs
+        return self.join_codes(bufs)
 
     def valid(self, epoch: int, k: Optional[int] = None):
-        save_dir = os.path.join(self.save_dir, "mat_files")
-        os.makedirs(save_dir, exist_ok=True)
+        save_dir = self.mat_dir()
         self.logger.info("Valid.")
         t0, wait = time.time(), [0.0]
         q_li, q_lt, q_si, q_st = self.get_code(self.query_loader, self.query_num, wait)

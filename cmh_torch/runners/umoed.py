@@ -44,8 +44,7 @@ class UMoEDTrainer(BaseTrainer):
             self.best_epoch_t2t = int(extra["best_epoch_t2t"])
 
     def valid(self, epoch: int, k: Optional[int] = None):
-        save_dir = os.path.join(self.save_dir, "mat_files")
-        os.makedirs(save_dir, exist_ok=True)
+        save_dir = self.mat_dir()
         (q_img, q_txt, r_img, r_txt), maps = self.valid_codes_and_maps(epoch, k)
         mapi2t, mapt2i, mapi2i, mapt2t = maps
         q_fus, r_fus = torch.zeros_like(q_img), torch.zeros_like(r_img)
@@ -79,11 +78,14 @@ class UMoEDTrainer(BaseTrainer):
             f"MAX MAP(t->t): {self.max_mapt2t}")
         return maps
 
-    @staticmethod
-    def save_mat_fusion(query_img, query_txt, query_fusion, query_labels, retrieval_img,
+    def save_mat_fusion(self, query_img, query_txt, query_fusion, query_labels, retrieval_img,
                         retrieval_txt, retrieval_fusion, retrieval_labels, save_file="i2t"):
-        """``save_mat``'s schema with the fusion buffers ``q_fus`` and ``r_fus``."""
+        """``save_mat``'s schema with the fusion buffers ``q_fus`` and
+        ``r_fus``; written by rank 0 only."""
         import scipy.io as scio
+
+        if not self.is_writer:
+            return
 
         scio.savemat(save_file, host_arrays(
             q_img=query_img, q_txt=query_txt, q_fus=query_fusion, r_img=retrieval_img,

@@ -19,6 +19,10 @@ host without a card, through the port's copy of cmh_tpu's native scorer
 raises, nothing falls back). ``search_cpu_plain`` is cmh_tpu's numpy path,
 the plain version the tests hold it against.
 
+``search(devices=[...])`` shards the gallery over devices (cmh_tpu's
+``search(mesh=)``, ``serving.py:479-607``); the HTTP server stays one card
+a process, as cmh_tpu's does.
+
 ``save``/``load`` use cmh_tpu's npz layout (uint32 ``packed``, ``bits``,
 ``count``), so an index written by either package loads in the other.
 """
@@ -26,7 +30,7 @@ the plain version the tests hold it against.
 from __future__ import annotations
 
 import threading
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,21 +46,28 @@ _PLAIN_BLOCK = 1 << 16
 
 
 def topk_blocked(q_packed: torch.Tensor, g_packed: torch.Tensor, topk: int,
-                 block: int, bits: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                 block: int, bits: int = 0, offset: int = 0,
+                 n_total: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by Hamming distance over ``g_packed`` in gallery blocks
     of ``block`` rows: (dist, idx), each (Q, topk) int64, ascending
-    distance, ties by lower index."""
-    n = g_packed.shape[0]
+    distance, ties by lower index. ``g_packed`` may be the rows from
+    ``offset`` of a gallery of ``n_total`` rows (a shard): the indices are
+    then the gallery's."""
+    n = n_total or g_packed.shape[0]
     cand = []
-    for start in range(0, n, block):
+    for start in range(0, g_packed.shape[0], block):
         d = hamming_packed(q_packed, g_packed[start:start + block], bits=bits)
-        idx = torch.arange(start, start + d.shape[1], device=d.device)
+        idx = torch.arange(offset + start, offset + start + d.shape[1], device=d.device)
         key = d.to(torch.int64) * n + idx
         cand.append(torch.topk(key, min(topk, key.shape[1]), dim=1,
                                largest=False, sorted=True).values)
-    keys = cand[0] if len(cand) == 1 else torch.topk(
-        torch.cat(cand, dim=1), topk, dim=1, largest=False, sorted=True).values
+    keys = cand[0] if len(cand) == 1 else _smallest(torch.cat(cand, dim=1), topk)
     return keys // n, keys % n
+
+
+def _smallest(keys: torch.Tensor, topk: int) -> torch.Tensor:
+    return torch.topk(keys, min(topk, keys.shape[1]), dim=1, largest=False,
+                      sorted=True).values
 
 
 class RetrievalIndex:
@@ -71,6 +82,8 @@ class RetrievalIndex:
         self._host_packed: Optional[np.ndarray] = None
         self._lock = threading.Lock()
         self._count = 0
+        # devices → [(device, first row, the shard's packed rows)], until the next add
+        self._shards = {}
 
     def __len__(self) -> int:
         return self._count
@@ -86,6 +99,7 @@ class RetrievalIndex:
             self._count += codes.shape[0]
             self._packed = None
             self._host_packed = None
+            self._shards.clear()
 
     def _gallery(self) -> torch.Tensor:
         with self._lock:
@@ -96,22 +110,53 @@ class RetrievalIndex:
                 self._chunks = [self._packed]
             return self._packed
 
-    def search(self, query_codes, topk: int = 10, block: Optional[int] = None
-               ) -> Tuple[np.ndarray, np.ndarray]:
+    def search(self, query_codes, topk: int = 10, block: Optional[int] = None,
+               devices: Optional[Sequence] = None) -> Tuple[np.ndarray, np.ndarray]:
         """Exact top-k by Hamming distance: (distances (Q, topk) int32,
         indices (Q, topk) int32) in ascending-distance order, ties by
-        insertion order. Bit-equal to cmh_tpu's ``search``."""
+        insertion order. Bit-equal to cmh_tpu's ``search``.
+
+        With ``devices`` (cmh_tpu's ``search(mesh=)``), the gallery is split
+        once into even shards of ⌈N / len(devices)⌉ rows, one on each device
+        in turn (a device may be named twice), kept until the next ``add``;
+        each shard runs K4 and its own top-k with the gallery's indices, and
+        the candidates, in shard order, are merged on the first device on
+        the unique key distance·N + index, so the results are the unsharded
+        search's bit for bit."""
         q = torch.as_tensor(query_codes, dtype=torch.float32, device=self.device)
         if q.dim() != 2 or q.shape[1] != self.bits:
             raise ValueError(f"queries must be (Q, {self.bits}), got "
                              f"{tuple(q.shape)}")
         if not 0 < topk <= self._count:
             raise ValueError(f"topk={topk} outside (0, {self._count}]")
-        dist, idx = topk_blocked(pack_bits(q), self._gallery(), topk,
-                                 _DEVICE_BLOCK if block is None else block,
-                                 self.bits)
+        block = _DEVICE_BLOCK if block is None else block
+        qp = pack_bits(q)
+        if devices:
+            n = self._count
+            shards = self._sharded(devices)
+            first = shards[0][0]
+            keys = [(d * n + i).to(first) for d, i in (
+                topk_blocked(qp.to(dev), rows, topk, block, self.bits, offset=start, n_total=n)
+                for dev, start, rows in shards)]
+            keys = _smallest(torch.cat(keys, dim=1), topk)
+            dist, idx = keys // n, keys % n
+        else:
+            dist, idx = topk_blocked(qp, self._gallery(), topk, block, self.bits)
         return (dist.to(torch.int32).cpu().numpy(),
                 idx.to(torch.int32).cpu().numpy())
+
+    def _sharded(self, devices: Sequence):
+        """The gallery's shards over ``devices``, split once until the next
+        ``add``: a device that holds the gallery gets views of its rows."""
+        key = tuple(str(resolve_device(d)) for d in devices)
+        gallery = self._gallery()
+        with self._lock:
+            if key not in self._shards:
+                n = gallery.shape[0]
+                per = -(-n // len(key))
+                self._shards[key] = [(torch.device(d), i * per, gallery[i * per:(i + 1) * per].to(d))
+                                     for i, d in enumerate(key) if i * per < n]
+            return self._shards[key]
 
     def search_cpu(self, query_codes, topk: int = 10, n_threads: int = 0
                    ) -> Tuple[np.ndarray, np.ndarray]:

@@ -63,16 +63,21 @@ def test_cli_refuses_the_cpu_unless_asked(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--config-file", _cfg(tmp_path), "--save-dir", str(tmp_path / "o")])
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    # one process a card: the CPU has none to spread over
+    with pytest.raises(AssertionError, match="more than one device"):
         main(["--config-file", _cfg(tmp_path), "--save-dir", str(tmp_path / "o"),
               "--device", "cpu", "--distribute"])
 
 
-@pytest.mark.parametrize("extra,match", [
-    (", tp: 2", "tp"), (", distribute: True", "distribute"),
-    (", multi_host: True", "multi_host")])
-def test_unported_run_keys_raise(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("extra,error,match", [
+    (", tp: 2", NotImplementedError, "run.tp=2 .*'Tensor parallelism'"),
+    (", distribute: True, tp: 2", NotImplementedError, "'Tensor parallelism'"),
+    (", multi_host: True", ValueError,
+     "run.multi_host needs run.num_processes and run.process_id")])
+def test_unported_run_keys_raise(tmp_path, extra, error, match):
+    """``run.tp`` is not ported; ``run.multi_host`` needs cmh_tpu's keys of
+    the group (``tests/test_torch_dp.py`` runs it)."""
+    with pytest.raises(error, match=match):
         main(["--config-file", _cfg(tmp_path, extra), "--save-dir", str(tmp_path / "o"),
               "--device", "cpu"])
 

@@ -40,7 +40,8 @@ TRAINING_MODULES = {
     "cmh_torch.models.convert", "cmh_torch.serving", "cmh_torch.export",
     "cmh_torch.models.dimch", "cmh_torch.models.umoed", "cmh_torch.runners.dimch",
     "cmh_torch.runners.umoed", "cmh_torch.ops.distances", "cmh_torch.server",
-    "cmh_torch.models.clip.api", "cmh_torch.models.clip.resnet"}
+    "cmh_torch.models.clip.api", "cmh_torch.models.clip.resnet", "cmh_torch.parallel.dp",
+    "cmh_torch.runners.jax_checkpoint"}
 
 
 def test_import_pulls_in_no_jax_and_no_cmh_tpu():
