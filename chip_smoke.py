@@ -145,6 +145,27 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
       search over ``[cuda:0, cuda:0]`` on phase 7's index against the
       unsharded, bit for bit; their times.
 
+16. tensor parallelism (``run.tp``) on the one card: each run is a set of
+   worker processes (``python3 chip_smoke.py --tp-worker <plan>``) in a gloo
+   group on cuda:0 (NCCL refuses two ranks on one device), each with a
+   timeout; first one process's first steps of the runs below are timed
+   here, and the fp32 products of tensor parallelism against the bf16 ones:
+   a. the full-width fp32 DCMHT model at tp=2 on grad_parity's 8 pairs, TF32
+      off, against one process on the card: loss within 1e-5 relative, the
+      gathered gradients within 2e-4 of their largest;
+   b. DCMHT in bf16 at dp=2 × tp=2 (phase 15's YAML with ``run.tp: 2``): 2
+      steps and the ``valid`` codes and mAPs, the checkpoint gathered and
+      written; a fresh tp=2 group resumes it (state bit-equal to the file)
+      and takes a step and a ``valid``; the first loss within 1e-3 of one
+      process's;
+   c. ViT-L/14 (phase 14's archive) at tp=2, batch 20: a step and a
+      ``valid``, the row-tiled K2 at 8 heads a rank, the loss within 1e-3 of
+      one process's;
+   d. UMoED (phase 13's YAML) at tp=2, batch 50: a step and a ``valid``, its
+      experts sharded, the loss within 1e-3 of one process's.
+   Every rank's K1 and K2 each way, and K3 on the trainers' paths, must
+   launch; the all-reduces a step and their bytes are printed.
+
 Phase 3 holds K1 in fp32 at UMoED's decoder rows (6400, 512) too, and K2 on
 the text tower with the causal mask alone (DIMCH's and UMoED's text tower
 runs without the key-padding mask), forward and backward; the bf16 K2 rows
@@ -156,8 +177,9 @@ limit at (4, 16, 3153, 64), its rows in device memory; in 3xTF32
 (``tiled_fwd_tf32``, ``tiled_bwd_tf32``) ViT-L/14's (4, 16, 257, 64) both
 ways and MITH's 128-bit (100, 8, 128, 64) backward in fp32.
 
-The last lines are the card's name and power limit, one JSON object with a
-``kernels`` list, and ``{"ok": true, "device": {...}}``.
+The last lines are the script's seconds, the card's name and power limit,
+one JSON object with a ``kernels`` list, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -2375,12 +2397,14 @@ def write_openai_archive(torch, state, path):
     return os.path.getsize(path)
 
 
-def long_sequences(torch, counters):
-    """Phase 14: the row-tiled K2 on its main path and the new modules."""
+def long_sequences(torch, counters, keep):
+    """Phase 14: the row-tiled K2 on its main path and the new modules; the
+    seeded ViT-L/14 archive is written under ``keep`` (phase 16 reads it)."""
     by_path, tiled_by_path = {}, {}
     root = tempfile.mkdtemp(prefix="cmh_smoke_long_")
     try:
-        by_path["ViT-L/14"], tiled_by_path["ViT-L/14"] = vit_l14_training(torch, counters, root)
+        by_path["ViT-L/14"], tiled_by_path["ViT-L/14"] = vit_l14_training(torch, counters, root,
+                                                                          keep)
         by_path["ViT-B/16 encode"], tiled_by_path["ViT-B/16 encode"] = vit_b16_encode(
             torch, counters)
         by_path["ViT-L/14 fp32"], tiled_by_path["ViT-L/14 fp32"] = vit_l14_fp32(torch, counters)
@@ -2391,7 +2415,7 @@ def long_sequences(torch, counters):
     return by_path, tiled_by_path
 
 
-def vit_l14_training(torch, counters, root):
+def vit_l14_training(torch, counters, root, keep):
     """14a, the slice's main path: DCMHT through the CLI with a seeded
     ViT-L/14 in OpenAI's layout at ``model.clip_path`` of
     configs/DCMHT/synthetic_tpu.yaml's dataset, 2 epochs of 2 steps at batch
@@ -2405,7 +2429,7 @@ def vit_l14_training(torch, counters, root):
 
     clip = CLIP(CLIPConfig(**VIT_L14))
     clip.init_weights(torch.Generator().manual_seed(14))
-    path = os.path.join(root, "ViT-L-14.pt")
+    path = os.path.join(keep, "ViT-L-14.pt")
     t0 = time.perf_counter()
     nbytes = write_openai_archive(torch, clip.state_dict(), path)
     del clip
@@ -2839,7 +2863,443 @@ def phase15(torch, counters):
         shutil.rmtree(root, ignore_errors=True)
     return out
 
+# ---------------------------------------------------------------- phase 16
+TP_TIMEOUT = 300                 # phase 16's workers, in seconds
+# the fp32 products of ViT-B/32's vision blocks at tp=2, (a rank's contracted
+# width, the whole width): the row splits' forward partials and the column
+# splits' backward input gradients
+FP32_PRODUCTS = {"out_proj forward": (384, 768), "c_proj forward": (1536, 768),
+                 "in_proj input gradient": (1152, 768), "c_fc input gradient": (1536, 768)}
+L14_CUT = dict(batch_size=20, train_num=40, query_num=20)   # phase 16c's ViT-L/14 run
+UMOED_CUT = dict(batch_size=50, train_num=100, query_num=50)  # phase 16d's UMoED run
+
+
+def kernel_counters():
+    from cmh_torch.ops.attention import attention_bwd, fused_attention
+    from cmh_torch.ops.hamming import hamming_packed
+    from cmh_torch.ops.layernorm import fused_layernorm, layernorm_bwd
+    from cmh_torch.ops.map_kernel import map_ap, map_hist
+
+    return {"layernorm": fused_layernorm, "attention": fused_attention,
+            "hamming": hamming_packed, "layernorm_bwd": layernorm_bwd,
+            "attention_bwd": attention_bwd, "map_hist": map_hist, "map_ap": map_ap}
+
+
+def parity_inputs(torch, n):
+    """grad_parity's batch: ``n`` seeded 224 px images, tokenized captions
+    and one-hot labels, on the CPU."""
+    import numpy as np
+
+    from cmh_torch.models.clip.tokenizer import SimpleTokenizer, tokenize_caption
+
+    rng = np.random.RandomState(2)
+    img = torch.from_numpy(rng.randn(n, 224, 224, 3).astype(np.float32))
+    tok = SimpleTokenizer()
+    ids, kpm = (torch.from_numpy(np.stack(a)) for a in
+                zip(*(tokenize_caption(tok, c, MAX_WORDS) for c in CAPTIONS[:n])))
+    labels = torch.from_numpy(np.eye(4, dtype=np.float32)[[0, 1, 2, 3, 0, 1, 2, 3][:n]])
+    return img, ids, kpm, labels
+
+
+def tp_traffic():
+    from cmh_torch.parallel import dp, tp
+
+    return {"tp all-reduces": tp.traffic["all_reduces"], "tp bytes": tp.traffic["bytes"],
+            "dp all-reduces": dp.traffic["all_reduces"], "dp bytes": dp.traffic["bytes"]}
+
+
+def reset_traffic():
+    from cmh_torch.parallel import dp, tp
+
+    for t in (tp.traffic, dp.traffic):
+        t.update(all_reduces=0, bytes=0)
+
+
+def tp_parity(torch, counters, group, case):
+    """16a on one rank: the full-width fp32 DCMHT model of grad_parity with
+    this rank's shards, one loss and backward on 8 pairs, TF32 off; rank 0
+    also runs the whole model (one process on the card) and compares the
+    loss and the gathered gradients."""
+    from cmh_torch.models.clip.model import CLIPConfig
+    from cmh_torch.models.dcmht import DCMHTModel, dcmht_loss_fn
+    from cmh_torch.parallel import tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = DCMHTModel(CLIPConfig(dtype=torch.float32), CODE_BITS)
+    model.init_weights(torch.Generator().manual_seed(0)).train()
+    whole = copy.deepcopy(model).to("cuda") if group.global_rank == 0 else None
+    tp.shard_model_(model, group.shards)
+    model.to("cuda")
+    img, ids, kpm, labels = (t.to("cuda") for t in parity_inputs(torch, 8))
+    loss_fn = dcmht_loss_fn(output_dim=CODE_BITS)
+    reset_counts(counters)
+    # ---- the main path: the sharded model's forward and backward
+    loss, _, _ = loss_fn(model(img, ids, kpm), {"label": labels}, {}, 0)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts, fp32 = read_counts(counters), read_fp32(counters)
+    # ---- end of the main path
+    grads = {n: p.grad if tp.split_for(n) is None else tp.gather(p.grad, tp.split_for(n),
+                                                                 group.shards)
+             for n, p in model.named_parameters() if p.grad is not None}
+    out = {"loss": float(loss), "launches": counts, "fp32": fp32}
+    if whole is not None:
+        want, _, _ = loss_fn(whole(img, ids, kpm), {"label": labels}, {}, 0)
+        want.backward()
+        absorbed = {"backbone.visual.ln_post.bias", "hash.img_hash.atten.in_proj_bias",
+                    "hash.img_hash.atten.out_proj.bias"}
+        worst = (0.0, "")
+        for n, p in whole.named_parameters():
+            if p.grad is None or n in absorbed:
+                continue
+            rel = float((grads[n] - p.grad).abs().max() / p.grad.abs().max())
+            worst = max(worst, (rel, n))
+        out.update(whole_loss=float(want),
+                   loss_rel=abs(float(loss) - float(want)) / abs(float(want)),
+                   grad_rel=worst[0], grad_worst=worst[1],
+                   missing=sorted(set(n for n, p in whole.named_parameters()
+                                      if p.grad is not None) ^ set(grads)))
+    return out
+
+
+def timed_steps(torch, tr, batches):
+    """Each batch's train step on the host clock (synchronised), its loss and
+    the all-reduces it issued."""
+    losses, ms, traffic = [], [], []
+    for b in batches:
+        reset_traffic()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = tr.train_step(b)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        traffic.append(tp_traffic())
+    return losses, ms, traffic
+
+
+def tp_train(torch, counters, group, case):
+    """16b, 16c and 16d on one rank: a trainer of ``case["cfg"]`` in the
+    group, ``steps`` train steps on its first batches and the ``valid``
+    codes and mAPs (no files); with ``save``, the full-state checkpoint
+    gathered and written by rank 0; with ``resume``, the checkpoint resumed
+    first (rank 0 reads it) and the state held against the file."""
+    from cmh_torch.parallel import tp
+    from cmh_torch.runners import checkpoint
+
+    tr = trainer_from(case["cfg"])
+    out = {}
+    if case.get("resume"):
+        out["epoch"] = tr._resume_every_rank()
+        blob = tr._state_blob(out["epoch"])
+        if group.global_rank == 0:
+            saved = checkpoint.read(case["resume"])
+            bad = [k for k in saved["model"] if not torch.equal(saved["model"][k].cpu(),
+                                                                blob["model"][k].cpu())]
+            for i, (a, b) in enumerate(zip(saved["optimizer"]["groups"],
+                                           blob["optimizer"]["groups"])):
+                for slot in ("m", "v"):
+                    bad += [f"group {i} {slot} {j}"
+                            for j, (x, y) in enumerate(zip(a[slot], b[slot]))
+                            if not torch.equal(x.cpu(), y.cpu())]
+            bad += [] if saved["optimizer"]["step_count"] == blob["optimizer"]["step_count"] \
+                else ["step_count"]
+            out["resume_bad"] = bad
+        del blob
+    batches = [b for _, b in zip(range(case["steps"]), tr.train_loader)]
+    reset_counts(counters)
+    # ---- the main path: the steps and the valid
+    t0 = time.perf_counter()
+    out["losses"], out["step_ms"], out["traffic"] = timed_steps(torch, tr, batches)
+    _, out["maps"] = tr.valid_codes_and_maps(0, tr.top_k)
+    torch.cuda.synchronize()
+    out["launches"], out["tiled"] = read_counts(counters), read_tiled(counters)
+    out["main_path_s"] = time.perf_counter() - t0
+    # ---- end of the main path
+    out["sharded"] = len(tp.sharded_names(tr.model))
+    out["heads"] = {n: m.heads // (m.shards.size if m.shards else 1)
+                    for n, m in tr.model.named_modules()
+                    if type(m).__name__ == "MultiHeadAttention" and n.endswith(
+                        ("resblocks.0.attn", "layers.0.self_attn"))}
+    if case.get("save"):
+        t0 = time.perf_counter()
+        tr.save_checkpoint(case["save"], epoch=1)
+        out["save_s"] = time.perf_counter() - t0
+    if case.get("signal"):
+        open(case["signal"], "w").close()
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_worker(plan_path) -> int:
+    """A phase-16 process: rank ``rank`` of a gloo group on ``cuda:0`` (the
+    group's ranks share the one card), its cases in order, its results as
+    JSON."""
+    import torch
+
+    from cmh_torch.parallel import dp
+
+    with open(plan_path) as f:
+        plan = json.load(f)
+    counters = kernel_counters()
+    group = dp.init("localhost", plan["port"], plan["world"], plan["rank"],
+                    torch.device("cuda", 0), tp=plan["tp"], backend="gloo")
+    results = {}
+    try:
+        for case in plan["cases"]:
+            if case.get("wait"):
+                deadline = time.monotonic() + TP_TIMEOUT
+                while not os.path.exists(case["wait"]):
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"{case['wait']} never appeared")
+                    time.sleep(0.2)
+            t0 = time.perf_counter()
+            results[case["name"]] = {"parity": tp_parity, "train": tp_train}[case["kind"]](
+                torch, counters, group, case)
+            results[case["name"]]["case_s"] = time.perf_counter() - t0
+    finally:
+        dp.shutdown()
+    with open(plan["out"], "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def spawn_group(root, name, world, tp_size, cases):
+    """``world`` processes of ``python3 chip_smoke.py --tp-worker``, a (dp,
+    tp) mesh of gloo ranks on cuda:0."""
+    from cmh_torch.parallel import dp
+
+    port, jobs = dp.free_port(), []
+    for r in range(world):
+        plan = {"port": port, "world": world, "tp": tp_size, "rank": r, "cases": cases,
+                "out": os.path.join(root, f"{name}{r}.json")}
+        path = os.path.join(root, f"{name}{r}.plan.json")
+        with open(path, "w") as f:
+            json.dump(plan, f)
+        log = open(os.path.join(root, f"{name}{r}.log"), "w")
+        jobs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker",
+                                       path], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT),
+                     plan["out"], log.name))
+    return jobs
+
+
+def wait_groups(groups, timeout=TP_TIMEOUT):
+    """Every group's per-rank results; a worker that fails or outlives
+    ``timeout`` fails the phase (and every worker is stopped)."""
+    deadline = time.monotonic() + timeout
+    out = {}
+    try:
+        for name, jobs in groups.items():
+            out[name] = []
+            for proc, res, log in jobs:
+                try:
+                    rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+                except subprocess.TimeoutExpired:
+                    rc = None
+                if rc != 0:
+                    with open(log) as f:
+                        tail = f.read()[-3000:]
+                    what = "hung" if rc is None else f"exited {rc}"
+                    raise AssertionError(f"phase 16 {name}: a worker {what}: {tail}")
+                with open(res) as f:
+                    out[name].append(json.load(f))
+    finally:
+        stop_groups(groups)
+    return out
+
+
+def stop_groups(groups):
+    """Kill every worker of ``groups`` that is still running."""
+    for jobs in groups.values():
+        for proc, _, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def fp32_partial_cost(torch):
+    """The fp32 products of tensor parallelism at ViT-B/32's vision shapes
+    (batch 100, tp=2, rows B·S = 5,000): the bf16 product one process runs
+    (which rounds its output), against the fp32 one (``tp.fp32_product``,
+    TF32 on its bf16 operands) and the same product with TF32 off; CUDA
+    events."""
+    from cmh_torch.parallel import tp
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    out = {}
+    for name, (k, n) in FP32_PRODUCTS.items():
+        x = torch.randn(TRAIN_B * 50, k, generator=gen, device="cuda").bfloat16()
+        w = torch.randn(n, k, generator=gen, device="cuda").bfloat16()
+        out[name] = {"bf16_ms": cuda_ms(lambda: torch.matmul(x, w.t())),
+                     "fp32_partial_ms": cuda_ms(lambda: tp.fp32_product(x, w.t()))}
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            out[name]["fp32_no_tf32_ms"] = cuda_ms(lambda: torch.matmul(x.float(), w.float().t()))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    return out
+
+
+def tp_references(torch, root, archive):
+    """One process on the card, before any worker starts: DCMHT's first two
+    steps (bf16, phase 15's YAML) timed, and the first step of ViT-L/14
+    (phase 14's archive) and of UMoED (configs/UMoED/config.yaml cut as
+    phase 13's) on their trainers' first batches."""
+    out = {}
+    for name, cfg, steps in (("DCMHT", tp_config(root, "ref_dcmht"), 2),
+                             ("ViT-L/14", tp_config(root, "ref_l14", clip=archive, **L14_CUT), 1),
+                             ("UMoED", tp_config(root, "ref_umoed", arch="UMoED", **UMOED_CUT), 1)):
+        tr = trainer_from(cfg)
+        batches = [b for _, b in zip(range(steps), tr.train_loader)]
+        losses, ms, _ = timed_steps(torch, tr, batches)
+        out[name] = {"losses": losses, "step_ms": ms}
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_config(root, name, arch="DCMHT", clip=None, **run):
+    """Phase 15's DCMHT YAML (one epoch of 2 steps at batch 100, no
+    checkpoint), ViT-L/14's with ``clip``, or UMoED's phase-13 YAML cut the
+    same way."""
+    if arch == "DCMHT":
+        cfg = phase15_config(root, name)
+    else:
+        cfg = method_config(arch)
+        cfg["run"].update(epochs=1, checkpoint_every=0, auto_resume=False, remat=False,
+                          seed=0, save_dir=os.path.join(root, name),
+                          log_dir=os.path.join(root, name + "_log"))
+    cfg["run"].update(run)
+    if clip:
+        cfg["model"]["clip_path"] = clip
+    return cfg
+
+
+def phase16(torch, archive):
+    """Phase 16: tensor parallelism on the one card, its ranks gloo
+    processes sharing cuda:0 (NCCL refuses two ranks on one device)."""
+    root = tempfile.mkdtemp(prefix="cmh_smoke_tp_")
+    t_start = time.perf_counter()
+    try:
+        cost = fp32_partial_cost(torch)
+        refs = tp_references(torch, root, archive)
+        ckpt = os.path.join(root, "dt", "checkpoint-last.pt")
+        trained = os.path.join(root, "dt_trained")
+        tp2 = {"tp": 2}
+        plans = {
+            "dt": (4, [{"kind": "train", "name": "dp2 x tp2 DCMHT", "steps": 2, "save": ckpt,
+                        "signal": trained, "cfg": tp_config(root, "dt", **tp2)}]),
+            "tp": (2, [{"kind": "parity", "name": "tp2 fp32 parity", "wait": trained},
+                       {"kind": "train", "name": "tp2 resumed DCMHT", "steps": 1, "wait": ckpt,
+                        "resume": ckpt, "cfg": tp_config(root, "tp_resumed", epochs=2,
+                                                         resume_checkpoint=ckpt, **tp2)},
+                       {"kind": "train", "name": "tp2 ViT-L/14", "steps": 1,
+                        "cfg": tp_config(root, "tp_l14", clip=archive, **L14_CUT, **tp2)},
+                       {"kind": "train", "name": "tp2 UMoED", "steps": 1,
+                        "cfg": tp_config(root, "tp_umoed", arch="UMoED", **UMOED_CUT,
+                                         **tp2)}])}
+        groups = {}
+        try:
+            for name, (world, cases) in plans.items():
+                groups[name] = spawn_group(root, name, world, 2, cases)
+        except BaseException:
+            stop_groups(groups)
+            raise
+        res = wait_groups(groups)
+        return check_phase16(res, refs, cost, time.perf_counter() - t_start)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_phase16(res, refs, cost, seconds):
+    """Phase 16's checks and its lines; returns (launches by path, row-tiled
+    launches by path, fp32 launches by path), each summed over the ranks."""
+    import numpy as np
+
+    ranks = {"dp2 x tp2 DCMHT": [r["dp2 x tp2 DCMHT"] for r in res["dt"]]}
+    ranks.update({k: [r[k] for r in res["tp"]] for k in res["tp"][0]})
+    by_path, tiled_by_path, fp32_by_path = {}, {}, {}
+    for path, rs in ranks.items():
+        by_path[path] = {k: sum(r["launches"][k] for r in rs) for k in rs[0]["launches"]}
+        if "tiled" in rs[0]:
+            tiled_by_path[path] = {k: sum(r["tiled"][k] for r in rs) for k in rs[0]["tiled"]}
+        if "fp32" in rs[0]:
+            fp32_by_path[path] = {k: sum(r["fp32"][k] for r in rs) for k in rs[0]["fp32"]}
+        idle = [i for i, r in enumerate(rs)
+                if not all(r["launches"][k] for k in ("layernorm", "layernorm_bwd",
+                                                      "attention", "attention_bwd"))]
+        if idle:
+            raise AssertionError(f"phase 16 {path}: ranks {idle} never launched K1 or K2 "
+                                 "both ways")
+    # 16a: fp32 parity of the tp=2 model against one process on the card
+    par = ranks["tp2 fp32 parity"][0]
+    print(f"[phase 16a] ViT-B/32 DCMHT fp32, 8 pairs, tp=2 against one process on the card "
+          f"(TF32 off): loss {par['loss']!r} against {par['whole_loss']!r}, relative "
+          f"{par['loss_rel']:.3e}; largest per-tensor gradient difference {par['grad_rel']:.3e} "
+          f"of the largest ({par['grad_worst']}); fp32 launches a rank {par['fp32']}",
+          flush=True)
+    if par["missing"] or not par["loss_rel"] <= 1e-5 or not par["grad_rel"] <= 2e-4:
+        raise AssertionError(f"phase 16a: tp=2 differs from one process: {par}")
+    # 16b: dp=2 x tp=2, then a fresh tp=2 group resumes its checkpoint
+    dt = ranks["dp2 x tp2 DCMHT"]
+    if any(r["losses"] != dt[0]["losses"] or r["maps"] != dt[0]["maps"] for r in dt):
+        raise AssertionError("phase 16b: the ranks' losses or mAPs differ")
+    ref = refs["DCMHT"]
+    rel = abs(dt[0]["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    resumed = ranks["tp2 resumed DCMHT"]
+    print(f"[phase 16b] DCMHT bf16 dp=2 x tp=2 (gloo, ranks sharing one card): step losses "
+          f"{dt[0]['losses']} against one process's {ref['losses']} (first relative "
+          f"{rel:.3e}); step ms {[round(x, 2) for x in dt[0]['step_ms']]} against "
+          f"{[round(x, 2) for x in ref['step_ms']]} (host clock, the second steady); mAPs "
+          f"{dt[0]['maps']}; checkpoint gathered and written in {dt[0]['save_s']:.2f} s; "
+          f"a step's all-reduces {dt[0]['traffic'][-1]}", flush=True)
+    r0 = resumed[0]
+    print(f"[phase 16b] a fresh tp=2 group resumed it at epoch {r0['epoch']}: state against "
+          f"the file {r0['resume_bad'][:8] or 'bit-equal'}; step losses {r0['losses']}, step "
+          f"ms {[round(x, 2) for x in r0['step_ms']]} (the first after the resume); "
+          f"a step's all-reduces {resumed[0]['traffic'][-1]}", flush=True)
+    if resumed[0]["resume_bad"] or resumed[0]["epoch"] != 1 or not rel <= 1e-3:
+        raise AssertionError("phase 16b: the resumed state differs from the file, or the "
+                             "first loss from one process's")
+    if any(r["losses"] != resumed[0]["losses"] for r in resumed):
+        raise AssertionError("phase 16b: the resumed ranks' losses differ")
+    # 16c, 16d: one step each against one process's first step
+    for path, key in (("tp2 ViT-L/14", "ViT-L/14"), ("tp2 UMoED", "UMoED")):
+        r0, ref = ranks[path][0], refs[key]
+        rel = abs(r0["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+        print(f"[phase 16{'c' if 'L/14' in path else 'd'}] {key} tp=2: loss {r0['losses'][0]!r} "
+              f"against one process's {ref['losses'][0]!r} (relative {rel:.3e}); step "
+              f"{r0['step_ms'][0]:.1f} ms against {ref['step_ms'][0]:.1f} ms (host clock, first "
+              f"step); heads a rank {r0['heads']}; {r0['sharded']} parameters sharded; a "
+              f"step's all-reduces {r0['traffic'][-1]}; mAPs {r0['maps']}", flush=True)
+        if not rel <= 1e-3 or not np.all(np.isfinite(r0["maps"])):
+            raise AssertionError(f"phase 16: {key} tp=2 differs from one process: {rel}")
+        if any(r["losses"] != r0["losses"] for r in ranks[path]):
+            raise AssertionError(f"phase 16: {key}: the ranks' losses differ")
+    tiled = tiled_by_path["tp2 ViT-L/14"]
+    if not (tiled_launches(tiled, "tiled_fwd_mma") and tiled_launches(tiled, "tiled_bwd_mma")):
+        raise AssertionError(f"phase 16c: the row-tiled K2 never launched: {tiled}")
+    if 8 not in ranks["tp2 ViT-L/14"][0]["heads"].values():
+        raise AssertionError("phase 16c: the vision attention does not run 8 heads a rank")
+    for path in ("dp2 x tp2 DCMHT", "tp2 resumed DCMHT", "tp2 ViT-L/14", "tp2 UMoED"):
+        if not (by_path[path]["map_hist"] and by_path[path]["map_ap"]):
+            raise AssertionError(f"phase 16 {path}: K3 never launched")
+    print(f"[phase 16] all-reduces a step and a rank (gloo, ranks sharing one card): "
+          f"{ {p: rs[0]['traffic'][-1] for p, rs in ranks.items() if 'traffic' in rs[0]} }",
+          flush=True)
+    extra = sum(c["fp32_partial_ms"] - c["bf16_ms"] for c in cost.values())
+    print(f"[phase 16] fp32 products of a ViT-B/32 vision block at tp=2 (5,000 rows; ms, CUDA "
+          f"events): {cost}; their cost over the bf16 products {extra:.5f} ms a block, "
+          f"{12 * extra:.4f} ms over the 12 vision blocks of a step", flush=True)
+    print(f"[phase 16] {seconds:.1f} s; case seconds "
+          f"{ {p: round(rs[0]['case_s'], 1) for p, rs in ranks.items()} }", flush=True)
+    return by_path, tiled_by_path, fp32_by_path
+
+
 def main() -> int:
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2855,6 +3315,8 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the cmh_torch package is missing: {e}", file=sys.stderr)
         return 2
+    # files that one phase writes and a later one reads (phase 14's ViT-L/14 archive)
+    shared = tempfile.mkdtemp(prefix="cmh_smoke_shared_")
     try:
         smi = smi_line()
         print(f"[env] {smi}", flush=True)
@@ -2908,9 +3370,14 @@ def main() -> int:
         phase13, fp32_13 = train_dimch_umoed(torch, counters)
         by_path.update(phase13)
         fp32_by_path.update(fp32_13)
-        phase14, tiled_by_path = long_sequences(torch, counters)
+        phase14, tiled_by_path = long_sequences(torch, counters, shared)
         by_path.update(phase14)
         by_path.update(phase15(torch, counters))
+        phase16_paths, phase16_tiled, phase16_fp32 = phase16(
+            torch, os.path.join(shared, "ViT-L-14.pt"))
+        by_path.update(phase16_paths)
+        tiled_by_path.update(phase16_tiled)
+        fp32_by_path.update(phase16_fp32)
         train_kernels = ("layernorm", "layernorm_bwd", "attention", "attention_bwd",
                          "map_hist", "map_ap")
         for path, need in (("serving", ("layernorm", "attention", "hamming")),
@@ -2929,7 +3396,11 @@ def main() -> int:
                            ("cmh_tpu checkpoint", ("layernorm", "layernorm_bwd", "attention",
                                                    "attention_bwd")),
                            ("dp group of one", train_kernels),
-                           ("sharded", ("map_hist", "map_ap", "hamming"))):
+                           ("sharded", ("map_hist", "map_ap", "hamming")),
+                           ("tp2 fp32 parity", ("layernorm", "layernorm_bwd", "attention",
+                                                "attention_bwd")),
+                           ("dp2 x tp2 DCMHT", train_kernels), ("tp2 resumed DCMHT", train_kernels),
+                           ("tp2 ViT-L/14", train_kernels), ("tp2 UMoED", train_kernels)):
             idle = [k for k in need if by_path[path][k] == 0]
             if idle:
                 raise AssertionError(f"{path}: kernels {idle} were never launched")
@@ -2939,14 +3410,17 @@ def main() -> int:
         for path, need in (("ViT-L/14", ("tiled_fwd_mma", "tiled_bwd_mma")),
                            ("ViT-B/16 encode", ("tiled_fwd_mma",)),
                            ("ViT-L/14 fp32", ("tiled_fwd_tf32", "tiled_bwd_tf32")),
-                           ("MITH 128-bit", ("tiled_bwd_tf32",))):
+                           ("MITH 128-bit", ("tiled_bwd_tf32",)),
+                           ("tp2 ViT-L/14", ("tiled_fwd_mma", "tiled_bwd_mma"))):
             idle = [k for k in need if tiled_launches(tiled_by_path[path], k) == 0]
             if idle:
                 raise AssertionError(f"{path}: the row-tiled kernels {idle} were never launched")
         if by_path["ViT-L/14"]["attention"] == tiled_by_path["ViT-L/14"]["attention"]:
             raise AssertionError("ViT-L/14: the one-block K2 was never launched")
         for path, need in (("MITH", ("layernorm", "layernorm_bwd", "attention", "attention_bwd")),
-                           ("UMoED", ("layernorm", "layernorm_bwd"))):
+                           ("UMoED", ("layernorm", "layernorm_bwd")),
+                           ("tp2 fp32 parity", ("layernorm", "layernorm_bwd", "attention",
+                                                "attention_bwd"))):
             idle = [k for k in need if fp32_by_path[path][k] == 0]
             if idle:
                 raise AssertionError(f"{path}: the fp32 kernels {idle} were never launched")
@@ -2979,11 +3453,14 @@ def main() -> int:
             else:
                 seen[r["name"]] = {k: v for k, v in r.items() if k not in FLOORS}
                 kernels.append(seen[r["name"]])
+        print(f"[chip_smoke] {time.perf_counter() - started:.1f} s", flush=True)
         print(smi_line(), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        shutil.rmtree(shared, ignore_errors=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -2991,4 +3468,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(sys.argv[2]))
     sys.exit(main())

@@ -20,6 +20,10 @@ Data parallelism (``parallel/dp.py``), one process per card:
 - ``run.distribute: true`` alone runs the data-parallel path in a group of
   one.
 
+``run.tp: T`` makes the processes cmh_tpu's (dp, tp) mesh of ``world // T``
+by ``T`` (``parallel/tp.py``); the processes must divide by T (cmh_tpu's
+``ValueError`` otherwise, before any process starts or joins).
+
 ``run_config`` alone opens these groups and leaves them at the end; a
 trainer only reads the group it runs in.
 """
@@ -70,8 +74,9 @@ def maybe_init_distributed(cfg, device: str) -> bool:
 
     from .parallel import dp
 
+    tp_size = int(run.get("tp", 1) or 1)
     if not run.get("multi_host", False):
-        dp.init("localhost", dp.free_port(), 1, 0, torch.device(device))
+        dp.init("localhost", dp.free_port(), 1, 0, torch.device(device), tp=tp_size)
         return True
     missing = [k for k in ("num_processes", "process_id") if run.get(k, None) is None]
     if missing:
@@ -81,7 +86,7 @@ def maybe_init_distributed(cfg, device: str) -> bool:
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
     dp.init(run.get("distributed_addr", "localhost"), run.get("distributed_port", 12345),
-            int(run["num_processes"]), rank, dev)
+            int(run["num_processes"]), rank, dev, tp=tp_size)
     return True
 
 
@@ -128,11 +133,12 @@ def main(argv: Optional[list] = None):
         import torch
         import torch.multiprocessing as mp
 
-        from .parallel import dp
+        from .parallel import dp, tp
 
         world = torch.cuda.device_count() if args.device == "cuda" else 0
         if world < 2:
             raise AssertionError("distribute training needs more than one device!")
+        tp.check_world(world, int(cfg.run.get("tp", 1) or 1))
         os.makedirs(log_dir, exist_ok=True)
         mp.spawn(_spawned, args=(cfg.to_dict(), world, dp.free_port(), args.device),
                  nprocs=world)

@@ -10,6 +10,11 @@ last block. Parameters carry the reference torch CLIP names
 Every LayerNorm goes through kernel K1 (``ops/layernorm.py``) and every
 attention block but the last through kernel K2 (``ops/attention.py``); the
 last block takes the explicit path because its weights are returned.
+
+Under tensor parallelism (``parallel/tp.py``) an attention and a block's MLP
+hold this rank's shards (``shards`` set): the attention runs its own heads,
+through K2 or the explicit path, and the row-split products are summed over
+the group in fp32, rounded once and given their bias once.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from torch import nn
 
 from ...ops.attention import fused_attention
 from ...ops.layernorm import fused_layernorm
+from ...parallel import tp
 from ..common import Dropout
 
 EOT_TOKEN_ID = 49407
@@ -85,6 +91,25 @@ def _dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     return y if bias is None else y + bias.to(dtype)
 
 
+def _dense_in(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              dtype: torch.dtype, shards: Optional[tp.Shards]) -> torch.Tensor:
+    """``_dense`` of a column split: ``weight`` holds this rank's output
+    features, ``x`` is whole on every rank."""
+    if shards is None:
+        return _dense(x, weight, bias, dtype)
+    return tp.column_product(x.to(dtype), weight.to(dtype), shards) + bias.to(dtype)
+
+
+def _dense_out(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               dtype: torch.dtype, shards: Optional[tp.Shards]) -> torch.Tensor:
+    """``_dense`` of a row split: the ranks' fp32 partial products summed,
+    rounded once to ``dtype``, the whole bias added once."""
+    if shards is None:
+        return _dense(x, weight, bias, dtype)
+    y = tp.row_product(x.to(dtype), weight.to(dtype), shards).to(dtype)
+    return y + bias.to(dtype)
+
+
 class LayerNormFp32(nn.Module):
     """LayerNorm computed in fp32 whatever the activation dtype (kernel K1)."""
 
@@ -107,7 +132,10 @@ class MultiHeadAttention(nn.Module):
     ``dropout_rng``). Kernel K2 is self-attention only and returns no
     weights, so the explicit path runs whenever ``kv`` is given, dropout is
     active or the weights are asked for (cmh_tpu ``models/clip/model.py:203``).
-    ``init_torch_`` is torch's default init (``torch_init`` in cmh_tpu)."""
+    ``init_torch_`` is torch's default init (``torch_init`` in cmh_tpu).
+    With ``shards`` (``parallel/tp.py``) it holds this rank's heads."""
+
+    shards: Optional[tp.Shards] = None
 
     def __init__(self, width: int, heads: int, dtype: torch.dtype,
                  attn_dropout: float = 0.0):
@@ -130,20 +158,32 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias.zero_()
         self.out_proj.bias.zero_()
 
+    def shard_(self, shards: tp.Shards) -> None:
+        """Run on this rank's heads (``tp.shard_model_`` keeps their rows of
+        the in-projection and columns of the out-projection); the dropout
+        draws the whole heads' masks and keeps this rank's."""
+        if self.heads % shards.size:
+            raise ValueError(f"{self.heads} attention heads do not divide by tp={shards.size} "
+                             "(the port splits the attention by heads)")
+        self.shards = shards
+        self.attn_drop.shard = (1, shards.rank, shards.size)   # (B, H, L, S) by heads
+
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
                 key_padding_mask: Optional[torch.Tensor] = None,
                 need_weights: bool = True, kv: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         b, l, d = x.shape
-        h, dt = self.heads, self.dtype
-        hd = d // h
+        sh, dt = self.shards, self.dtype
+        hd = d // self.heads
+        h = self.heads // (sh.size if sh else 1)              # this rank's heads
+        w, bias = self.in_proj_weight, self.in_proj_bias
+        e = h * hd                                            # a q, k or v block's rows
         if kv is None:
-            q, k, v = _dense(x, self.in_proj_weight, self.in_proj_bias, dt).split(d, dim=-1)
+            q, k, v = _dense_in(x, w, bias, dt, sh).split(e, dim=-1)
         else:
-            w, bias = self.in_proj_weight, self.in_proj_bias
-            q = _dense(x, w[:d], bias[:d], dt)
-            k = _dense(kv, w[d:2 * d], bias[d:2 * d], dt)
-            v = _dense(kv, w[2 * d:], bias[2 * d:], dt)
+            q = _dense_in(x, w[:e], bias[:e], dt, sh)
+            k = _dense_in(kv, w[e:2 * e], bias[e:2 * e], dt, sh)
+            v = _dense_in(kv, w[2 * e:], bias[2 * e:], dt, sh)
         q, k, v = (t.reshape(b, t.shape[1], h, hd).transpose(1, 2)
                    for t in (q, k, v))                       # (B, H, L, hd)
         scale = hd**-0.5
@@ -151,8 +191,8 @@ class MultiHeadAttention(nn.Module):
 
         if not (need_weights or kv is not None or dropping):
             out = fused_attention(q, k, v, scale, attn_mask, key_padding_mask)
-            out = out.transpose(1, 2).reshape(b, l, d).to(dt)
-            return _dense(out, self.out_proj.weight, self.out_proj.bias, dt), None
+            out = out.transpose(1, 2).reshape(b, l, e).to(dt)
+            return _dense_out(out, self.out_proj.weight, self.out_proj.bias, dt, sh), None
 
         # explicit path: q scaled in the compute dtype before an
         # fp32-accumulated dot, as cmh_tpu's einsum path does
@@ -165,16 +205,30 @@ class MultiHeadAttention(nn.Module):
         weights = torch.softmax(logits, dim=-1)              # (B, H, L, S) fp32
         used = self.attn_drop(weights)
         out = torch.matmul(used.to(dt).float(), v.float())
-        out = out.transpose(1, 2).reshape(b, l, d).to(dt)
-        out = _dense(out, self.out_proj.weight, self.out_proj.bias, dt)
-        return out, weights.mean(dim=1)
+        out = out.transpose(1, 2).reshape(b, l, e).to(dt)
+        out = _dense_out(out, self.out_proj.weight, self.out_proj.bias, dt, sh)
+        if sh is None:
+            return out, weights.mean(dim=1)
+        # the mean over every rank's heads
+        return out, tp.sum_shards(weights.sum(dim=1), sh) / self.heads
 
 
 class MLP(nn.Module):
+    shards: Optional[tp.Shards] = None
+
     def __init__(self, width: int):
         super().__init__()
         self.c_fc = nn.Linear(width, width * 4)
         self.c_proj = nn.Linear(width * 4, width)
+
+    def shard_(self, shards: tp.Shards) -> None:
+        """Run ``c_fc`` as a column split and ``c_proj`` as a row split."""
+        self.shards = shards
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        sh = self.shards
+        y = quick_gelu(_dense_in(x, self.c_fc.weight, self.c_fc.bias, dtype, sh))
+        return _dense_out(y, self.c_proj.weight, self.c_proj.bias, dtype, sh)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -191,11 +245,7 @@ class ResidualAttentionBlock(nn.Module):
         attn_out, attn_weight = self.attn(self.ln_1(x), attn_mask,
                                           key_padding_mask, need_weights)
         x = x + attn_out
-        dt = self.dtype
-        y = self.ln_2(x).to(dt)
-        y = quick_gelu(_dense(y, self.mlp.c_fc.weight, self.mlp.c_fc.bias, dt))
-        y = _dense(y, self.mlp.c_proj.weight, self.mlp.c_proj.bias, dt)
-        return x + y, attn_weight
+        return x + self.mlp(self.ln_2(x).to(self.dtype), self.dtype), attn_weight
 
 
 class Transformer(nn.Module):

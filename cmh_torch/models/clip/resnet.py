@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .model import _dense
+from ...parallel import tp
+from .model import _dense, _dense_out
 
 
 class BatchNorm2d(nn.Module):
@@ -113,7 +114,10 @@ class AttentionPool2d(nn.Module):
     """The mean token's attention over the (HW + 1) tokens, projected by
     ``c_proj``: the dense layers in the compute dtype, q scaled in it before
     an fp32-accumulated dot, the fp32 softmax rounded to the compute dtype
-    before the weighted sum (cmh_tpu ``resnet.py:68-97``)."""
+    before the weighted sum (cmh_tpu ``resnet.py:68-97``). With ``shards``
+    (``parallel/tp.py``) ``c_proj`` holds this rank's input features."""
+
+    shards = None
 
     def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int,
                  output_dim: int = 0, dtype: torch.dtype = torch.float32):
@@ -124,6 +128,12 @@ class AttentionPool2d(nn.Module):
         self.k_proj = nn.Linear(embed_dim, embed_dim)
         self.v_proj = nn.Linear(embed_dim, embed_dim)
         self.c_proj = nn.Linear(embed_dim, output_dim or embed_dim)
+
+    def shard_(self, shards: tp.Shards) -> None:
+        """Run ``c_proj`` as a row split (``tp.shard_model_`` keeps this
+        rank's input features): the pooled features, computed whole on every
+        rank, give it their columns."""
+        self.shards = shards
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c = x.shape[:2]
@@ -143,7 +153,12 @@ class AttentionPool2d(nn.Module):
         weights = torch.softmax(logits, dim=-1).to(dt)
         pooled = torch.matmul(weights.float(), v.float()).to(dt)   # (B, nh, 1, hd)
         pooled = pooled.transpose(1, 2).reshape(b, c)
-        return _dense(pooled, self.c_proj.weight, self.c_proj.bias, dt)
+        sh = self.shards
+        if sh is None:
+            return _dense(pooled, self.c_proj.weight, self.c_proj.bias, dt)
+        # every rank's gradient of its columns summed: the whole gradient
+        pooled = tp.copy_to_shards(pooled, sh).chunk(sh.size, 1)[sh.rank]
+        return _dense_out(pooled, self.c_proj.weight, self.c_proj.bias, dt, sh)
 
 
 class ModifiedResNet(nn.Module):

@@ -153,10 +153,16 @@ class Dropout(nn.Module):
 
     ``Dropout.masks``, ``Dropout.mask_elements`` and ``Dropout.host_seconds``
     count the masks drawn, their elements and the host seconds spent drawing
-    them and copying them to the tensor's device."""
+    them and copying them to the tensor's device.
+
+    ``shard``, ``(dim, rank, size)``, says that ``x`` is rank ``rank``'s
+    part of ``size`` equal parts along ``dim`` (heads under tensor
+    parallelism): the mask is drawn at the whole shape and its part taken,
+    so every rank's masks and position counter are one process's."""
 
     masks = mask_elements = 0
     host_seconds = 0.0
+    shard = None
 
     def __init__(self, p: float):
         super().__init__()
@@ -171,9 +177,16 @@ class Dropout(nn.Module):
         gen = torch.Generator().manual_seed(
             derived_seed(_SCOPE.seed, _SCOPE.step, _SCOPE.position))
         _SCOPE.position += 1
-        keep = (torch.rand(x.shape, generator=gen) >= self.p).to(x.device)
+        if self.shard is None:
+            keep = torch.rand(x.shape, generator=gen) >= self.p
+        else:
+            dim, rank, size = self.shard
+            whole = list(x.shape)
+            whole[dim] *= size
+            keep = (torch.rand(whole, generator=gen) >= self.p).chunk(size, dim)[rank]
+        keep = keep.to(x.device)
         Dropout.host_seconds += time.perf_counter() - t0
         Dropout.masks += 1
-        Dropout.mask_elements += keep.numel()
+        Dropout.mask_elements += keep.numel() * (self.shard[2] if self.shard else 1)
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
                                                                   device=x.device))

@@ -39,6 +39,7 @@ from ..ops.distances import (batchwise_uniformity_loss_per_sample, normalize,
                              setwise_similarity, weighted_triplet_loss)
 from ..ops.hashing import linear_subspace_hash, softmax_hash, tanh_hash
 from ..ops.metrics import calc_label_sim, euclidean_similarity, full_fp32
+from ..parallel import tp
 from ..registry import registry
 from . import convert
 from .base import Method, resolve_clip_cfg
@@ -61,7 +62,15 @@ def _lecun_(lin: nn.Linear, generator: torch.Generator) -> None:
 class SoftMoE(nn.Module):
     """Soft mixture of experts over a token sequence: dispatch weights a
     softmax over the tokens, combine weights a softmax over all (expert,
-    slot) pairs, the experts one batched product."""
+    slot) pairs, the experts one batched product.
+
+    With ``shards`` (``parallel/tp.py``) this rank holds its experts: the
+    dispatch softmax is over the tokens, so it stays local; the combine
+    softmax over every rank's (expert, slot) pairs takes the group's
+    largest logit, and its numerator (the experts' outputs weighted by
+    ``exp``) and denominator are each summed over the group."""
+
+    shards = None
 
     def __init__(self, in_features: int, out_features: int, num_experts: int,
                  slots_per_expert: int):
@@ -71,17 +80,29 @@ class SoftMoE(nn.Module):
         self.experts.weight = nn.Parameter(torch.empty(num_experts, in_features, out_features))
         self.experts.bias = nn.Parameter(torch.empty(num_experts, out_features))
 
+    def shard_(self, shards) -> None:
+        """Run on this rank's experts (``tp.shard_model_`` keeps them)."""
+        self.shards = shards
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:            # (B, M, D_in)
-        x = x.float()
+        x, sh = x.float(), self.shards
         with full_fp32():
+            if sh is not None:
+                x = tp.copy_to_shards(x, sh)
             logits = torch.einsum("bmd,dnp->bmnp", x, self.phi)
             dispatch = torch.softmax(logits, dim=1)
             b, m = logits.shape[:2]
-            combine = torch.softmax(logits.reshape(b, m, -1), dim=-1).reshape(logits.shape)
             xs = torch.einsum("bmd,bmnp->bnpd", x, dispatch)
             ys = (torch.einsum("bnpd,nde->bnpe", xs, self.experts.weight)
                   + self.experts.bias[None, :, None, :])
-            return torch.einsum("bnpe,bmnp->bme", ys, combine)
+            if sh is None:
+                combine = torch.softmax(logits.reshape(b, m, -1), dim=-1).reshape(logits.shape)
+                return torch.einsum("bnpe,bmnp->bme", ys, combine)
+            top = tp.all_reduce_(logits.detach().reshape(b, m, -1).amax(-1), sh,
+                                 op=torch.distributed.ReduceOp.MAX)
+            e = torch.exp(logits - top[:, :, None, None])
+            num = tp.sum_shards(torch.einsum("bnpe,bmnp->bme", ys, e), sh)
+            return num / tp.sum_shards(e.sum(dim=(2, 3)), sh)[..., None]
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

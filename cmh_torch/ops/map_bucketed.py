@@ -79,7 +79,8 @@ def calc_map_k_4dir_sharded(q_img, q_txt, r_img, r_txt, query_labels, retrieval_
     the whole gallery through K3 and one all-reduce sums the four AP sums,
     so every rank returns the same mAPs. Codes up to ``MAX_KERNEL_BITS``
     (cmh_tpu stops at 1022); wider codes take the argsort route on every
-    rank."""
+    rank. Under tensor parallelism ``group`` is the data-parallel group:
+    the ranks of one tensor-parallel group rank the same shard."""
     import torch.distributed as dist
 
     if int(torch.as_tensor(q_img).shape[1]) > MAX_KERNEL_BITS:
@@ -87,7 +88,7 @@ def calc_map_k_4dir_sharded(q_img, q_txt, r_img, r_txt, query_labels, retrieval_
                                     retrieval_labels, k)
     sums = map_sums_4dir(q_img, q_txt, r_img, r_txt, query_labels, retrieval_labels, k,
                          shard=group.rank, n_shards=group.world)
-    dist.all_reduce(sums)
+    dist.all_reduce(sums, group=group.pg)
     return tuple(float(m) for m in (sums / len(q_img)).cpu())
 
 

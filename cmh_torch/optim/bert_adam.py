@@ -32,6 +32,12 @@ Two paths compute the same function:
   segmented sum runs in a fixed order (no atomics), so a step is
   bit-reproducible on the card.
 
+Under tensor parallelism (``shard_norms``) a parameter split over the ranks
+is one logical tensor: its clip norm is that of the whole tensor, so the
+sum of squares of each sharded leaf is all-reduced over the group (one
+all-reduce a group a step), and a replicated leaf's is not (it would be
+counted once a rank).
+
 ``state_dict()`` holds ``step_count`` and, per group, ``m`` and ``v``: one
 vector each on the flat path, a list of per-parameter tensors on the tree
 path. ``load_state_dict`` takes either form into either path.
@@ -107,6 +113,25 @@ class _FlatSpec:
                              f"expected ({self.total},)")
 
 
+def moment_list(saved, like: Sequence[torch.Tensor], what: str = "moment"
+                ) -> List[torch.Tensor]:
+    """A group's saved moment as per-parameter tensors: the views of a flat
+    vector laid out over tensors of ``like``'s shapes (checked), or the
+    per-parameter list as it is."""
+    if not torch.is_tensor(saved):
+        return list(saved)
+    spec = _FlatSpec(like)
+    spec.check(saved, what)
+    return spec.views(saved)
+
+
+def moment_vector(tensors: Sequence[torch.Tensor], like: Sequence[torch.Tensor],
+                  device) -> torch.Tensor:
+    """The inverse of ``moment_list``: ``tensors`` in one flat vector laid
+    out over tensors of ``like``'s shapes."""
+    return _FlatSpec(like).flatten(tensors, device)
+
+
 class BertAdam(torch.optim.Optimizer):
     def __init__(self, params: Iterable, lr: float, warmup: float = -1.0,
                  t_total: int = -1, schedule: str = "warmup_linear",
@@ -124,6 +149,13 @@ class BertAdam(torch.optim.Optimizer):
         # flat path: per group, its vectors and the views into them, made on
         # the first use and again if the parameters move to another device
         self._groups = [None] * len(self.param_groups)
+        self._shards = None      # (ids of the sharded parameters, tp.Shards)
+
+    def shard_norms(self, sharded: Iterable[torch.nn.Parameter], shards) -> None:
+        """Clip the parameters ``sharded`` (this rank's shards of tensors
+        split over the ``shards`` group, ``parallel/tp.py``) by the norms of
+        the whole tensors."""
+        self._shards = ({id(p) for p in sharded}, shards)
 
     def lr_factor(self, group=None) -> float:
         g = group or self.param_groups[0]
@@ -156,10 +188,14 @@ class BertAdam(torch.optim.Optimizer):
         b1, b2, e = group["b1"], group["b2"], group["e"]
         wd, max_norm = group["weight_decay"], group["max_grad_norm"]
         lr = group["lr"] * self.lr_factor(group)
-        for p in group["params"]:
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in group["params"]]
+        norms = self._sharded_norms(group["params"], grads) if max_norm > 0 else {}
+        for p, g in zip(group["params"], grads):
             if max_norm > 0:
-                norm = torch.linalg.vector_norm(g.float())
+                norm = norms.get(id(p))
+                if norm is None:
+                    norm = torch.linalg.vector_norm(g.float())
                 g = g * torch.clamp(max_norm / (norm + 1e-6), max=1.0)
             state = self._tree_state(p)
             m, v = state["m"], state["v"]
@@ -169,6 +205,21 @@ class BertAdam(torch.optim.Optimizer):
             if wd > 0.0:
                 upd.add_(p, alpha=wd)
             p.add_(upd, alpha=-lr)
+
+    def _sharded_norms(self, params, grads) -> dict:
+        """The whole tensors' norms of this group's sharded leaves, by
+        ``id(parameter)``: each rank's sums of squares, one all-reduce."""
+        if self._shards is None:
+            return {}
+        ids, shards = self._shards
+        mine = [(p, g) for p, g in zip(params, grads) if id(p) in ids]
+        if not mine:
+            return {}
+        from ..parallel import tp
+
+        ss = torch.stack([torch.linalg.vector_norm(g.float()) ** 2 for _, g in mine])
+        norms = tp.all_reduce_(ss, shards).sqrt()
+        return {id(p): n for (p, _), n in zip(mine, norms)}
 
     # ------------------------------------------------------------ flat path
     def _flat_group(self, i: int) -> dict:
@@ -213,6 +264,8 @@ class BertAdam(torch.optim.Optimizer):
             # elements has 49,408 chunks, whose fp32 sum would lose 1e-6
             leaf_ss = torch.segment_reduce((gc * gc).sum(1).double(), "sum",
                                            lengths=fg["lengths"], unsafe=True)
+            if self._shards is not None:
+                leaf_ss = self._flat_sharded_ss(fg, params, leaf_ss)
             coef = torch.clamp(max_norm / (leaf_ss.sqrt() + 1e-6), max=1.0).float()
             gc.mul_(coef[fg["chunk_leaf"]].unsqueeze(1))
         m, v, upd, denom = fg["m"], fg["v"], fg["upd"], fg["denom"]
@@ -223,6 +276,20 @@ class BertAdam(torch.optim.Optimizer):
         if wd > 0.0:
             torch._foreach_add_(fg["upd_views"], params, alpha=wd)
         torch._foreach_add_(params, fg["upd_views"], alpha=-lr)
+
+    def _flat_sharded_ss(self, fg: dict, params, leaf_ss: torch.Tensor) -> torch.Tensor:
+        """``leaf_ss`` with the sharded leaves' sums of squares summed over
+        the group (one all-reduce), the replicated ones as they were."""
+        ids, shards = self._shards
+        if "sharded" not in fg:
+            mask = [id(p) in ids for p in params]
+            fg["sharded"] = torch.tensor(mask, device=leaf_ss.device) if any(mask) else None
+        if fg["sharded"] is None:
+            return leaf_ss
+        from ..parallel import tp
+
+        summed = tp.all_reduce_(torch.where(fg["sharded"], leaf_ss, 0.0), shards)
+        return torch.where(fg["sharded"], summed, leaf_ss)
 
     # ---------------------------------------------------------------- state
     def state_dict(self) -> dict:

@@ -47,8 +47,19 @@ sums. Every rank holds the same state: a resume reads the checkpoint on
 rank 0 and broadcasts the state, and a SIGTERM that reaches any rank stops
 every rank at the same step. Only rank 0 writes files and logs to a file.
 
-Run keys that this port does not carry yet raise ``NotImplementedError``
-rather than being ignored (see ``UNPORTED_RUN_KEYS``).
+Tensor parallelism (``run.tp``, cmh_tpu's ``tp`` mesh axis,
+``runners/base.py:407-433``; ``parallel/tp.py``): the group is a (dp, tp)
+mesh. The model is built whole from the seed (and any file it reads), then
+each rank keeps its shards, so a tp run starts from the single process's
+weights. The ranks of a tensor-parallel group see the same rows; the towers'
+rows are gathered, the gradients averaged, the codes summed and the
+``valid`` sharded over the data-parallel group alone. BertAdam clips a
+sharded leaf by the whole tensor's norm. Every file is written in the
+single-process layout, gathered to rank 0 (``.pt`` checkpoints, ``model-N``
+and cmh_tpu's ``checkpoint-last.msgpack``), so a tp run resumes a
+single-process or cmh_tpu file and the other way round; a resume reads the
+file on rank 0, which broadcasts it, and each rank keeps its shards. The run
+fingerprint does not hold tp, as cmh_tpu's does not.
 """
 
 from __future__ import annotations
@@ -73,30 +84,16 @@ from ..models.clip.loader import read_torch_state_dict
 from ..models.common import dropout_rng
 from ..optim.bert_adam import BertAdam
 from ..optim.partition import param_groups
-from ..parallel import dp
+from ..parallel import dp, tp
 from ..registry import load_components, registry
 from ..utils.logger import get_color_logger
 from ..utils.seed import set_seed
 from . import checkpoint, jax_checkpoint
 
-# run key → (values that leave the feature off, the ROADMAP item that ports it)
-UNPORTED_RUN_KEYS = {
-    "tp": ((None, 1), "ROADMAP.md Queue 1, 'Tensor parallelism'"),
-}
-
-
 class PreemptionRequested(Exception):
     """SIGTERM arrived during training. ``train`` turns it into an emergency
     checkpoint and a clean return, so the same command restarted with
     ``run.auto_resume`` continues."""
-
-
-def check_run_keys(run) -> None:
-    """Raise on a run key whose feature is asked for but not ported."""
-    for key, (off, item) in UNPORTED_RUN_KEYS.items():
-        if key in run and run[key] not in off:
-            raise NotImplementedError(
-                f"run.{key}={run[key]!r} is not ported to cmh_torch yet ({item})")
 
 
 class BaseTrainer:
@@ -106,7 +103,6 @@ class BaseTrainer:
                  save_dir: str = "./result", display_step: int = 20,
                  top_k: Optional[int] = None, model_state: str = "",
                  batch_size: int = 128, auto_run: bool = True, **kwargs) -> None:
-        check_run_keys(cfg.run)
         load_components()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -119,8 +115,14 @@ class BaseTrainer:
         if self.dp is not None and self.dp.device.type != self.device.type:
             raise ValueError(f"the data-parallel group runs on {self.dp.device.type}, "
                              f"this trainer on {self.device.type}")
+        tp_size = int(cfg.run.get("tp", 1) or 1)
+        tp.check_world(1 if self.dp is None else self.dp.world * self.dp.tp, tp_size)
+        if self.dp is not None and self.dp.tp != tp_size:
+            raise ValueError(f"run.tp={tp_size}, but the process group was opened with "
+                             f"tp={self.dp.tp}")
+        self.shards = None if self.dp is None else self.dp.shards
         # only rank 0 writes the model, .mat files, checkpoints and the log file
-        self.is_writer = self.dp is None or self.dp.rank == 0
+        self.is_writer = self.dp is None or self.dp.global_rank == 0
         self.logger = logger or get_color_logger(
             cfg.run.get("log_dir") if self.is_writer else None,
             str(cfg.dataset.get("name", "dataset")) + "-" + self.device.type)
@@ -163,9 +165,10 @@ class BaseTrainer:
         self.build_model(cfg.model, output_dim=output_dim)
         self.build_optimizer(cfg.optimizer)
         if self.dp is not None:
-            # every rank starts from rank 0's model and method state
+            # every rank starts from its data-parallel group's rank 0's model
+            # and method state (the same shards: one tensor-parallel index)
             dp.broadcast_([*(p.detach() for p in self.model.parameters()),
-                           *self.model.buffers(), *_tree_leaves(self.method_state)])
+                           *self.model.buffers(), *_tree_leaves(self.method_state)], self.dp)
             self.logger.info(f"data parallel: rank {self.dp.rank} of {self.dp.world}")
         if auto_run:
             self.run()
@@ -250,6 +253,10 @@ class BaseTrainer:
                     "does not exist")
             self.logger.info("loading model...")
             self.model.load_state_dict(self.method.read_model_file(self.model_state))
+        if self.shards is not None:
+            names = tp.shard_model_(self.model, self.shards)
+            self.logger.info(f"tensor parallel: rank {self.shards.rank} of {self.shards.size}, "
+                             f"{len(names)} parameters sharded")
         self.model.to(self.device)
         self.remat = bool(self.cfg.run.get("remat", False)) and self._check_remat()
         self.logger.info("Building model!")
@@ -298,6 +305,9 @@ class BaseTrainer:
             param_groups(self.model, lr, backbone_lr,
                          exclude=[p for g in extra for p in g["params"]]),
             lr=lr, flat=bool(cfg_optimizer.get("flat", self.dp is None)), **common)
+        if self.shards is not None:
+            self.optimizer.shard_norms([p for n, p in self.model.named_parameters()
+                                        if tp.split_for(n)], self.shards)
         self._lrs = (lr, backbone_lr)
         self.logger.info("Building optimizer!")
 
@@ -349,44 +359,52 @@ class BaseTrainer:
     def _resume(self) -> int:
         """The epoch to start at: 0, or the one ``run.resume_checkpoint`` or
         the newest loadable ``run.auto_resume`` candidate names."""
+        return self._resume_blob()[0]
+
+    def _resume_blob(self):
+        """``_resume``'s epoch and the state it loaded (``_state_blob``'s, in
+        the single-process layout; None when it starts fresh)."""
         resume_from = self.cfg.run.get("resume_checkpoint", None)
         if resume_from:
-            return self.load_checkpoint(resume_from)
+            return self._load_checkpoint(resume_from)
         if not self.cfg.run.get("auto_resume", False):
-            return 0
+            return 0, None
         pristine = None
         for cand in self._resume_candidates():
-            # copies of all that a load changes: one that fails may have
-            # changed some of it before it raised
-            pristine = pristine or copy.deepcopy(self._state_blob(0))
+            # copies of all that a load changes (this rank's shards): one that
+            # fails may have changed some of it before it raised
+            pristine = pristine or copy.deepcopy(self._state_blob(0, whole=False))
             try:
-                return self.load_checkpoint(cand)
+                return self._load_checkpoint(cand)
             except Exception as e:
                 # an unreadable candidate (truncated by an ungraceful kill,
                 # say) must not stop the restart: try the next, or start fresh
                 self.logger.warning(f"auto_resume: {cand} unreadable "
                                     f"({type(e).__name__}: {e}) — trying next candidate")
-                self._load_state_blob(pristine)
+                self._load_state_blob(pristine, whole=False)
                 self._restore_meta(pristine["meta"])
-        return 0
+        return 0, None
 
     def _resume_every_rank(self) -> int:
         """``_resume`` under data parallelism: rank 0 alone reads the
         checkpoint (the others may not see its file) and every rank takes
-        rank 0's state, meta and start epoch."""
+        the state it read (in the single-process layout; each keeps its
+        shards), its meta and start epoch."""
         if self.dp is None:
             return self._resume()
         state = None
-        if self.dp.rank == 0:
+        if self.dp.global_rank == 0:
             try:
-                state = self._state_blob(self._resume())
+                state = self._resume_blob()[1]
             except Exception as e:
                 dp.broadcast_tree(f"{type(e).__name__}: {e}", self.dp)
                 raise
         state = dp.broadcast_tree(state, self.dp)
         if isinstance(state, str):
             raise RuntimeError(f"rank 0 could not resume ({state})")
-        if self.dp.rank != 0:
+        if state is None:            # nothing to resume
+            return 0
+        if self.dp.global_rank != 0:
             self._load_state_blob(state)
             self._restore_meta(state["meta"])
         return int(state["meta"]["epoch"])
@@ -429,6 +447,11 @@ class BaseTrainer:
                               "the same command with run.auto_resume to continue")
             return
         except Exception:
+            if self.shards is not None:
+                # the other ranks of the group may never reach the gather
+                self.logger.error("training crashed — under tensor parallelism no "
+                                  "emergency checkpoint is written")
+                raise
             try:
                 self.save_checkpoint(emergency, epoch=epoch)
                 self.logger.error(f"training crashed — state saved to {emergency}")
@@ -595,7 +618,7 @@ class BaseTrainer:
         """Code buffers (a tree of tensors) summed over the ranks: each item
         is written by one rank, the others hold zeros."""
         if self.dp is not None:
-            dp.all_reduce_sum_(_tree_leaves(bufs))
+            dp.all_reduce_sum_(_tree_leaves(bufs), self.dp)
         return bufs
 
     def valid_codes_and_maps(self, epoch: int, k: Optional[int] = None):
@@ -708,13 +731,16 @@ class BaseTrainer:
 
     def save_model(self, save_dir, epoch, other=""):
         """Weights only: the model's state dict (parameters and the image
-        BatchNorm's running statistics) as ``model-<epoch>.pt``.
-        ``run.resume_model`` reads it back, or a cmh_tpu
-        ``model-<epoch>.msgpack`` (``Method.read_model_file``)."""
+        BatchNorm's running statistics) as ``model-<epoch>.pt``, in the
+        single-process layout. ``run.resume_model`` reads it back, or a
+        cmh_tpu ``model-<epoch>.msgpack`` (``Method.read_model_file``)."""
+        if not self._gathers():
+            return
+        state = self._whole_state_dict()
         if not self.is_writer:
             return
         path = os.path.join(save_dir, "model-" + other + str(epoch) + ".pt")
-        state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+        state = {k: v.detach().cpu() for k, v in state.items()}
         torch.save(state, path)
         self.logger.info("save mode to {}".format(path))
 
@@ -748,25 +774,69 @@ class BaseTrainer:
         self.best_epoch_t = int(meta["best_epoch_t"])
         self._restore_extra_checkpoint_meta(meta.get("extra") or {})
 
-    def _state_blob(self, epoch: int) -> dict:
+    def _gathers(self) -> bool:
+        """Whether this rank takes part in writing a file: rank 0 and, under
+        tensor parallelism, the ranks that gather their shards to it."""
+        return self.dp is None or self.dp.rank == 0
+
+    def _param_names(self) -> dict:
+        return {id(p): n for n, p in self.model.named_parameters()}
+
+    def whole_likes(self) -> dict:
+        """Meta tensors of the parameters' single-process shapes (the
+        sharded ones grown back), by ``id(parameter)``: what the converters
+        lay a whole state out over."""
+        params = list(self.model.parameters())
+        if self.shards is None:
+            return {id(p): p for p in params}
+        likes = tp.whole_likes(params, self._param_names(), self.shards.size)
+        return {id(p): like for p, like in zip(params, likes)}
+
+    def _whole_params(self):
+        """Per BertAdam group, tensors of its parameters' single-process
+        shapes."""
+        likes = self.whole_likes()
+        return [[likes[id(p)] for p in g["params"]] for g in self.optimizer.param_groups]
+
+    def _whole_state_dict(self) -> dict:
+        """The model's state dict in the single-process layout (gathered over
+        the tensor-parallel group: every rank of it must call this)."""
+        sd = self.model.state_dict()
+        return sd if self.shards is None else tp.gather_state_dict(sd, self.shards)
+
+    def _state_blob(self, epoch: int, whole: bool = True) -> dict:
         """The full training state: the model's state dict (parameters and
         BatchNorm statistics), BertAdam's moments and step count, the other
         optimizers' state dicts (SGD momentum buffers), the method state (a
         nested dict of tensors: MITH's memory banks, TwDH's centers and
         transforms; cmh_tpu saves ``state.method_state``) and the trainer's
-        bookkeeping."""
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
+        bookkeeping. Under tensor parallelism ``whole`` gathers it into the
+        single-process layout (every rank of the tensor-parallel group must
+        call it); otherwise it holds this rank's shards."""
+        model, opt = self.model.state_dict(), self.optimizer.state_dict()
+        if self.shards is not None and whole:
+            model = tp.gather_state_dict(model, self.shards)
+            opt = tp.gather_moments(opt, self.optimizer.param_groups, self._param_names(),
+                                    self.shards, self._whole_params())
+        return {"model": model,
+                "optimizer": opt,
                 "extra_optimizers": {k: o.state_dict() for k, o in self.extra_optimizers.items()},
                 "method_state": self.method_state,
                 "meta": self._checkpoint_meta(epoch)}
 
-    def _load_state_blob(self, blob: dict) -> bool:
-        """Load the state of ``_state_blob``; returns whether BertAdam's
+    def _load_state_blob(self, blob: dict, whole: bool = True) -> bool:
+        """Load the state of ``_state_blob`` (this rank's shards of it under
+        tensor parallelism, when ``whole``); returns whether BertAdam's
         state format was converted (flat↔tree). A checkpoint without a
         method state loads only into a method that has none."""
-        self.model.load_state_dict(blob["model"])
-        converted = self.optimizer.load_state_dict(blob["optimizer"])
+        model, opt = blob["model"], blob["optimizer"]
+        converted = any(torch.is_tensor(g["m"]) != self.optimizer.flat for g in opt["groups"])
+        if self.shards is not None and whole:
+            model = tp.shard_state_dict(model, self.shards.rank, self.shards.size)
+            opt = tp.shard_moments(opt, self.optimizer.param_groups, self._param_names(),
+                                   self.shards, self._whole_params())
+        self.model.load_state_dict(model)
+        self.optimizer.load_state_dict(opt)
         extra = blob.get("extra_optimizers", {})
         if set(extra) != set(self.extra_optimizers):
             raise KeyError(f"extra optimizers {sorted(extra)} != {sorted(self.extra_optimizers)}")
@@ -780,16 +850,20 @@ class BaseTrainer:
 
     def save_checkpoint(self, path: str, epoch: int = 0):
         """``_state_blob`` written to ``path`` with its sidecar, by rank 0
-        only; a path ending in ``.msgpack`` gets cmh_tpu's layout, its
-        BertAdam state flat or tree as this trainer's optimizer keeps it
+        only (under tensor parallelism its group gathers the shards first);
+        a path ending in ``.msgpack`` gets cmh_tpu's layout, its BertAdam
+        state flat or tree as this trainer's optimizer keeps it
         (``jax_checkpoint.write`` takes either)."""
-        if not self.is_writer:
+        if not self._gathers():
             return
         if checkpoint.is_jax(path):
             jax_checkpoint.write(path, self, epoch, self.optimizer.flat)
         else:
-            checkpoint.write(path, self._state_blob(epoch))
-        self.logger.info(f"checkpoint saved to {path}")
+            blob = self._state_blob(epoch)
+            if self.is_writer:
+                checkpoint.write(path, blob)
+        if self.is_writer:
+            self.logger.info(f"checkpoint saved to {path}")
 
     def load_checkpoint(self, path: str) -> int:
         """Restore a checkpoint of ``save_checkpoint``, or cmh_tpu's (a
@@ -797,6 +871,10 @@ class BaseTrainer:
         state of the other path (flat or tree) is converted. A fingerprint
         that differs from this run's is named in a warning and the load goes
         on (it was asked for explicitly)."""
+        return self._load_checkpoint(path)[0]
+
+    def _load_checkpoint(self, path: str):
+        """``load_checkpoint``'s epoch and the state it loaded."""
         jax = checkpoint.is_jax(path)
         blob = jax_checkpoint.decode(path) if jax else checkpoint.read(path)
         try:
@@ -819,7 +897,7 @@ class BaseTrainer:
         self._restore_meta(meta)
         start_epoch = int(meta["epoch"])
         self.logger.info(f"checkpoint restored from {path} (resuming at epoch {start_epoch})")
-        return start_epoch
+        return start_epoch, blob
 
     # --------------------------------------------------------------- logging
     def print_loss_dict(self, loss_dict, bits=16, epoch=0, times=0):

@@ -38,7 +38,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..optim.bert_adam import _FlatSpec
+from ..optim.bert_adam import moment_list
 from ..utils import flax_msgpack
 from . import checkpoint
 
@@ -138,29 +138,41 @@ def _holding(model: torch.nn.Module, tensors: Dict[int, torch.Tensor]):
                 b.copy_(kept)
 
 
-def _per_parameter(model: torch.nn.Module, state_dict: Dict) -> Dict[int, torch.Tensor]:
+def _per_parameter(model: torch.nn.Module, state_dict: Dict, likes: Dict[int, torch.Tensor]
+                   ) -> Dict[int, torch.Tensor]:
     """A ``state_dict`` of ``model``'s names → one tensor per parameter, as
-    ``load_state_dict`` would place it."""
-    held = {id(p): torch.empty_like(p) for p in model.parameters()}
+    ``load_state_dict`` would place it, each of the shape of
+    ``likes[id(parameter)]`` (the single-process one)."""
+    held = {id(p): torch.empty(likes[id(p)].shape, dtype=p.dtype, device=p.device)
+            for p in model.parameters()}
     with _holding(model, held):
         model.load_state_dict(state_dict)
     return held
 
 
-def _state_dict_of(model: torch.nn.Module, tensors: Dict[int, torch.Tensor]) -> Dict:
+def _state_dict_of(model: torch.nn.Module, tensors: Dict[int, torch.Tensor],
+                   likes: Dict[int, torch.Tensor]) -> Dict:
     """The inverse of ``_per_parameter``: the ``state_dict`` the model would
-    have if its parameters held ``tensors`` (the others keep theirs)."""
-    held = {id(p): tensors.get(id(p), p.data) for p in model.parameters()}
+    have if its parameters held ``tensors`` (the others keep theirs, or
+    zeros where they hold a shard)."""
+    def other(p):
+        like = likes[id(p)]
+        return p.data if like.shape == p.shape else torch.zeros(like.shape, dtype=p.dtype,
+                                                                  device=p.device)
+
+    held = {id(p): tensors[id(p)] if id(p) in tensors else other(p)
+            for p in model.parameters()}
     with _holding(model, held):
         return dict(model.state_dict())
 
 
 def blob_from_jax(tree: Dict, trainer) -> Dict:
-    """A decoded cmh_tpu checkpoint → the trainer's ``_state_blob``."""
+    """A decoded cmh_tpu checkpoint → the trainer's ``_state_blob``, in the
+    single-process layout (under tensor parallelism too)."""
     if not isinstance(tree, dict) or set(tree) != {"state", "meta"}:
         raise ValueError("not a cmh_tpu full-state checkpoint (no 'state' and 'meta')")
     state, meta = tree["state"], tree["meta"]
-    method, model = trainer.method, trainer.model
+    method, model, likes = trainer.method, trainer.model, trainer.whole_likes()
     params, model_state = state["params"], state.get("model_state") or {}
     opt = state["opt_state"]
     apart = {k for k, sub in opt.items() if not _is_bert_adam(sub)}
@@ -184,7 +196,7 @@ def blob_from_jax(tree: Dict, trainer) -> Dict:
             slots[slot][key] = (unflatten(sub[slot], params[key]) if "chunk_leaf" in sub
                                 else sub[slot])
     by_id = {slot: _per_parameter(model, method.state_from_jax(
-                 {k: parts.get(k, params[k]) for k in params}, model_state))
+                 {k: parts.get(k, params[k]) for k in params}, model_state), likes)
              for slot, parts in slots.items() if parts}
     groups = [{slot: [by_id[slot][id(p)] for p in g["params"]] for slot in ("m", "v")}
               for g in trainer.optimizer.param_groups]
@@ -203,16 +215,17 @@ def blob_from_jax(tree: Dict, trainer) -> Dict:
 
 def blob_to_jax(trainer, epoch: int, flat: bool) -> Dict:
     """The trainer's state → cmh_tpu's ``{"state", "meta"}`` tree, its
-    BertAdam partitions flat (as off a mesh) or trees (as on one)."""
-    method, model = trainer.method, trainer.model
-    sd = dict(model.state_dict())
-    params, model_state = method.state_to_jax(sd)
-    opt = trainer.optimizer.state_dict()
+    BertAdam partitions flat (as off a mesh) or trees (as on one). Under
+    tensor parallelism every rank of the group must call it: it gathers the
+    state into the single-process layout."""
+    blob = trainer._state_blob(epoch)
+    method, model, likes = trainer.method, trainer.model, trainer.whole_likes()
+    params, model_state = method.state_to_jax(dict(blob["model"]))
+    opt = blob["optimizer"]
     by_id = {"m": {}, "v": {}, "trace": {}}
     for group, saved in zip(trainer.optimizer.param_groups, opt["groups"]):
         for slot in ("m", "v"):
-            ts = saved[slot]
-            ts = _FlatSpec(group["params"]).views(ts) if torch.is_tensor(ts) else ts
+            ts = moment_list(saved[slot], [likes[id(p)] for p in group["params"]], slot)
             by_id[slot].update({id(p): t for p, t in zip(group["params"], ts)})
     for sgd in trainer.extra_optimizers.values():
         group = sgd.param_groups[0]
@@ -220,7 +233,7 @@ def blob_to_jax(trainer, epoch: int, flat: bool) -> Dict:
             buf = sgd.state.get(p, {}).get("momentum_buffer")
             if group["momentum"]:   # optax keeps a zero trace before the first step
                 by_id["trace"][id(p)] = torch.zeros_like(p) if buf is None else buf
-    trees = {slot: method.state_to_jax(_state_dict_of(model, tensors))[0]
+    trees = {slot: method.state_to_jax(_state_dict_of(model, tensors, likes))[0]
              for slot, tensors in by_id.items() if tensors}
     step = np.asarray(opt["step_count"], np.int32)
     opt_state = {}
@@ -235,8 +248,8 @@ def blob_to_jax(trainer, epoch: int, flat: bool) -> Dict:
         else:
             opt_state[key] = {"step": step, "m": trees["m"][key], "v": trees["v"][key]}
     return {"state": {"params": params, "model_state": model_state, "opt_state": opt_state,
-                      "method_state": _arrays(trainer.method_state), "step": step},
-            "meta": trainer._checkpoint_meta(epoch)}
+                      "method_state": _arrays(blob["method_state"]), "step": step},
+            "meta": blob["meta"]}
 
 
 def decode(path: str) -> Dict:
@@ -246,8 +259,12 @@ def decode(path: str) -> Dict:
 
 def write(path: str, trainer, epoch: int, flat: bool) -> int:
     """Write the trainer's state to ``path`` in cmh_tpu's layout, then the
-    sidecar, each atomically; returns the file's bytes."""
+    sidecar, each atomically; returns the file's bytes. Under tensor
+    parallelism the ranks of the writer's group gather with it and write
+    nothing (0)."""
     blob = blob_to_jax(trainer, epoch, flat)
+    if not trainer.is_writer:
+        return 0
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         nbytes = f.write(flax_msgpack.dumps(blob))

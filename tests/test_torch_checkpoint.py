@@ -218,14 +218,14 @@ def test_auto_resume_rolls_back_after_partial_load(tmp_path, monkeypatch):
     tr_b = trainer(tmp_path / "b", run_extra={"auto_resume": True, "shuffle": False})
     pristine = trainer(tmp_path / "p", run_extra={"shuffle": False})
 
-    orig = BaseTrainer.load_checkpoint
+    orig = BaseTrainer._load_checkpoint       # what auto_resume loads each candidate with
 
     def poisoned(self, path):
         orig(self, path)                       # changes the state and trackers
         self.global_step = 777
         raise KeyError("simulated older meta schema")
 
-    monkeypatch.setattr(BaseTrainer, "load_checkpoint", poisoned)
+    monkeypatch.setattr(BaseTrainer, "_load_checkpoint", poisoned)
     tr_b.train()
     assert tr_b.global_step == 2 and tr_b.optimizer.step_count == 2
     pristine.train()

@@ -70,13 +70,15 @@ def test_cli_refuses_the_cpu_unless_asked(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (", tp: 2", NotImplementedError, "run.tp=2 .*'Tensor parallelism'"),
-    (", distribute: True, tp: 2", NotImplementedError, "'Tensor parallelism'"),
+    (", tp: 2", ValueError, "1 devices not divisible by tp=2"),
+    (", distribute: True, tp: 2", ValueError, "1 devices not divisible by tp=2"),
     (", multi_host: True", ValueError,
      "run.multi_host needs run.num_processes and run.process_id")])
 def test_unported_run_keys_raise(tmp_path, extra, error, match):
-    """``run.tp`` is not ported; ``run.multi_host`` needs cmh_tpu's keys of
-    the group (``tests/test_torch_dp.py`` runs it)."""
+    """``run.tp`` needs a process group that it divides (cmh_tpu's error; a
+    run without a group, or ``run.distribute``'s group of one, is one
+    process; ``tests/test_torch_tp.py`` runs it); ``run.multi_host`` needs
+    cmh_tpu's keys of the group (``tests/test_torch_dp.py`` runs it)."""
     with pytest.raises(error, match=match):
         main(["--config-file", _cfg(tmp_path, extra), "--save-dir", str(tmp_path / "o"),
               "--device", "cpu"])

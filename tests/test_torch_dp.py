@@ -30,7 +30,8 @@ two gloo ranks, each a process started through ``run.multi_host``
   1e-12).
 - A batch that two ranks do not divide raises cmh_tpu's named
   ``ValueError``; ``--distribute`` without two cards, ``run.distribute``
-  in a trainer built outside the CLI's group, and ``run.tp`` raise.
+  in a trainer built outside the CLI's group, and ``run.tp`` outside a group
+  that it divides raise.
 
 Each subprocess has its own timeout, so a hang fails the test. Run as
 ``python -m tests.test_torch_dp <mode> ...``, this file is the worker.
@@ -282,8 +283,10 @@ def test_distribute_needs_two_cards_and_tp_still_raises(tmp_path):
     with pytest.raises(AssertionError, match="more than one device"):
         main(["--config-file", str(path), "--save-dir", str(tmp_path / "o"), "--device", "cpu",
               "--distribute"])
+    # tensor parallelism needs a group that it divides: a trainer outside one
+    # is one process (tests/test_torch_tp.py runs it)
     cfg = _cfg("DCMHT", tp=2, save_dir=str(tmp_path / "b"), log_dir=str(tmp_path / "log"))
-    with pytest.raises(NotImplementedError, match="'Tensor parallelism'"):
+    with pytest.raises(ValueError, match="1 devices not divisible by tp=2"):
         load_components().require_runner_class("DCMHTTrainer").from_config(
             cfg=config_from_dict(cfg), device="cpu", auto_run=False)
     # the CLI's run_config alone opens groups; a trainer only reads one
