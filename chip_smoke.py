@@ -166,6 +166,30 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    Every rank's K1 and K2 each way, and K3 on the trainers' paths, must
    launch; the all-reduces a step and their bytes are printed.
 
+17. the tools (``cmh_torch/tools``) on the card, each path's launches
+   counted apart:
+   a. ``build_index`` on phase 8's DCMHT model file (its best i→t epoch) at
+      full width, writing an index and encoders: the index's packed words
+      equal that epoch's retrieval codes in ``i2t-best.mat``, packed; 4
+      queries searched through K4 equal the plain top-k; the encoders
+      answer one caption over HTTP (``/search_text``) as the plain top-k of
+      its code;
+   b. ``all_methods_smoke.run_method`` for all eight methods in process:
+      a train step and a ``valid`` each, K1, K2 each way and K3 launched
+      each time;
+   c. ``profile_train`` at its defaults (ViT-B/32, batch 256, 6 steps): the
+      port's K1 and K2 kernels each way among its profiled kernels (their
+      ranks printed), and its launches a step those of a DCMHT step
+      (``pair_launches``); ``profile_encode`` at its defaults;
+   d. ``twdh_matrix`` at its defaults (512 → 16 bits, 80 classes): lossless
+      or the epochs it ran, and its saved matrix checked again;
+   e. ``epoch_ab --scale full`` with ``tools/artifacts/ref_epoch_full.json``:
+      1,000 train items at 224 px, batch 100, 2 timed epochs after the warm
+      one, read from JPEG files through the native transforms;
+   f. one 500×375 → 224 image through the native eval and train transforms
+      against their PIL versions on the host: bit-equal, and both times;
+   g. ``chip_microbench --quick``.
+
 Phase 3 holds K1 in fp32 at UMoED's decoder rows (6400, 512) too, and K2 on
 the text tower with the causal mask alone (DIMCH's and UMoED's text tower
 runs without the key-padding mask), forward and backward; the bf16 K2 rows
@@ -1045,16 +1069,31 @@ def read_sidecar(path):
         return json.load(f)
 
 
-def training(torch, counters):
-    """Phase 8a, b and e in a fresh save root outside the repository."""
+def training(torch, counters, keep):
+    """Phase 8a, b and e in a fresh save root outside the repository; the
+    model file of run a's best i→t epoch and that epoch's ``i2t-best.mat``
+    are copied under ``keep`` (phase 17 builds an index from them)."""
     root = tempfile.mkdtemp(prefix="cmh_smoke_train_")
     try:
         launches, stats, trainer = train_main_path(torch, counters, root)
+        shutil.copy(os.path.join(trainer.save_dir, f"model-{trainer.best_epoch_i}.pt"),
+                    os.path.join(keep, "dcmht-model.pt"))
+        shutil.copy(os.path.join(trainer.save_dir, "mat_files", "i2t-best.mat"),
+                    os.path.join(keep, "dcmht-i2t-best.mat"))
         check_resume(torch, counters, trainer, root)
         profile_train_step(torch, trainer)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches, stats
+
+
+def pair_launches(layers=(12, 12), fp32=(0, 0)):
+    """(K1, K2) launches of one image + text forward (and as many in the
+    backward) through towers of ``layers`` (vision, text) blocks: 2 K1 a
+    block, 3 more for ln_pre, ln_post and ln_final, a K2 a block but the last
+    of each tower, and ``fp32`` more (K1, K2) in fp32."""
+    lv, lt = layers
+    return 2 * lv + 2 + 2 * lt + 1 + fp32[0], (lv - 1) + (lt - 1) + fp32[1]
 
 
 def expected_launches(cfg, remat=False, fp32=(0, 0), widths=None, layers=(12, 12),
@@ -1085,8 +1124,7 @@ def expected_launches(cfg, remat=False, fp32=(0, 0), widths=None, layers=(12, 12
         * run["epochs"]
     chunks = sum(math.ceil(run["query_num"] / query_chunk(w))
                  for w in (widths or [run["output_dim"]])) * run["epochs"]
-    lv, lt = layers
-    ln, attn = 2 * lv + 2 + 2 * lt + 1 + fp32[0], (lv - 1) + (lt - 1) + fp32[1]
+    ln, attn = pair_launches(layers, fp32)
     fwd = steps * (2 if remat else 1) + eval_batches
     expect = {"layernorm": ln * fwd, "layernorm_bwd": ln * steps,
               "attention": attn * fwd, "attention_bwd": attn * steps,
@@ -3298,6 +3336,236 @@ def check_phase16(res, refs, cost, seconds):
     return by_path, tiled_by_path, fp32_by_path
 
 
+# ---------------------------------------------------------------- phase 17
+def tool_build_index(torch, counters, keep):
+    """17a: ``tools/build_index`` on phase 8's DCMHT model file at full
+    width: the index's packed words equal the trainer's retrieval codes of
+    that epoch (``i2t-best.mat``), packed; 4 queries searched through K4
+    equal the plain top-k; the encoder file serves one caption over HTTP."""
+    import numpy as np
+    import scipy.io as scio
+    import yaml
+
+    from cmh_torch.data.dataset import SyntheticDataset
+    from cmh_torch.export import load_encoders
+    from cmh_torch.models.clip.tokenizer import SimpleTokenizer, tokenize_caption
+    from cmh_torch.ops.hashing import as_uint32, pack_bits
+    from cmh_torch.server import RetrievalApp
+    from cmh_torch.serving import RetrievalIndex, search_cpu_plain
+    from cmh_torch.tools import build_index
+
+    work = tempfile.mkdtemp(prefix="cmh_smoke_index_")
+    try:
+        enc_path = os.path.join(work, "enc.pt")
+        reset_counts(counters)
+        # ---- the main path: python -m cmh_torch.tools.build_index, in-process
+        t0 = time.perf_counter()
+        out = build_index.main(["--config-file", TRAIN_CONFIG, "--model",
+                                os.path.join(keep, "dcmht-model.pt"), "--out-index",
+                                os.path.join(work, "gallery"), "--out-encoders", enc_path])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        index = RetrievalIndex.load(out["index"], device="cuda")
+        mat = scio.loadmat(os.path.join(keep, "dcmht-i2t-best.mat"))
+        queries = mat["q_txt"][:4].astype(np.float32)
+        dist, idx = index.search(queries, topk=10)
+        enc = load_encoders(enc_path, device="cuda")
+        with open(TRAIN_CONFIG) as f:
+            run = yaml.safe_load(f)["run"]
+        caption = str(SyntheticDataset(num_items=run["query_num"], num_classes=8,
+                                       imageResolution=224, seed=2).captions[0][0])
+        server, thread = _serve(RetrievalApp(index, enc, SimpleTokenizer(),
+                                             max_words=MAX_WORDS, image_size=224))
+        try:
+            status, served = request(server.server_address[1], "POST", "/search_text",
+                                     {"text": [caption], "topk": 10})
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        # ---- end of the main path
+        saved = np.load(out["index"])
+        want = as_uint32(pack_bits(torch.from_numpy(mat["r_img"].astype(np.float32))))
+        g = as_uint32(index._gallery())
+        d_plain, i_plain = search_cpu_plain(as_uint32(pack_bits(torch.from_numpy(queries))),
+                                            g, 10)
+        ids, kpm = tokenize_caption(SimpleTokenizer(), caption, MAX_WORDS)
+        code = enc.encode_text(ids[None], kpm[None])
+        d_one, i_one = search_cpu_plain(as_uint32(pack_bits(torch.as_tensor(code).float().cpu())),
+                                        g, 10)
+        print(f"[phase 17a] build_index {json.dumps(out)} in {build_s:.2f} s (host clock, "
+              f"the trainer's build and {out['items']} items encoded); packed words "
+              f"{saved['packed'].shape} {saved['packed'].dtype} against i2t-best.mat's r_img "
+              f"packed {want.shape}: {'equal' if np.array_equal(saved['packed'], want) else 'DIFFER'}"
+              f"; 4 searches through K4 {'equal' if np.array_equal(dist, d_plain) and np.array_equal(idx, i_plain) else 'DIFFER'}"
+              f" to the plain top-k; /search_text {status}, its code against q_txt[0] "
+              f"{'equal' if np.array_equal(np.asarray(code)[0], mat['q_txt'][0]) else 'differs'}; "
+              f"launches {launches}", flush=True)
+        if not (np.array_equal(saved["packed"], want) and int(saved["count"]) == len(want)
+                and int(saved["bits"]) == CODE_BITS):
+            raise AssertionError("phase 17a: the index differs from the trainer's codes")
+        if not (np.array_equal(dist, d_plain) and np.array_equal(idx, i_plain)):
+            raise AssertionError("phase 17a: the searches differ from the plain top-k")
+        if status != 200 or served["idx"] != i_one.tolist() or served["dist"] != d_one.tolist():
+            raise AssertionError(f"phase 17a: /search_text answered {status} {served}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def tool_all_methods(torch, counters):
+    """17b: ``tools/all_methods_smoke`` for all eight methods in process:
+    a train step and a 4-direction ``valid`` each, K3 launched each time."""
+    from cmh_torch.tools.all_methods_smoke import RECIPES, run_method
+
+    total, records = None, []
+    for method in sorted(RECIPES):
+        reset_counts(counters)
+        rec = run_method(method, "cuda")
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        idle = [k for k in ("layernorm", "layernorm_bwd", "attention", "attention_bwd",
+                            "map_hist", "map_ap") if launches[k] == 0]
+        if not rec["ok"] or idle:
+            raise AssertionError(f"phase 17b: {method}: {rec}, kernels {idle} never launched")
+        records.append(rec)
+        total = launches if total is None else {k: total[k] + v for k, v in launches.items()}
+    print(f"[phase 17b] all_methods_smoke: "
+          f"{[{k: r[k] for k in ('method', 'backend', 'loss', 'maps', 'step1_s', 'eval_s')} for r in records]}",
+          flush=True)
+    return total
+
+
+def tool_profiles(torch, counters):
+    """17c: ``tools/profile_train`` and ``tools/profile_encode`` at their
+    defaults (ViT-B/32, batch 256): the port's K1 and K2 kernels among the
+    profiled kernels, and the launches a step those of a DCMHT step."""
+    from cmh_torch.tools import profile_encode, profile_train
+
+    reset_counts(counters)
+    pt = profile_train.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    train_launches = read_counts(counters)
+    ln, attn = pair_launches()
+    expect = {"layernorm": ln, "layernorm_bwd": ln, "attention": attn, "attention_bwd": attn}
+    names = [op["name"] for op in pt["ops"]]
+    ranks = {}
+    for kernel in ("layernorm_fwd_kernel", "layernorm_bwd_kernel", "attention_fwd_mma",
+                   "attention_bwd_mma"):
+        hit = [i for i, n in enumerate(names) if kernel in n]
+        ranks[kernel] = (hit[0] + 1, pt["ops"][hit[0]]["ms"], pt["ops"][hit[0]]["calls"]) \
+            if hit else None
+    print(f"[phase 17c] profile_train: step {pt['step_ms']:.2f} ms ({pt['pairs_per_s']:.0f} "
+          f"pairs/s, host clock), {pt['total_ms']:.3f} ms of kernel time a step over "
+          f"{len(names)} kernel names; the port's kernels (rank, ms a step, calls a step): "
+          f"{ranks}; launches a step {pt['launches_per_step']} expected {expect}", flush=True)
+    if any(v is None for v in ranks.values()):
+        raise AssertionError(f"phase 17c: the profile lacks the port's kernels: {ranks}")
+    if pt["launches_per_step"] != expect:
+        raise AssertionError(f"phase 17c: launches a step {pt['launches_per_step']} != {expect}")
+    reset_counts(counters)
+    pe = profile_encode.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    encode_launches = read_counts(counters)
+    print(f"[phase 17c] profile_encode: {json.dumps(pe)}", flush=True)
+    if not all(pe[k] > 0 for k in ("product_ms", "encode_only_ms", "encode_map_ms")):
+        raise AssertionError(f"phase 17c: profile_encode {pe}")
+    return train_launches, encode_launches
+
+
+def tool_twdh_matrix():
+    """17d: ``tools/twdh_matrix`` at its defaults (512 → 16 bits, 80
+    classes) on the card."""
+    from cmh_torch.ops.hash_centers import generate_hash_centers, load_center_file
+    from cmh_torch.tools import twdh_matrix
+
+    work = tempfile.mkdtemp(prefix="cmh_smoke_twdh_")
+    try:
+        t0 = time.perf_counter()
+        out = twdh_matrix.main(["--device", "cuda", "--save-dir", work])
+        seconds = time.perf_counter() - t0
+        matrix = load_center_file(out["path"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lossless = twdh_matrix.check(generate_hash_centers(80, 512, 13),
+                                 generate_hash_centers(80, 16, 14), matrix)
+    print(f"[phase 17d] twdh_matrix: {'lossless' if out['lossless'] else 'not lossless'} "
+          f"after {out['epochs']} epochs of 50 steps, {seconds:.1f} s (host clock), matrix "
+          f"{matrix.shape}", flush=True)
+    if matrix.shape != (1024, 32) or lossless != out["lossless"]:
+        raise AssertionError(f"phase 17d: {out}, check of the saved matrix {lossless}")
+
+
+def tool_epoch_ab(torch, counters):
+    """17e: ``tools/epoch_ab --scale full`` with the committed reference
+    artifact: 1,000 train items at 224 px, batch 100, 2 timed epochs after
+    the warm one, read from JPEG files through the native transforms."""
+    from cmh_torch.tools import epoch_ab
+
+    reset_counts(counters)
+    out = epoch_ab.main(["--scale", "full", "--device", "cuda", "--ref-artifact",
+                         os.path.join(ROOT, "tools", "artifacts", "ref_epoch_full.json")])
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    print(f"[phase 17e] epoch_ab: {json.dumps(out)}; launches {launches}", flush=True)
+    if not (out["ours_epoch_s"] > 0 and out["ref_source"] == "artifact"
+            and len(out["ours_epoch_times_s"]) == 2):
+        raise AssertionError(f"phase 17e: epoch_ab {out}")
+    return launches
+
+
+def native_transforms():
+    """17f: one native 500×375 → 224 transform against its PIL version on
+    the host (host clock, median of 20)."""
+    import numpy as np
+    from PIL import Image
+
+    from cmh_torch.data import transforms
+
+    img = Image.fromarray(np.random.RandomState(0).randint(0, 256, (375, 500, 3), np.uint8))
+
+    def ms(fn):
+        fn()
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[10] * 1e3
+
+    rows = {}
+    for what, fn, plain in (
+            ("eval", lambda: transforms.eval_transform(img, 224),
+             lambda: transforms.eval_transform_plain(img, 224)),
+            ("train", lambda: transforms.train_transform(img, 224, np.random.RandomState(5)),
+             lambda: transforms.train_transform_plain(img, 224, np.random.RandomState(5)))):
+        equal = np.array_equal(fn(), plain())
+        rows[what] = {"native_ms": ms(fn), "plain_ms": ms(plain), "bit_equal": equal}
+        if not equal:
+            raise AssertionError(f"phase 17f: the native {what} transform differs from PIL's")
+    print(f"[phase 17f] one 500x375 -> 224 image on the host (ms, median of 20): {rows}",
+          flush=True)
+
+
+def phase17(torch, counters, keep):
+    """Phase 17: the tools on the card, each path's launches counted apart."""
+    from cmh_torch.tools import chip_microbench
+
+    t0 = time.perf_counter()
+    paths = {"build_index": tool_build_index(torch, counters, keep),
+             "all_methods_smoke": tool_all_methods(torch, counters)}
+    paths["profile_train"], paths["profile_encode"] = tool_profiles(torch, counters)
+    tool_twdh_matrix()
+    paths["epoch_ab"] = tool_epoch_ab(torch, counters)
+    mb = chip_microbench.main(["--quick"])
+    print(f"[phase 17g] chip_microbench --quick: {json.dumps(mb)}", flush=True)
+    native_transforms()
+    print(f"[phase 17] {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -3358,7 +3626,7 @@ def main() -> int:
                     "hamming": hamming_packed, "layernorm_bwd": layernorm_bwd,
                     "attention_bwd": attention_bwd, "map_hist": map_hist, "map_ap": map_ap}
         by_path = {"serving": serving(torch, counters)}
-        by_path["training"], _ = training(torch, counters)
+        by_path["training"], _ = training(torch, counters, shared)
         preemption(torch)
         flat_optimizer(torch)
         by_path["pretrained"] = pretrained_load(torch, counters)
@@ -3378,6 +3646,7 @@ def main() -> int:
         by_path.update(phase16_paths)
         tiled_by_path.update(phase16_tiled)
         fp32_by_path.update(phase16_fp32)
+        by_path.update(phase17(torch, counters, shared))
         train_kernels = ("layernorm", "layernorm_bwd", "attention", "attention_bwd",
                          "map_hist", "map_ap")
         for path, need in (("serving", ("layernorm", "attention", "hamming")),
@@ -3400,7 +3669,13 @@ def main() -> int:
                            ("tp2 fp32 parity", ("layernorm", "layernorm_bwd", "attention",
                                                 "attention_bwd")),
                            ("dp2 x tp2 DCMHT", train_kernels), ("tp2 resumed DCMHT", train_kernels),
-                           ("tp2 ViT-L/14", train_kernels), ("tp2 UMoED", train_kernels)):
+                           ("tp2 ViT-L/14", train_kernels), ("tp2 UMoED", train_kernels),
+                           ("build_index", ("layernorm", "attention", "hamming")),
+                           ("all_methods_smoke", train_kernels),
+                           ("profile_train", ("layernorm", "layernorm_bwd", "attention",
+                                              "attention_bwd")),
+                           ("profile_encode", ("layernorm", "attention", "map_hist", "map_ap")),
+                           ("epoch_ab", train_kernels)):
             idle = [k for k in need if by_path[path][k] == 0]
             if idle:
                 raise AssertionError(f"{path}: kernels {idle} were never launched")

@@ -1,11 +1,18 @@
-"""Host-side image transforms (counterpart of ``cmh_tpu/data/transforms.py``,
-PIL path).
+"""Host-side image transforms (counterpart of ``cmh_tpu/data/transforms.py``).
 
 train: RandomHorizontalFlip(0.5) → RandomResizedCrop(R) → ToTensor →
 Normalize; eval: Resize((R, R), bicubic) → ToTensor → Normalize, with the
 CLIP constants, emitting HWC float32 (the layout ``encode_image`` takes).
-The random draws consume a ``np.random.RandomState`` in cmh_tpu's order.
-PIL is imported only when an image is transformed.
+
+``train_transform`` and ``eval_transform`` take the fused native path
+(``native/image_ops.py``: crop, resize, flip and normalize in one pass over
+the pixels, bit-exact with PIL), as cmh_tpu's do when g++ is present; the
+port has no fallback. ``train_transform_plain`` and
+``eval_transform_plain`` are the same functions through PIL and numpy, the
+versions the tests hold the native path against. Both train transforms
+consume a ``np.random.RandomState`` in cmh_tpu's order: the flip draw, then
+``sample_crop_box``'s draws. PIL is imported only when an image is
+transformed.
 """
 
 from __future__ import annotations
@@ -50,8 +57,36 @@ def sample_crop_box(height, width, rng, scale=(0.08, 1.0),
     return (height - h) // 2, (width - w) // 2, h, w
 
 
+def _rgb_array(img) -> np.ndarray:
+    return np.asarray(img.convert("RGB"), dtype=np.uint8)
+
+
 def train_transform(img, size: int, rng: np.random.RandomState) -> np.ndarray:
-    """PIL image → flip with probability ½ → random resized crop → normalize."""
+    """PIL image → flip with probability ½ → random resized crop → normalize,
+    in one native call. The box is drawn on the flipped image, as cmh_tpu's
+    native path draws it; the kernel reads the flipped columns in place
+    (``flip``) where cmh_tpu copies the flipped array first: the same
+    pixels."""
+    from ..native import image_ops
+
+    flip = bool(rng.rand() < 0.5)
+    arr = _rgb_array(img)
+    box = sample_crop_box(arr.shape[0], arr.shape[1], rng)
+    return image_ops.crop_resize_normalize(arr, box, size, image_ops.BILINEAR, CLIP_MEAN,
+                                           CLIP_STD, flip=flip)
+
+
+def eval_transform(img, size: int) -> np.ndarray:
+    """PIL image → Resize((size, size), bicubic) → normalize, in one native
+    call."""
+    from ..native import image_ops
+
+    return image_ops.resize_normalize(_rgb_array(img), size, image_ops.BICUBIC, CLIP_MEAN,
+                                      CLIP_STD)
+
+
+def train_transform_plain(img, size: int, rng: np.random.RandomState) -> np.ndarray:
+    """``train_transform`` through PIL and numpy."""
     from PIL import Image
 
     if rng.rand() < 0.5:
@@ -62,8 +97,8 @@ def train_transform(img, size: int, rng: np.random.RandomState) -> np.ndarray:
     return normalize(np.asarray(img))
 
 
-def eval_transform(img, size: int) -> np.ndarray:
-    """PIL image → Resize((size, size), bicubic) → normalize."""
+def eval_transform_plain(img, size: int) -> np.ndarray:
+    """``eval_transform`` through PIL and numpy."""
     from PIL import Image
 
     return normalize(np.asarray(img.resize((size, size), Image.BICUBIC)))

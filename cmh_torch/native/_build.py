@@ -6,7 +6,9 @@ Each source compiles at first use, with one ``g++`` call, into
 machine's architecture, so a changed source rebuilds and a directory copied
 to another kind of host never loads a foreign binary. The flags name no
 ``-march=native``: on x86-64 only ``-mpopcnt``, which every x86-64 host
-of the last fifteen years has. After loading, the library must pass its
+of the last fifteen years has; ``-ffp-contract=off`` keeps a multiply and
+an add two roundings on every host (the image resampler's coefficients
+must round as PIL's do). After loading, the library must pass its
 self-test. There is no fallback: a failed build raises with the compiler's
 message, a failed self-test raises too.
 """
@@ -25,7 +27,7 @@ from typing import Callable, Dict
 
 HERE = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cmh_torch"
-GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"] + (
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", "-ffp-contract=off"] + (
     ["-mpopcnt"] if platform.machine() in ("x86_64", "AMD64") else [])
 
 _lock = threading.Lock()

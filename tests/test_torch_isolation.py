@@ -42,6 +42,12 @@ TRAINING_MODULES = {
     "cmh_torch.runners.umoed", "cmh_torch.ops.distances", "cmh_torch.server",
     "cmh_torch.models.clip.api", "cmh_torch.models.clip.resnet", "cmh_torch.parallel.dp",
     "cmh_torch.runners.jax_checkpoint"}
+# the tools and the native image preprocessing
+TOOL_MODULES = {
+    "cmh_torch.native.image_ops", "cmh_torch.data.transforms",
+    *(f"cmh_torch.tools.{t}" for t in (
+        "build_index", "all_methods_smoke", "twdh_matrix", "profile_train", "profile_encode",
+        "epoch_ab", "chip_microbench", "real_parity"))}
 
 
 def test_import_pulls_in_no_jax_and_no_cmh_tpu():
@@ -50,7 +56,7 @@ def test_import_pulls_in_no_jax_and_no_cmh_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     names, bad = out.stdout.strip().splitlines()
-    assert TRAINING_MODULES <= set(names.split()), out.stdout
+    assert TRAINING_MODULES | TOOL_MODULES <= set(names.split()), out.stdout
     assert len(names.split()) >= 30 and bad == "[]", out.stdout
 
 
@@ -97,6 +103,38 @@ def test_entry_points_refuse_cpu_unless_asked(no_card, tmp_path):
     assert resolve_device("cpu").type == "cpu"
     assert len(RetrievalIndex.load(str(tmp_path / "index.npz"), device="cpu")) == 3
     assert load_encoders(enc, device="cpu").device.type == "cpu"
+
+
+def _tool_calls(tmp_path):
+    """Each tool's ``main`` with its required arguments and no ``--device``."""
+    from cmh_torch.tools import (all_methods_smoke, build_index, chip_microbench, epoch_ab,
+                                 profile_encode, profile_train, real_parity, twdh_matrix)
+
+    cfg = os.path.join(ROOT, "configs", "DCMHT", "synthetic.yaml")
+    return {
+        "build_index": lambda: build_index.main(["--config-file", cfg, "--model", "m.pt",
+                                                 "--out-index", str(tmp_path / "g")]),
+        "all_methods_smoke": lambda: all_methods_smoke.main(["--method", "DCMHT"]),
+        "twdh_matrix": lambda: twdh_matrix.main(["--save-dir", str(tmp_path)]),
+        "profile_train": lambda: profile_train.main(["--tiny"]),
+        "profile_encode": lambda: profile_encode.main(["--tiny"]),
+        "epoch_ab": lambda: epoch_ab.main(["--scale", "tiny"]),
+        "chip_microbench": lambda: chip_microbench.main(["--quick"]),
+        "real_parity": lambda: real_parity.main(["--data-root", str(tmp_path), "--dataset",
+                                                 "coco", "--preflight-only"]),
+    }
+
+
+@pytest.mark.parametrize("tool", ["build_index", "all_methods_smoke", "twdh_matrix",
+                                  "profile_train", "profile_encode", "epoch_ab",
+                                  "chip_microbench", "real_parity"])
+def test_tools_refuse_cpu_unless_asked(no_card, tmp_path, capsys, tool):
+    """Without a card and without ``--device cpu`` every tool raises before
+    it does any work, and prints nothing."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _tool_calls(tmp_path)[tool]()
+    assert capsys.readouterr().out == ""
+    assert not list(tmp_path.iterdir())
 
 
 def test_export_cli_writes_loadable_encoders(tmp_path):
