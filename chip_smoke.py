@@ -7,7 +7,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 
 1. device and environment: card name and power limit, torch and CUDA
    versions, which optional packages (PIL, yaml, regex) are present;
-2. build the four CUDA sources from ``cmh_torch/csrc`` (``ops/_build.py``),
+2. build the six CUDA sources from ``cmh_torch/csrc`` (``ops/_build.py``),
    one ``nvcc`` each, all at once;
 3. each kernel against its plain PyTorch version, with its time beside the
    plain version's, one PyTorch library call's and the card's bound (the
@@ -190,6 +190,17 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
       against their PIL versions on the host: bit-equal, and both times;
    g. ``chip_microbench --quick``.
 
+18. the random streams (``csrc/threefry.cu``): ``threefry_bits`` bit-equal
+   to the plain threefry at three keys, 1 to 2^28 words and an offset
+   across the counters' hi word; ``dropout_fwd`` and ``dropout_bwd``
+   bit-equal to the plain dropout in fp32 and bf16, whole, as a tp shard
+   and at a data-parallel row offset; their times at UMoED's largest mask
+   and a hash head's beside the plain version's, ``F.dropout``'s and the
+   bound; their launches on phase 13's main paths (the init drawn on the
+   card, the masks of every step); UMoED's steady step. No dropout mask is
+   drawn on the host in any phase (``Dropout.host_seconds`` stays 0, in
+   phase 16's workers too).
+
 Phase 3 holds K1 in fp32 at UMoED's decoder rows (6400, 512) too, and K2 on
 the text tower with the causal mask alone (DIMCH's and UMoED's text tower
 runs without the key-padding mask), forward and backward; the bf16 K2 rows
@@ -257,6 +268,16 @@ TILED_BWD_CASES = (("ViT-L/14 vision", TRAIN_B, 16, 257, "bf16", "tiled"),
 # lines, kept out of the kernels line
 FLOORS = ("popc_floor_ms", "fma_floor_ms")
 INDEX_ITEMS = (1 << 20) + 4096   # two gallery blocks of the blocked search
+# phase 18: 32-bit integer operations an element of threefry2x32 (20 rounds
+# of add, rotate, xor; 5 injections of 2 adds; 2 initial adds; the output
+# xor) and of a dropout element (those, the counter, the uniform, the compare)
+THREEFRY_OPS, DROPOUT_OPS = 73, 78
+# (what, shape): UMoED's largest mask (its decoder's FFN at batch 100, 64
+# slots) and the hash heads' (Linear 512 → 256 at batch 100: Baseline's;
+# DCMHT has no dropout site)
+DROPOUT_CASES = (("UMoED drop_ff", (TRAIN_B, UMOED_SLOTS, 2048)), ("hash head", (TRAIN_B, 256)))
+# measured by the training phases, printed by phase 18
+RANDOM_STATS = {}
 # OpenAI's ViT-L/14 (cmh_tpu/models/clip/api.py:27-31) and RN50 geometries, and
 # the integer entries of OpenAI's CLIP files
 VIT_L14 = dict(embed_dim=768, vision_layers=24, vision_width=1024, vision_patch_size=14,
@@ -273,6 +294,14 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def seed_key(seed: int):
+    """cmh_tpu's ``PRNGKey(seed)`` (``utils/prng.py``): a model built here
+    draws cmh_tpu's init from it, on the card."""
+    from cmh_torch.utils import prng
+
+    return prng.PRNGKey(seed)
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -891,7 +920,7 @@ def grad_parity(torch, geometry=None, n=8, tag="[grad]", grad_tol=1e-4):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = DCMHTModel(CLIPConfig(**(geometry or {}), dtype=torch.float32), CODE_BITS)
-    model.init_weights(torch.Generator().manual_seed(0)).train()
+    model.init_weights(seed_key(0), "cuda").train()
     cpu_model = copy.deepcopy(model)
     gpu_model = model.to("cuda")
     rng = np.random.RandomState(2)
@@ -969,7 +998,7 @@ def tower_times(torch):
     from cmh_torch.models.dcmht import DCMHTModel, dcmht_loss_fn
 
     model = DCMHTModel(CLIPConfig(), CODE_BITS)
-    model.init_weights(torch.Generator().manual_seed(0)).to("cuda").eval()
+    model.init_weights(seed_key(0), "cuda").to("cuda").eval()
     gen = torch.Generator(device="cuda").manual_seed(5)
     x_txt = device_batch(torch, gen, B)
     x_img = x_txt.pop("image")
@@ -1325,7 +1354,7 @@ def flat_optimizer(torch):
     from cmh_torch.optim.partition import param_groups
 
     base = DCMHTModel(CLIPConfig(), CODE_BITS)
-    base.init_weights(torch.Generator().manual_seed(0))
+    base.init_weights(seed_key(0), "cuda")
     gen = torch.Generator().manual_seed(9)
     # 1e-3 an element: the clip takes every tensor of more than 1e6 elements
     grads = [[None if n.endswith("logit_scale") else torch.randn(p.shape, generator=gen) * 1e-3
@@ -1408,7 +1437,7 @@ def model_parity(torch, geometry=None, n=8, tag="[parity]"):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = DCMHTModel(CLIPConfig(**(geometry or {}), dtype=torch.float32), CODE_BITS)
-    model.init_weights(torch.Generator().manual_seed(0)).eval()
+    model.init_weights(seed_key(0), "cuda").eval()
     cpu_model = copy.deepcopy(model)
     gpu_model = model.to("cuda")
     rng = np.random.RandomState(1)
@@ -1476,7 +1505,7 @@ def serving(torch, counters):
                             "run": {"output_dim": CODE_BITS},
                             "dataset": {"max_word": MAX_WORDS}})
     model = DCMHTModel.from_config(cfg)
-    model.init_weights(torch.Generator().manual_seed(0))
+    model.init_weights(seed_key(0), "cuda")
     enc_path = os.path.join(WORK, "enc.pt")
     save_encoders(model, cfg, enc_path)
     enc = load_encoders(enc_path, device="cuda")
@@ -1643,7 +1672,7 @@ def pretrained_load(torch, counters):
     launches = {}
     try:
         clip = CLIP(CLIPConfig())
-        clip.init_weights(torch.Generator().manual_seed(12))
+        clip.init_weights(seed_key(9), "cuda")
         half = {k: v.detach().half() for k, v in clip.state_dict().items()}
         del clip
         ints = {k: torch.tensor(v) for k, v in OPENAI_INTS.items()}
@@ -1839,6 +1868,7 @@ def steady_steps(torch, tr, arch, n=3):
         line += (f"; Hungarian step {host:.3f} ms a step: copy of the cost {host - solve:.3f}, "
                  f"two solves {solve:.3f}")
     print(line, flush=True)
+    return [round(t, 3) for t in times]
 
 
 def remat_memory(torch, tr):
@@ -2075,7 +2105,7 @@ def msgpack_and_search_cpu(torch, counters, index_path):
     try:
         method = load_components().require_model_class("TwDH").from_config(
             config_from_dict(cfg).model, output_dim=cfg["run"]["output_dim"])
-        method.model.init_weights(torch.Generator().manual_seed(14))
+        method.model.init_weights(seed_key(14), "cuda")
         with torch.no_grad():   # BatchNorm statistics off their init
             method.model.hash.img_hash.norm.running_mean.normal_(0, 0.1)
             method.model.hash.img_hash.norm.running_var.uniform_(0.5, 2.0)
@@ -2164,13 +2194,15 @@ def train_dimch_umoed(torch, counters):
     twice on one save root (the rerun resumes at epoch 2 and trains
     nothing); after UMoED, its decoder's device time and its exported
     encoders served over HTTP by both backends, and phase 12's TwDH
-    encoders behind /search_text."""
+    encoders behind /search_text. The main paths' threefry launches (the
+    init on the card, the dropout masks) are counted apart, for phase 18."""
     import numpy as np
     import yaml
 
     from cmh_torch.models.common import Dropout
 
-    by_path, fp32_by_path = {}, {}
+    by_path, fp32_by_path, rand_by_path = {}, {}, {}
+    rand = random_counters()
     for arch in ("DIMCH", "UMoED"):
         root = tempfile.mkdtemp(prefix=f"cmh_smoke_{arch.lower()}_")
         try:
@@ -2186,12 +2218,14 @@ def train_dimch_umoed(torch, counters):
                 steps, expect = expected_launches(cfg)
                 expect32 = {k: 0 for k in read_fp32(counters)}
             reset_counts(counters)
+            reset_counts(rand)
             drawn0 = (Dropout.masks, Dropout.mask_elements, Dropout.host_seconds)
             # ---- the main path: python -m cmh_torch.main, in-process
             t0 = time.perf_counter()
             tr = train_cli(cfg_path, os.path.join(root, "run"))
             torch.cuda.synchronize()
             launches, fp32 = read_counts(counters), read_fp32(counters)
+            rand_by_path[arch] = read_counts(rand)
             t_main = time.perf_counter() - t0
             # ---- end of the main path
             drawn = [b - a for a, b in zip(drawn0, (Dropout.masks, Dropout.mask_elements,
@@ -2204,10 +2238,11 @@ def train_dimch_umoed(torch, counters):
                   f"clock, {(train_s - wait_s) / steps * 1e3:.1f} ms without the data waits; "
                   f"main path {t_main:.1f} s; epoch losses {[h['loss'] for h in hist]}; "
                   f"mAPs {[h['maps'] for h in hist]}", flush=True)
-            print(f"[{arch}] dropout masks drawn on the host: {drawn[0] / steps:.0f} a step, "
-                  f"{drawn[1] / steps / 1e6:.1f} M elements a step, "
-                  f"{drawn[2] / steps * 1e3:.1f} ms a step (host clock: the draws and their "
-                  f"copies to the card)", flush=True)
+            print(f"[{arch}] dropout masks: {drawn[0] / steps:.0f} a step, "
+                  f"{drawn[1] / steps / 1e6:.1f} M elements a step, drawn on the card "
+                  f"({rand_by_path[arch]}); host seconds drawing masks {drawn[2]}", flush=True)
+            if drawn[2] != 0:
+                raise AssertionError(f"{arch}: {drawn[2]} s of dropout masks drawn on the host")
             print(f"[{arch}] launches {launches} expected {expect}; fp32 {fp32} expected "
                   f"{expect32}", flush=True)
             if launches != expect or fp32 != expect32:
@@ -2232,7 +2267,7 @@ def train_dimch_umoed(torch, counters):
             if trackers(again) != trackers(tr) or bad:
                 raise AssertionError(f"{arch}: the resumed state differs: {bad[:8]}")
             del again
-            steady_steps(torch, tr, arch)
+            RANDOM_STATS[f"{arch} steady ms"] = steady_steps(torch, tr, arch)
             if arch == "UMoED":
                 decoder_time(torch, tr)
                 by_path["UMoED serving"] = serve_backends(torch, counters, tr)
@@ -2240,7 +2275,7 @@ def train_dimch_umoed(torch, counters):
         finally:
             shutil.rmtree(root, ignore_errors=True)
     by_path["TwDH serving"] = serve_twdh(torch, counters)
-    return by_path, fp32_by_path
+    return by_path, fp32_by_path, rand_by_path
 
 
 def umoed_bests(tr):
@@ -2254,6 +2289,7 @@ def decoder_time(torch, tr):
     step's kernel time; and the host ms of that step's dropout masks.
     Printed, not checked."""
     from cmh_torch.models.common import Dropout, dropout_rng
+    from cmh_torch.utils import prng
 
     head = tr.model.hash.hash_module
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -2262,7 +2298,7 @@ def decoder_time(torch, tr):
     tr.model.train()
 
     def heads():
-        with dropout_rng(0, 0):
+        with dropout_rng(prng.PRNGKey(0)):
             loss = sum(head(t)[0].float().square().mean() for t in tokens)
         loss.backward()
 
@@ -2271,6 +2307,8 @@ def decoder_time(torch, tr):
     host0 = Dropout.host_seconds
     step_ms = kernel_busy_ms(torch, lambda: tr.train_step(batch))
     masks_ms = (Dropout.host_seconds - host0) / 2 * 1e3      # two steps: warm and profiled
+    if masks_ms:
+        raise AssertionError(f"UMoED: {masks_ms} ms of dropout masks drawn on the host")
     tr.model.zero_grad(set_to_none=True)
     print(f"[UMoED] decoder device time (two head calls at batch {TRAIN_B}, "
           f"{UMOED_SLOTS} slots, forward and backward, fp32): {decoder_ms:.3f} ms of kernel "
@@ -2466,7 +2504,7 @@ def vit_l14_training(torch, counters, root, keep):
     from cmh_torch.models.clip.model import CLIP, CLIPConfig
 
     clip = CLIP(CLIPConfig(**VIT_L14))
-    clip.init_weights(torch.Generator().manual_seed(14))
+    clip.init_weights(seed_key(14), "cuda")
     path = os.path.join(keep, "ViT-L-14.pt")
     t0 = time.perf_counter()
     nbytes = write_openai_archive(torch, clip.state_dict(), path)
@@ -2548,7 +2586,7 @@ def vit_b16_encode(torch, counters):
     captions tokenized by ``api.tokenize`` (S = 77, the one-block K2)."""
     from cmh_torch.models.clip import api
 
-    model, cfg = api.load("ViT-B/16", generator=torch.Generator().manual_seed(16))
+    model, cfg = api.load("ViT-B/16", key=seed_key(16))
     images = device_batch(torch, torch.Generator(device="cuda").manual_seed(16), B)["image"]
     ids = api.tokenize(CAPTIONS * (B // len(CAPTIONS))).cuda()
     reset_counts(counters)
@@ -2757,12 +2795,10 @@ def dp_group_of_one(torch, counters, root):
     """15b: DCMHT through ``cmh_torch.main`` with ``run.distribute`` in an
     NCCL group of one (``run.multi_host``, rank 0 of 1, a free local port),
     one epoch of 2 steps and its ``valid``, against the same YAML without
-    it. The collectives are identities, so the first step's loss is
-    bit-equal; the group runs the tree BertAdam (as cmh_tpu on a mesh) and
-    the other run the flat one, whose per-tensor clip norms are added in
-    another order, so the second step, the parameters, the moments and the
-    mAPs are held at a tolerance."""
-    import numpy as np
+    it. The group runs the tree BertAdam (as cmh_tpu on a mesh) and so does
+    the other run (``optimizer.flat: False``; phase 8d holds the flat path
+    against the tree one): the collectives are identities, so both steps'
+    losses, the parameters, the moments and the mAPs are bit-equal."""
     import yaml
 
     from cmh_torch.parallel import dp
@@ -2787,6 +2823,7 @@ def dp_group_of_one(torch, counters, root):
                                     "distributed_port": dp.free_port(), "num_processes": 1,
                                     "process_id": 0})):
             cfg = phase15_config(root, name, **extra)
+            cfg["optimizer"]["flat"] = False
             path = os.path.join(root, name + ".yaml")
             with open(path, "w") as f:
                 yaml.safe_dump(cfg, f)
@@ -2801,8 +2838,9 @@ def dp_group_of_one(torch, counters, root):
     finally:
         BaseTrainer.train_step = step
     one, single = runs["dp"], runs["single"]
-    if one.dp is None or one.dp.world != 1 or one.optimizer.flat or not single.optimizer.flat:
-        raise AssertionError("the dp run did not run in a group of one with the tree BertAdam")
+    if one.dp is None or one.dp.world != 1 or one.optimizer.flat or single.optimizer.flat:
+        raise AssertionError("the dp run did not run in a group of one, both with the tree "
+                             "BertAdam")
     if dp.current() is not None:
         raise AssertionError("the CLI left its process group behind")
     (l1, t1), (l2, t2) = record[id(one)]
@@ -2811,12 +2849,10 @@ def dp_group_of_one(torch, counters, root):
     rel = max(float(((sd_a[k].float() - sd_b[k].float()).abs().max()
                      / sd_b[k].float().abs().max().clamp(min=1e-30))) for k in sd_b)
     ma, mb = one.optimizer.state_dict(), single.optimizer.state_dict()
-    from cmh_torch.optim.bert_adam import _FlatSpec
-
     mom = 0.0
-    for g, ga, gb in zip(single.optimizer.param_groups, ma["groups"], mb["groups"]):
+    for ga, gb in zip(ma["groups"], mb["groups"]):
         for slot in ("m", "v"):
-            for x, y in zip(ga[slot], _FlatSpec(g["params"]).views(gb[slot])):
+            for x, y in zip(ga[slot], gb[slot]):
                 mom = max(mom, float((x - y).abs().max() / y.abs().max().clamp(min=1e-30)))
     maps_a, maps_b = one.history[0]["maps"], single.history[0]["maps"]
     stats = [k for k in sd_b if "running_" in k]
@@ -2830,10 +2866,7 @@ def dp_group_of_one(torch, counters, root):
           f"within {mom:.3e}; mAPs {maps_a} against {maps_b}; the gradient all-reduce "
           f"{sum(p.numel() for p in grads)} elements, {grad_bytes} bytes a step; "
           f"launches {launches}", flush=True)
-    if l1 != s1:
-        raise AssertionError(f"dp: the first step's loss {l1} != {s1}")
-    if not (abs(l2 - s2) <= 1e-5 * abs(s2) and rel <= 1e-5 and mom <= 1e-3
-            and np.allclose(maps_a, maps_b, rtol=0, atol=1e-12)):
+    if (l1, l2) != (s1, s2) or rel != 0 or mom != 0 or tuple(maps_a) != tuple(maps_b):
         raise AssertionError("dp: the group of one differs from the single process")
     return launches
 
@@ -2908,7 +2941,7 @@ TP_TIMEOUT = 300                 # phase 16's workers, in seconds
 # splits' backward input gradients
 FP32_PRODUCTS = {"out_proj forward": (384, 768), "c_proj forward": (1536, 768),
                  "in_proj input gradient": (1152, 768), "c_fc input gradient": (1536, 768)}
-L14_CUT = dict(batch_size=20, train_num=40, query_num=20)   # phase 16c's ViT-L/14 run
+L14_CUT = dict(batch_size=20, train_num=40, query_num=20, seed=1)   # phase 16c's ViT-L/14 run
 UMOED_CUT = dict(batch_size=50, train_num=100, query_num=50)  # phase 16d's UMoED run
 
 
@@ -2965,7 +2998,7 @@ def tp_parity(torch, counters, group, case):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = DCMHTModel(CLIPConfig(dtype=torch.float32), CODE_BITS)
-    model.init_weights(torch.Generator().manual_seed(0)).train()
+    model.init_weights(seed_key(0), "cuda").train()
     whole = copy.deepcopy(model).to("cuda") if group.global_rank == 0 else None
     tp.shard_model_(model, group.shards)
     model.to("cuda")
@@ -3096,6 +3129,9 @@ def tp_worker(plan_path) -> int:
             results[case["name"]] = {"parity": tp_parity, "train": tp_train}[case["kind"]](
                 torch, counters, group, case)
             results[case["name"]]["case_s"] = time.perf_counter() - t0
+        from cmh_torch.models.common import Dropout
+        if Dropout.host_seconds != 0:
+            raise AssertionError(f"{Dropout.host_seconds} s of dropout masks drawn on the host")
     finally:
         dp.shutdown()
     with open(plan["out"], "w") as f:
@@ -3566,6 +3602,113 @@ def phase17(torch, counters, keep):
     return paths
 
 
+def random_counters():
+    from cmh_torch.ops.random import dropout, dropout_bwd, random_bits
+
+    return {"threefry_bits": random_bits, "dropout_fwd": dropout, "dropout_bwd": dropout_bwd}
+
+
+def check_threefry(torch):
+    """18a: ``threefry_bits`` against the plain threefry at three keys, sizes
+    from 1 to 2^28 and an offset across the counters' hi word, bit for bit;
+    its time at 2^26 words beside the plain version's and its bound."""
+    from cmh_torch.ops import random as R
+    from cmh_torch.utils import prng
+
+    keys = (prng.PRNGKey(0), prng.PRNGKey(1814), prng.fold_in(prng.PRNGKey(-3), 2**32 - 1))
+    cases = ((1, 0), (7, 0), (1000, 0), ((1 << 20) + 3, 0), (4096, 2**32 - 1000), (1 << 28, 0))
+    for key in keys:
+        for n, off in cases:
+            got = R.random_bits(key, (n,), "cuda", offset=off)
+            want = prng.random_bits(key, (n,), off, device="cuda")
+            if not torch.equal(got, want):
+                raise AssertionError(f"threefry_bits {key} n={n} offset={off}: "
+                                     f"{int((got != want).sum())} words differ")
+            del got, want
+    print(f"[random] threefry_bits equals the plain threefry at {len(keys)} keys, "
+          f"{len(cases)} sizes (1 to 2^28, one at offset 2^32 - 1000)", flush=True)
+    n = 1 << 26
+    out = torch.empty(n, dtype=torch.int32, device="cuda")
+    lib, key = R._lib(), keys[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = cuda_ms(lambda: lib.cmh_threefry_bits(key[0], key[1], 0, n, out.data_ptr(), stream),
+                 iters=20)
+    plain_ms = cuda_ms(lambda: prng.random_bits(key, (n,), device="cuda"), iters=3, warmup=1)
+    row = entry("threefry_bits", "cmh_torch/csrc/threefry.cu",
+                "no Pallas counterpart: XLA's threefry2x32 in cmh_tpu "
+                "(cmh_tpu/models/mith.py:418, cmh_tpu/runners/base.py:222)",
+                [n], 0.0, ms, plain_ms, None, 4 * n, THREEFRY_OPS * n, "fp32")
+    return [row]
+
+
+def check_dropout(torch):
+    """18b: ``dropout_fwd`` and ``dropout_bwd`` against the plain dropout, bit
+    for bit, in fp32 and bf16: whole, as rank 1's heads of a tp=2 split and
+    at a data-parallel row offset; their times at UMoED's largest mask and
+    at a hash head's, beside the plain version's and ``F.dropout``'s (Philox,
+    another function: a yardstick only)."""
+    from cmh_torch.ops import random as R
+    from cmh_torch.utils import prng
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    key = prng.flax_key(prng.fold_in(prng.PRNGKey(1814), 5), "hash_module", "layer_0",
+                        "drop_ff", 1)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        probs = torch.rand((TRAIN_B, 8, UMOED_SLOTS, 82), generator=gen, device="cuda").to(dt)
+        ffn = torch.randn((TRAIN_B, UMOED_SLOTS, 2048), generator=gen, device="cuda").to(dt)
+        for what, x, part, sl in (
+                ("whole", ffn, None, slice(None)),
+                ("tp shard", probs[:, 4:].contiguous(), (1, 4, 8), (slice(None), slice(4, 8))),
+                ("dp rows", ffn[TRAIN_B // 2:].contiguous(), (0, TRAIN_B // 2, TRAIN_B),
+                 slice(TRAIN_B // 2, None))):
+            whole = probs if what == "tp shard" else ffn
+            for fn in (R.dropout, R.dropout_bwd):
+                got = fn(x, key, 0.3, part)
+                want = R.dropout_plain(whole, key, 0.3)[sl]
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{fn.__name__} {what} {dt}: "
+                                         f"{int((got != want).sum())} elements differ")
+    print("[random] dropout_fwd and dropout_bwd equal the plain dropout, fp32 and bf16, "
+          "whole, as a tp shard and at a dp row offset", flush=True)
+    for what, shape in DROPOUT_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            n, size = x.numel(), x.element_size()
+            plain_ms = cuda_ms(lambda: R.dropout_plain(x, key, 0.3), iters=5, warmup=2)
+            lib_ms = cuda_ms(lambda: torch.nn.functional.dropout(x, 0.3, training=True))
+            for name, fn in (("dropout_fwd", "cmh_dropout_fwd"), ("dropout_bwd", "cmh_dropout_bwd")):
+                ms = cuda_ms(lambda: R._launch(fn, x, key, 0.3, None))
+                rows.append(entry(name, "cmh_torch/csrc/threefry.cu",
+                                  "no Pallas counterpart: XLA's threefry2x32 in cmh_tpu "
+                                  "(flax.linen.Dropout)", f"{what} {list(shape)} "
+                                  f"{str(dt).split('.')[-1]}", 0.0, ms, plain_ms, lib_ms,
+                                  2 * n * size, DROPOUT_OPS * n, "fp32"))
+    return rows
+
+
+def phase18(torch, rand_by_path):
+    """Phase 18: the threefry kernels against their plain versions, their
+    times, and their launches on the training paths; UMoED's steady step."""
+    t0 = time.perf_counter()
+    rows = check_threefry(torch) + check_dropout(torch)
+    for path, need in (("UMoED", ("threefry_bits", "dropout_fwd", "dropout_bwd")),
+                       ("DIMCH", ("threefry_bits", "dropout_fwd", "dropout_bwd"))):
+        idle = [k for k in need if rand_by_path[path][k] == 0]
+        if idle:
+            raise AssertionError(f"{path}: kernels {idle} were never launched")
+    for r in rows:
+        r["launches"] = sum(c[r["name"]] for c in rand_by_path.values())
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in rand_by_path.items()}
+        print(f"[kernel] {r['name']} {r['shape']}: ms {r['ms']:.5f} plain {r['plain_ms']:.4f} "
+              f"library {r['library_ms']} bound {r['bound_ms']:.5f} ({r['bound_by']}); "
+              f"launches {r['launches_by_path']}", flush=True)
+    print(f"[random] UMoED steady steps at batch {TRAIN_B}, host clock: "
+          f"{RANDOM_STATS.get('UMoED steady ms')} ms, its masks drawn on the card; phase 18 "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -3635,7 +3778,7 @@ def main() -> int:
         by_path.update(phase11)
         by_path["msgpack + search"] = msgpack_and_search_cpu(
             torch, counters, os.path.join(WORK, "index.npz"))
-        phase13, fp32_13 = train_dimch_umoed(torch, counters)
+        phase13, fp32_13, rand_by_path = train_dimch_umoed(torch, counters)
         by_path.update(phase13)
         fp32_by_path.update(fp32_13)
         phase14, tiled_by_path = long_sequences(torch, counters, shared)
@@ -3647,6 +3790,10 @@ def main() -> int:
         tiled_by_path.update(phase16_tiled)
         fp32_by_path.update(phase16_fp32)
         by_path.update(phase17(torch, counters, shared))
+        random_rows = phase18(torch, rand_by_path)
+        from cmh_torch.models.common import Dropout
+        if Dropout.host_seconds != 0:
+            raise AssertionError(f"{Dropout.host_seconds} s of dropout masks drawn on the host")
         train_kernels = ("layernorm", "layernorm_bwd", "attention", "attention_bwd",
                          "map_hist", "map_ap")
         for path, need in (("serving", ("layernorm", "attention", "hamming")),
@@ -3728,6 +3875,14 @@ def main() -> int:
             else:
                 seen[r["name"]] = {k: v for k, v in r.items() if k not in FLOORS}
                 kernels.append(seen[r["name"]])
+        for r in random_rows:   # phase 18's, their launches counted there
+            if r["name"] in seen:
+                seen[r["name"]].setdefault("shapes", []).append(
+                    {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")})
+            else:
+                seen[r["name"]] = r
+                kernels.append(r)
         print(f"[chip_smoke] {time.perf_counter() - started:.1f} s", flush=True)
         print(smi_line(), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)

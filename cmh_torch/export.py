@@ -20,7 +20,7 @@ TwDH's encoders return, as cmh_tpu's exported ones do, the tree (long codes,
 
 CLI, writing the encoders of a config: the weights of ``--model`` (a
 ``model-N.pt`` of the port or a cmh_tpu ``model-N.msgpack``), or else a
-seeded random init whose backbone is read from the CLIP checkpoint that
+random init (cmh_tpu's, from ``PRNGKey(--seed)``) whose backbone is read from the CLIP checkpoint that
 ``--clip-path`` (or the config's ``model.clip_path``) names, when that file
 exists:
 
@@ -42,6 +42,7 @@ from .config import ConfigNode, config_from_dict
 from .models.base import DTYPES, Method, existing_clip_path, resolve_clip_cfg
 from .models.clip.model import CLIPConfig
 from .registry import load_components
+from .utils import prng
 
 _MAGIC = "cmh-torch-encoders-v1"
 _DTYPE_NAMES = {v: k for k, v in DTYPES.items() if k in ("bfloat16", "float32")}
@@ -156,7 +157,7 @@ def main(argv: Optional[list] = None) -> None:
         method.model.load_state_dict(method.read_model_file(args.model))
         source = f" (weights from {args.model})"
     else:
-        method.model.init_weights(torch.Generator().manual_seed(args.seed))
+        method.model.init_weights(prng.PRNGKey(args.seed), dev)
         if sd is not None:
             method.load_pretrained_backbone(sd)
         source = f" (backbone from {clip_path})" if sd is not None else ""

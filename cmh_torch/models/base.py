@@ -13,7 +13,7 @@ names), its ``loss``, and how codes are binarized at eval.
   one loader batch (``label``, ``index``, …) and ``step`` is the optimizer
   step count; ``method_state`` carries training state outside the model
   (MITH's memory banks, TwDH's centers and transforms), made by
-  ``init_method_state(seed)`` after the trainer has set
+  ``init_method_state()`` after the trainer has set
   ``method.train_labels``.
 - ``method.make_hash_code`` binarizes (``sign`` or ``pair_argmax``);
   ``method.encode_image`` / ``encode_text`` give the eval path's continuous
@@ -44,6 +44,7 @@ from torch import nn
 
 from ..ops.hashing import pair_argmax_code, sign_code
 from ..utils import flax_msgpack
+from . import convert
 from .clip.loader import infer_config, load_backbone_state, read_torch_state_dict
 from .clip.model import CLIPConfig
 
@@ -92,6 +93,7 @@ class Method:
         self.loss = loss
         self.cfg_model = cfg_model
         self.train_num = train_num
+        convert.name_dropouts(model)
 
     @property
     def output_dim(self) -> int:
@@ -101,9 +103,9 @@ class Method:
     #: ``init_method_state`` (MITH's bank similarity)
     train_labels: Any = None
 
-    def init_method_state(self, seed: int = 0) -> Dict:
+    def init_method_state(self) -> Dict:
         """Training state outside the model, a nested dict of tensors on the
-        CPU (the trainer moves it); ``seed`` is the run seed."""
+        CPU (the trainer moves it)."""
         return {}
 
     def make_hash_code(self, code: torch.Tensor) -> torch.Tensor:

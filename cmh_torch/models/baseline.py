@@ -18,10 +18,10 @@ from torch import nn
 
 from ..ops.metrics import calc_label_sim
 from ..registry import registry
-from . import convert
+from . import convert, flax_init
 from .base import Method, resolve_clip_cfg
 from .clip.model import CLIP, CLIPConfig
-from .common import Dropout, kaiming_uniform_fan_out_
+from .common import Dropout
 from .losses import bayesian_loss, tanh_hash_loss
 
 
@@ -50,14 +50,9 @@ class BaselineModel(nn.Module):
     def forward(self, image, text, key_padding_mask=None):
         return self.encode_image(image), self.encode_text(text, key_padding_mask)
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> "BaselineModel":
-        self.backbone.init_weights(generator)
-        for head in (self.hash.img_hash, self.hash.txt_hash):
-            for lin in (head[0], head[3]):
-                kaiming_uniform_fan_out_(lin.weight, generator)
-                lin.bias.zero_()
-        return self
+    def init_weights(self, key, device=None) -> "BaselineModel":
+        """cmh_tpu's init from ``key`` (``models/flax_init.py``)."""
+        return flax_init.init_(self, key, "Baseline", device)
 
 
 def baseline_loss_fn(*, quan_alpha: float):

@@ -18,6 +18,7 @@ from typing import List, Optional, Tuple, Union
 import torch
 
 from ... import resolve_device
+from ...utils import prng
 from .loader import NON_PARAMETER_KEYS, infer_config, read_torch_state_dict
 from .model import CLIP, CLIPConfig
 from .tokenizer import EOT_ID, SOT_ID, SimpleTokenizer
@@ -38,12 +39,12 @@ def available_models() -> List[str]:
 
 
 def load(name: str = "ViT-B/32", checkpoint_path: str = "", dtype=torch.bfloat16,
-         device=None, generator: Optional[torch.Generator] = None
-         ) -> Tuple[CLIP, CLIPConfig]:
+         device=None, key: Optional[prng.Key] = None) -> Tuple[CLIP, CLIPConfig]:
     """(module in eval mode, config). ``checkpoint_path`` naming a local
     TorchScript archive or state-dict file loads its weights with the
     geometry inferred from their shapes; otherwise ``name``'s configuration
-    gets a seeded random init (``generator``, default seed 0). The module
+    gets cmh_tpu's random init from ``key`` (default ``PRNGKey(0)``, as
+    cmh_tpu's ``clip/loader.py:187``), drawn on the module's device. The module
     lies on the card unless ``device="cpu"`` is asked for; without a card
     that raises ``no CUDA device``."""
     dev = resolve_device("cuda" if device is None else device)
@@ -58,8 +59,7 @@ def load(name: str = "ViT-B/32", checkpoint_path: str = "", dtype=torch.bfloat16
             raise ValueError(f"unknown model '{name}'; available: {available_models()}")
         cfg = dataclasses.replace(_MODEL_CONFIGS[name], dtype=dtype)
         model = CLIP(cfg)
-        model.init_weights(generator if generator is not None
-                           else torch.Generator().manual_seed(0))
+        model.init_weights(prng.PRNGKey(0) if key is None else key, dev)
     return model.to(dev).eval(), cfg
 
 

@@ -29,6 +29,7 @@ from torch import nn
 from ...ops.attention import fused_attention
 from ...ops.layernorm import fused_layernorm
 from ...parallel import tp
+from .. import flax_init
 from ..common import Dropout
 
 EOT_TOKEN_ID = 49407
@@ -132,7 +133,6 @@ class MultiHeadAttention(nn.Module):
     ``dropout_rng``). Kernel K2 is self-attention only and returns no
     weights, so the explicit path runs whenever ``kv`` is given, dropout is
     active or the weights are asked for (cmh_tpu ``models/clip/model.py:203``).
-    ``init_torch_`` is torch's default init (``torch_init`` in cmh_tpu).
     With ``shards`` (``parallel/tp.py``) it holds this rank's heads."""
 
     shards: Optional[tp.Shards] = None
@@ -147,21 +147,10 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(width, width)
         self.attn_drop = Dropout(attn_dropout)
 
-    @torch.no_grad()
-    def init_torch_(self, generator: torch.Generator) -> None:
-        """xavier-uniform on the packed (3d, d) in-projection (bound
-        √(6 / 4d)), out-projection uniform ±1/√d, zero biases."""
-        d = self.out_proj.in_features
-        for w, bound in ((self.in_proj_weight, (6.0 / (4 * d)) ** 0.5),
-                         (self.out_proj.weight, (1.0 / d) ** 0.5)):
-            w.copy_((torch.rand(w.shape, generator=generator) * 2 - 1) * bound)
-        self.in_proj_bias.zero_()
-        self.out_proj.bias.zero_()
-
     def shard_(self, shards: tp.Shards) -> None:
         """Run on this rank's heads (``tp.shard_model_`` keeps their rows of
         the in-projection and columns of the out-projection); the dropout
-        draws the whole heads' masks and keeps this rank's."""
+        draws this rank's heads' part of the whole mask."""
         if self.heads % shards.size:
             raise ValueError(f"{self.heads} attention heads do not divide by tp={shards.size} "
                              "(the port splits the attention by heads)")
@@ -266,26 +255,6 @@ class Transformer(nn.Module):
         return x, attn_weight
 
 
-@torch.no_grad()
-def init_transformer_(tr: Transformer, width: int, generator: torch.Generator) -> None:
-    """A tower's seeded init: normal(width^-½) attention projections,
-    lecun-normal MLP kernels, zero biases, unit LayerNorms."""
-    def normal_(t, std):
-        t.copy_(torch.randn(t.shape, generator=generator) * std)
-
-    for blk in tr.resblocks:
-        normal_(blk.attn.in_proj_weight, width**-0.5)
-        blk.attn.in_proj_bias.zero_()
-        normal_(blk.attn.out_proj.weight, width**-0.5)
-        blk.attn.out_proj.bias.zero_()
-        for ln in (blk.ln_1, blk.ln_2):
-            ln.weight.fill_(1.0)
-            ln.bias.zero_()
-        for lin in (blk.mlp.c_fc, blk.mlp.c_proj):
-            normal_(lin.weight, lin.in_features**-0.5)
-            lin.bias.zero_()
-
-
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
@@ -377,31 +346,7 @@ class CLIP(nn.Module):
         x = torch.matmul(x.to(dt), self.text_projection.to(dt))
         return x[rows, eos_idx], x, eos_attn, new_kpm
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """Seeded random init with the distributions cmh_tpu's flax
-        initializers use (normal(d^-½) attention projections, lecun-normal
-        Dense and patch kernels, CLIP's embedding scales)."""
-        cfg = self.cfg
+    def init_weights(self, key, device=None) -> "CLIP":
+        """cmh_tpu's ``CLIP(cfg).init(key, ...)`` (``models/flax_init.py``)."""
+        return flax_init.init_clip_(self, key, device)
 
-        def normal_(t, std):
-            t.copy_(torch.randn(t.shape, generator=generator) * std)
-
-        def tower(tr: Transformer, width: int):
-            init_transformer_(tr, width, generator)
-
-        vw, p = cfg.vision_width, cfg.vision_patch_size
-        v = self.visual
-        normal_(v.conv1.weight, (p * p * 3) ** -0.5)
-        normal_(v.class_embedding, vw**-0.5)
-        normal_(v.positional_embedding, vw**-0.5)
-        normal_(v.proj, vw**-0.5)
-        tower(v.transformer, vw)
-        tower(self.transformer, cfg.transformer_width)
-        normal_(self.token_embedding.weight, 0.02)
-        normal_(self.positional_embedding, 0.01)
-        normal_(self.text_projection, cfg.transformer_width**-0.5)
-        self.logit_scale.fill_(math.log(1.0 / 0.07))
-        for ln in (v.ln_pre, v.ln_post, self.ln_final):
-            ln.weight.fill_(1.0)
-            ln.bias.zero_()

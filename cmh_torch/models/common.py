@@ -9,8 +9,9 @@ import time
 import torch
 from torch import nn
 
+from ..ops import random
 from ..ops.layernorm import layernorm_plain
-from ..utils.seed import derived_seed
+from ..utils import prng
 
 
 class FlaxLayerNorm(nn.Module):
@@ -47,17 +48,6 @@ class SingleTokenAttention(nn.Module):
         v = torch.matmul(x, self.in_proj_weight[2 * d:].t()) + self.in_proj_bias[2 * d:]
         return torch.matmul(v, self.out_proj.weight.t()) + self.out_proj.bias
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """xavier-uniform kernels, zero biases (cmh_tpu's initializers)."""
-        d = self.width
-        for w, fan in ((self.in_proj_weight, d + 3 * d), (self.out_proj.weight, 2 * d)):
-            bound = (6.0 / fan) ** 0.5
-            w.copy_((torch.rand(w.shape, generator=generator) * 2 - 1) * bound)
-        self.in_proj_bias.zero_()
-        self.out_proj.bias.zero_()
-
-
 class BatchNorm1d(nn.Module):
     """torch BatchNorm1d semantics (eps 1e-5, momentum 0.1, affine) in fp32,
     as cmh_tpu's ``_TorchBatchNorm`` (``cmh_tpu/models/common.py:78-129``).
@@ -93,24 +83,9 @@ class BatchNorm1d(nn.Module):
         return y * self.weight + self.bias
 
 
-def kaiming_uniform_fan_out_(weight: torch.Tensor, generator: torch.Generator) -> None:
-    """The reference heads' ``kaiming_uniform_(mode='fan_out')``: uniform
-    ±√2·√(3 / out_features) (cmh_tpu ``ops/hashing.py:kaiming_uniform_fan_out``)."""
-    bound = (2.0**0.5) * (3.0 / weight.shape[0]) ** 0.5
-    weight.copy_((torch.rand(weight.shape, generator=generator) * 2 - 1) * bound)
-
-
-def torch_default_linear_(lin: nn.Linear, generator: torch.Generator) -> None:
-    """``nn.Linear``'s default init, weight and bias uniform ±1/√in_features
-    (cmh_tpu ``models/common.py:torch_default_dense``)."""
-    bound = 1.0 / lin.in_features**0.5
-    for t in (lin.weight, lin.bias):
-        t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
-
-
 class LinearHash(nn.Module):
     """Linear → dropout → tanh in fp32, the DSPH and DNPH heads (reference
-    ``hash/hash.py`` of each; their inits differ and live in the models)."""
+    ``hash/hash.py`` of each; their inits are in ``models/flax_init.py``)."""
 
     def __init__(self, width: int, output_dim: int, dropout: float = 0.2):
         super().__init__()
@@ -122,46 +97,49 @@ class LinearHash(nn.Module):
 
 
 class _Scope(threading.local):
-    seed = None
-    step = 0
-    position = 0
+    key = None
+    counts = None
 
 
 _SCOPE = _Scope()
 
 
 @contextlib.contextmanager
-def dropout_rng(seed: int, step: int):
-    """Inside the block, the n-th ``Dropout`` call in train mode draws its
-    mask from a generator seeded by (``seed``, ``step``, n), the role of
-    cmh_tpu's ``fold_in(dropout_key, step)``: a step draws the same masks when
-    it is run again, after a resume or in ``run.remat``'s recompute."""
-    saved = (_SCOPE.seed, _SCOPE.step, _SCOPE.position)
-    _SCOPE.seed, _SCOPE.step, _SCOPE.position = int(seed), int(step), 0
+def dropout_rng(key: prng.Key):
+    """Inside the block, train-mode ``Dropout``s draw flax's masks under the
+    step's dropout key ``key`` (cmh_tpu's ``fold_in(dropout_base, step)``):
+    the n-th call of a site in the block takes ``flax_key(key, *path, n)``,
+    flax's ``make_rng('dropout')`` in that module's scope. A step run again,
+    after a resume or in ``run.remat``'s recompute, draws the same masks."""
+    saved = (_SCOPE.key, _SCOPE.counts)
+    _SCOPE.key, _SCOPE.counts = tuple(key), {}
     try:
         yield
     finally:
-        _SCOPE.seed, _SCOPE.step, _SCOPE.position = saved
+        _SCOPE.key, _SCOPE.counts = saved
 
 
 class Dropout(nn.Module):
-    """Inverted dropout (flax ``nn.Dropout``: keep with probability 1 − p,
-    scale the kept by 1/(1 − p)) whose masks come from ``dropout_rng``, never
-    from the global RNG. The mask is drawn on the CPU, so it is the same
-    whatever the device. Identity in eval mode or at p = 0; in train mode
-    outside ``dropout_rng`` it raises.
+    """flax's ``nn.Dropout`` (keep with probability 1 − p, the kept scaled
+    by 1/(1 − p) in x's dtype) with cmh_tpu's masks: ``path`` is the site's
+    scope path in cmh_tpu's module tree (``models/convert.py``'s
+    ``DROPOUT_SITES``), and the mask key comes from ``dropout_rng``. The
+    mask is drawn where it is used, by ``ops/random.dropout`` (a kernel on
+    the card, never stored). Identity in eval mode or at p = 0; in train
+    mode outside ``dropout_rng`` or without a path it raises.
 
-    ``Dropout.masks``, ``Dropout.mask_elements`` and ``Dropout.host_seconds``
-    count the masks drawn, their elements and the host seconds spent drawing
-    them and copying them to the tensor's device.
+    ``Dropout.masks`` and ``Dropout.mask_elements`` count the masks and
+    their elements (at the whole shape); ``Dropout.host_seconds`` the host
+    seconds spent drawing masks, which only a CPU tensor's plain version
+    takes (0 on the card).
 
     ``shard``, ``(dim, rank, size)``, says that ``x`` is rank ``rank``'s
     part of ``size`` equal parts along ``dim`` (heads under tensor
-    parallelism): the mask is drawn at the whole shape and its part taken,
-    so every rank's masks and position counter are one process's."""
+    parallelism): each rank draws its part of the whole mask."""
 
     masks = mask_elements = 0
     host_seconds = 0.0
+    path = None
     shard = None
 
     def __init__(self, p: float):
@@ -171,22 +149,22 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        if _SCOPE.seed is None:
-            raise RuntimeError("Dropout in train mode needs a dropout_rng(seed, step) block")
-        t0 = time.perf_counter()
-        gen = torch.Generator().manual_seed(
-            derived_seed(_SCOPE.seed, _SCOPE.step, _SCOPE.position))
-        _SCOPE.position += 1
-        if self.shard is None:
-            keep = torch.rand(x.shape, generator=gen) >= self.p
-        else:
+        if _SCOPE.key is None:
+            raise RuntimeError("Dropout in train mode needs a dropout_rng(key) block")
+        if self.path is None:
+            raise RuntimeError("this Dropout has no flax path (models/convert.py DROPOUT_SITES)")
+        n = _SCOPE.counts.get(self.path, 0) + 1
+        _SCOPE.counts[self.path] = n
+        key = prng.flax_key(_SCOPE.key, *self.path, n)
+        part, size = None, 1
+        if self.shard is not None:
             dim, rank, size = self.shard
-            whole = list(x.shape)
-            whole[dim] *= size
-            keep = (torch.rand(whole, generator=gen) >= self.p).chunk(size, dim)[rank]
-        keep = keep.to(x.device)
-        Dropout.host_seconds += time.perf_counter() - t0
+            part = (dim, rank * x.shape[dim], size * x.shape[dim])
         Dropout.masks += 1
-        Dropout.mask_elements += keep.numel() * (self.shard[2] if self.shard else 1)
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
-                                                                  device=x.device))
+        Dropout.mask_elements += x.numel() * size
+        if x.device.type != "cpu":
+            return random.dropout(x, key, self.p, part)
+        t0 = time.perf_counter()
+        out = random.dropout(x, key, self.p, part)
+        Dropout.host_seconds += time.perf_counter() - t0
+        return out

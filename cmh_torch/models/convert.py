@@ -31,6 +31,7 @@ BatchNorm ``running_mean``/``running_var``), as cmh_tpu's
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -402,6 +403,45 @@ def umoed_state_to_jax(sd: Dict[str, torch.Tensor]):
         params["hash_img"] = _umoed_head_to(sd, "hash.img_token_hash")
         params["hash_txt"] = _umoed_head_to(sd, "hash.txt_token_hash")
     return params, {}
+
+
+# ---------------------------------------------------------------- dropout sites
+_UMOED_HEADS = {"hash_module": "hash_module", "img_token_hash": "hash_img",
+                "txt_token_hash": "hash_txt"}
+
+# the port's module name → the site's scope path in cmh_tpu's module tree,
+# which flax hashes into the mask key (``models/common.Dropout``). Only sites
+# that can be active are listed: CLIP's towers and MITH's concept
+# transformers drop nothing.
+DROPOUT_SITES = (
+    (r"hash\.(img|txt)_hash\.2", lambda m: ("hash_" + m[1], "drop")),             # Baseline
+    (r"hash\.(img|txt)_hash\.drop", lambda m: ("hash_" + m[1], "drop")),          # DSPH
+    (r"hash\.(image|text)_hash\.drop",                                            # DNPH
+     lambda m: ("hash_" + {"image": "img", "text": "txt"}[m[1]], "drop")),
+    (r"hash\.(img|txt)_token_hash\.hash_layer\.2", lambda m: ("hash_" + m[1], "drop")),  # DIMCH
+    (r"hash\.gcl_[it]\.mlp\.mlps\.(\d+)\.2", lambda m: ("gcl", "mlp", f"drop_{m[1]}")),  # MITH
+    (r"hash\.(lct_[it])\.pe_drop", lambda m: (m[1], "pe_drop")),
+    (r"hash\.(\w+)\.decoder\.layers\.(\d+)\.(self_attn|multihead_attn)\.attn_drop",  # UMoED
+     lambda m: (_UMOED_HEADS[m[1]], f"layer_{m[2]}",
+                "cross_attn" if m[3] == "multihead_attn" else "self_attn", "attn_drop")),
+    (r"hash\.(\w+)\.decoder\.layers\.(\d+)\.(drop1|drop2|drop3|drop_ff)",
+     lambda m: (_UMOED_HEADS[m[1]], f"layer_{m[2]}", m[3])),
+)
+
+
+def name_dropouts(model: torch.nn.Module) -> None:
+    """Give each of ``model``'s dropout sites its cmh_tpu scope path
+    (``Dropout.path``) from ``DROPOUT_SITES``."""
+    from .common import Dropout
+
+    for name, mod in model.named_modules():
+        if not isinstance(mod, Dropout):
+            continue
+        for pattern, path in DROPOUT_SITES:
+            m = re.fullmatch(pattern, name)
+            if m:
+                mod.path = path(m)
+                break
 
 
 # ---------------------------------------------------------------- ResNet tower

@@ -20,10 +20,10 @@ from torch import nn
 from ..ops.hashing import pair_argmax_code, sign_code, softmax_hash, tanh_hash
 from ..ops.metrics import calc_label_sim, cosine_similarity, euclidean_similarity
 from ..registry import registry
-from . import convert
+from . import convert, flax_init
 from .base import Method, resolve_clip_cfg
 from .clip.model import CLIP, CLIPConfig
-from .common import BatchNorm1d, FlaxLayerNorm, SingleTokenAttention, kaiming_uniform_fan_out_
+from .common import BatchNorm1d, FlaxLayerNorm, SingleTokenAttention
 
 
 class ModalityHash(nn.Module):
@@ -41,14 +41,6 @@ class ModalityHash(nn.Module):
         x = self.norm(self.atten(x))
         x = torch.relu(torch.matmul(x, self.fc2.weight.t()) + self.fc2.bias)
         return softmax_hash(x) if self.hash_func == "softmax" else tanh_hash(x)
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        self.atten.init_weights(generator)
-        # kaiming-uniform over fan_out = 2K, zero bias
-        kaiming_uniform_fan_out_(self.fc2.weight, generator)
-        self.fc2.bias.zero_()
-
 
 class Hash(nn.Module):
     def __init__(self, embed: int, output_dim: int, hash_func: str):
@@ -89,12 +81,9 @@ class DCMHTModel(nn.Module):
             return pair_argmax_code(code)
         return sign_code(code)
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> "DCMHTModel":
-        self.backbone.init_weights(generator)
-        self.hash.img_hash.init_weights(generator)
-        self.hash.txt_hash.init_weights(generator)
-        return self
+    def init_weights(self, key, device=None) -> "DCMHTModel":
+        """cmh_tpu's init from ``key`` (``models/flax_init.py``)."""
+        return flax_init.init_(self, key, "DCMHT", device)
 
     @classmethod
     def from_config(cls, cfg) -> "DCMHTModel":

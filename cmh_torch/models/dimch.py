@@ -31,10 +31,10 @@ from ..ops.distances import (batchwise_uniformity_loss, cos_distance, mmd_rbf_lo
 from ..ops.hashing import softmax_hash
 from ..ops.metrics import full_fp32
 from ..registry import registry
-from . import convert
+from . import convert, flax_init
 from .base import Method, resolve_clip_cfg
 from .clip.model import CLIP, CLIPConfig
-from .common import Dropout, kaiming_uniform_fan_out_
+from .common import Dropout
 from .dcmht import soft_argmax_hash_loss
 from .losses import tanh_hash_loss
 
@@ -63,19 +63,6 @@ class TokenHash(nn.Module):
         merged = embeds.mean(dim=1)
         hashed = softmax_hash(merged) if self.hash_func == "softmax" else torch.tanh(merged)
         return embeds, hashed
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """kaiming-normal (fan-in) Conv kernel, kaiming-uniform (fan-out) MLP
-        kernels, zero biases (cmh_tpu's initializers)."""
-        w = self.token_layer.weight
-        std = (2.0 / (w.shape[1] * w.shape[2])) ** 0.5
-        w.copy_(torch.randn(w.shape, generator=generator) * std)
-        self.token_layer.bias.zero_()
-        for lin in (self.hash_layer[0], self.hash_layer[3]):
-            kaiming_uniform_fan_out_(lin.weight, generator)
-            lin.bias.zero_()
-
 
 class DIMCHModel(nn.Module):
     def __init__(self, clip_cfg: CLIPConfig, output_dim: int = 16, set_dim: int = 8,
@@ -109,12 +96,9 @@ class DIMCHModel(nn.Module):
         txt_embeds, txt_hash = self.encode_text(text, key_padding_mask, with_embeds=True)
         return img_embeds, img_hash, txt_embeds, txt_hash
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> "DIMCHModel":
-        self.backbone.init_weights(generator)
-        self.hash.img_token_hash.init_weights(generator)
-        self.hash.txt_token_hash.init_weights(generator)
-        return self
+    def init_weights(self, key, device=None) -> "DIMCHModel":
+        """cmh_tpu's init from ``key`` (``models/flax_init.py``)."""
+        return flax_init.init_(self, key, "DIMCH", device)
 
 
 def dimch_loss_fn(*, set_dim, hash_func, distance_cfg, chamfer_cfg, hash_cfg):

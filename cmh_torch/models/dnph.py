@@ -12,9 +12,9 @@ in the reference, which never forwards ``numclass`` to it. The loss is
 - the cross-entropy of each modality's class logits against argmax(label);
 - minus ``noise_alpha`` times the mean dot product between the codes and
   random ±1 vectors matched to them by a Hungarian assignment
-  (``ops/hungarian.py``, solved on the host). The vectors are a pure
-  function of (``noise_seed``, step), as cmh_tpu's
-  ``fold_in(noise_key, step)``: a resumed run draws the same noise.
+  (``ops/hungarian.py``, solved on the host). The vectors are cmh_tpu's,
+  ``bernoulli(fold_in(PRNGKey(noise_seed), step), 0.5)``: a resumed run
+  draws the same noise.
 
 The proxies are trained by plain SGD at ``optimizer.loss.lr``.
 """
@@ -29,11 +29,11 @@ from torch import nn
 
 from ..ops.hungarian import assign_noise, rand_unit_rect
 from ..registry import registry
-from ..utils.seed import derived_seed
-from . import convert
+from ..utils import prng
+from . import convert, flax_init
 from .base import Method, resolve_clip_cfg
 from .clip.model import CLIP, CLIPConfig
-from .common import LinearHash, kaiming_uniform_fan_out_
+from .common import LinearHash
 from .losses import l2_normalize
 
 PRE_CLASSES = 80
@@ -76,16 +76,9 @@ class DNPHModel(nn.Module):
                 self.hash.image_pre(cls_token), self.hash.text_pre(eos_token),
                 self.loss.proxies)
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> "DNPHModel":
-        self.backbone.init_weights(generator)
-        h = self.hash
-        for lin in (h.image_hash.fc, h.text_hash.fc, h.image_pre.fc, h.text_pre.fc):
-            kaiming_uniform_fan_out_(lin.weight, generator)
-            lin.bias.zero_()
-        p = self.loss.proxies
-        p.copy_(torch.randn(p.shape, generator=generator) / 8.0)
-        return self
+    def init_weights(self, key, device=None) -> "DNPHModel":
+        """cmh_tpu's init from ``key`` (``models/flax_init.py``)."""
+        return flax_init.init_(self, key, "DNPH", device)
 
 
 def dnph_proxy_loss(img_hash, txt_hash, img_pre, txt_pre, proxies, labels, mrg: float = 1.0):
@@ -101,9 +94,9 @@ def dnph_proxy_loss(img_hash, txt_hash, img_pre, txt_pre, proxies, labels, mrg: 
 
 
 def noise_vectors(noise_seed: int, step: int, b: int, k: int, device) -> torch.Tensor:
-    """The step's (b, k) ±1 vectors, drawn on the CPU from (noise_seed, step)."""
-    gen = torch.Generator().manual_seed(derived_seed(noise_seed, step))
-    return rand_unit_rect(gen, b, k).to(device)
+    """The step's (b, k) ±1 vectors from ``fold_in(PRNGKey(noise_seed), step)``
+    (cmh_tpu ``models/dnph.py:129``), drawn on ``device``."""
+    return rand_unit_rect(prng.fold_in(prng.PRNGKey(noise_seed), step), b, k, device)
 
 
 def dnph_loss_fn(*, mrg: float, noise_alpha: float, noise_seed: int):

@@ -24,10 +24,10 @@ from torch import nn
 
 from ..ops.metrics import matmul_fp32
 from ..registry import registry
-from . import convert
+from . import convert, flax_init
 from .base import Method, resolve_clip_cfg
 from .clip.model import CLIP, CLIPConfig
-from .common import LinearHash, torch_default_linear_
+from .common import LinearHash
 from .losses import l2_normalize
 
 _CODETABLE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -67,15 +67,9 @@ class DSPHModel(nn.Module):
         return (self.encode_image(image), self.encode_text(text, key_padding_mask),
                 self.hyp.proxies)
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> "DSPHModel":
-        self.backbone.init_weights(generator)
-        torch_default_linear_(self.hash.img_hash.fc, generator)
-        torch_default_linear_(self.hash.txt_hash.fc, generator)
-        p = self.hyp.proxies
-        # torch's fan_out of a (numclass, K) matrix is numclass
-        p.copy_(torch.randn(p.shape, generator=generator) * (2.0 / p.shape[0]) ** 0.5)
-        return self
+    def init_weights(self, key, device=None) -> "DSPHModel":
+        """cmh_tpu's init from ``key`` (``models/flax_init.py``)."""
+        return flax_init.init_(self, key, "DSPH", device)
 
 
 def hyp_loss(img, txt, proxies, labels, *, threshold: float, alpha: float):

@@ -23,9 +23,8 @@ batch's detached codes at the batch's indices. A ragged last batch is
 padded with wrapped samples, so an index can occur twice in a batch; then
 the **last** row of the batch with that index is written (every duplicate
 row writes the value of the last one, so the result does not depend on the
-order of the scatter). The initial banks are standard normals from a
-``torch.Generator`` seeded from the run seed (cmh_tpu draws them from
-``jax.random.PRNGKey(20)``, which the port cannot reproduce). The eval code
+order of the scatter). The initial banks are cmh_tpu's standard normals from
+``jax.random.PRNGKey(20)`` (``utils/prng.py``). The eval code
 is ``sign(cls_hash + tokens_hash)``.
 """
 
@@ -41,20 +40,12 @@ from torch import nn
 
 from ..ops.metrics import calc_label_sim, matmul_fp32
 from ..registry import registry
-from ..utils.seed import derived_seed
-from . import convert
+from ..utils import prng
+from . import convert, flax_init
 from .base import Method, resolve_clip_cfg
-from .clip.model import CLIP, CLIPConfig, Transformer, init_transformer_
+from .clip.model import CLIP, CLIPConfig, Transformer
 from .common import Dropout, FlaxLayerNorm
 from .losses import bayesian_loss, l2_normalize
-
-
-def _lecun_(lin: nn.Linear, generator: torch.Generator) -> None:
-    """flax ``nn.Dense``'s init: lecun-normal kernel, zero bias."""
-    lin.weight.copy_(torch.randn(lin.weight.shape, generator=generator)
-                     * lin.in_features**-0.5)
-    if lin.bias is not None:
-        lin.bias.zero_()
 
 
 class ResidualMLPs(nn.Module):
@@ -76,13 +67,6 @@ class ResidualMLPs(nn.Module):
         for ln, mlp in zip(self.lns, self.mlps):
             x = x + mlp(ln(x))
         return x
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        for mlp in self.mlps:
-            _lecun_(mlp[0], generator)
-            _lecun_(mlp[3], generator)
-
 
 def sincos_positional_encoding(max_len: int, d_model: int) -> np.ndarray:
     """The fixed sin-cos table scaled by d^-½, (max_len, d_model) float32."""
@@ -140,14 +124,6 @@ class BitwiseHashing(nn.Module):
             self.weight.copy_(w)
             self.bias.copy_(b)
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """Uniform ±1/√d kernel and bias (cmh_tpu's initializer)."""
-        bound = 1.0 / math.sqrt(self.weight.shape[1])
-        for t in (self.weight, self.bias):
-            t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
-
-
 class GlobalConceptLearning(nn.Module):
     """(Residual MLPs →) bias-free concept projection with tanh; returns
     (the MLPs' output, the concept scores)."""
@@ -163,13 +139,6 @@ class GlobalConceptLearning(nn.Module):
         if self.mlp is not None:
             x = self.mlp(x)
         return x, torch.tanh(self.common_concept_embedding(x))
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        if self.mlp is not None:
-            self.mlp.init_weights(generator)
-        _lecun_(self.common_concept_embedding, generator)
-
 
 def localized_token_aggregation(x: torch.Tensor, concept_embed: torch.Tensor, top_k: int,
                                 key_padding_mask: Optional[torch.Tensor] = None):
@@ -222,12 +191,6 @@ class LocalConceptTransforming(nn.Module):
         x = self.pe_drop(x + self._pe[None, : x.shape[1]])
         x, _ = self.transformer(x)
         return self.hashing(x), pseudo_label, x
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        init_transformer_(self.transformer, self.width, generator)
-        self.hashing.init_weights(generator)
-
 
 class MITHHead(nn.Module):
     def __init__(self, d: int, output_dim: int, dropout: float, transformer_layers: int,
@@ -289,16 +252,9 @@ class MITHModel(nn.Module):
         trans_tokens), then text's."""
         return self.encode_image_full(image) + self.encode_text_full(text, key_padding_mask)
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> "MITHModel":
-        self.backbone.init_weights(generator)
-        h = self.hash
-        h.gcl_i.init_weights(generator)
-        h.lct_i.init_weights(generator)
-        h.lct_t.init_weights(generator)
-        _lecun_(h.img_concept_proj, generator)
-        _lecun_(h.txt_concept_proj, generator)
-        return self
+    def init_weights(self, key, device=None) -> "MITHModel":
+        """cmh_tpu's init from ``key`` (``models/flax_init.py``)."""
+        return flax_init.init_(self, key, "MITH", device)
 
 
 def info_nce_loss(out_1: torch.Tensor, out_2: torch.Tensor, temperature: float = 0.07):
@@ -397,14 +353,15 @@ class MITHMethod(Method):
     arch = "MITH"
     code_mode = "sign"
 
-    def init_method_state(self, seed: int = 0) -> Dict[str, torch.Tensor]:
-        """The four banks, standard normals drawn from a generator seeded by
-        (run seed, 20), and the train labels as fp32."""
+    def init_method_state(self) -> Dict[str, torch.Tensor]:
+        """The four banks, standard normals from ``split(PRNGKey(20), 4)``
+        whatever the run seed (cmh_tpu ``models/mith.py:414-421``), and the
+        train labels as fp32."""
         if self.train_labels is None:
             raise ValueError("MITH needs the trainer's train_labels before its banks")
-        gen = torch.Generator().manual_seed(derived_seed(seed, 20))
+        keys = prng.split(prng.PRNGKey(20), 4)
         shape = (self.train_num, self.output_dim)
-        state = {name: torch.randn(shape, generator=gen) for name in BANKS}
+        state = {name: prng.normal(k, shape) for name, k in zip(BANKS, keys)}
         state["train_labels"] = torch.as_tensor(np.asarray(self.train_labels), dtype=torch.float32)
         return state
 

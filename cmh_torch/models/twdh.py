@@ -6,9 +6,9 @@ short width k comes from a fixed transform in the pair-probability space:
 ``short[k] = softmax_hash(long_hash @ trans[k])``. The loss is the BCE of
 the pair probabilities against hash-center targets (a sample's sign of the
 sum of its classes' centers, ties broken by ``ops/hash_centers.tie_vector``
-from (``center_seed``, step)) for the long code and each short one, plus
-the soft-argmax quantization terms, weighted by ``quan_alpha`` and
-``low_rate``.
+under cmh_tpu's key ``fold_in(PRNGKey(center_seed), step)``) for the long
+code and each short one, plus the soft-argmax quantization terms, weighted
+by ``quan_alpha`` and ``low_rate``.
 
 Centers and transforms are read from the reference's torch pickles when
 the paths exist; otherwise the centers are CSQ Hadamard rows (seeds 13 and
@@ -29,6 +29,7 @@ from ..ops.hash_centers import (bce_probs, generate_hash_centers, hash_center_mu
                                 hash_convert, load_center_file, tie_vector)
 from ..ops.hashing import softmax_hash, tanh_hash
 from ..registry import registry
+from ..utils import prng
 from . import convert
 from .base import Method, resolve_clip_cfg
 from .clip.model import CLIPConfig
@@ -70,8 +71,10 @@ def twdh_loss_fn(*, quan_alpha: float, low_rate: float, center_seed: int,
         long_center = method_state["long_center"]
         short_centers, trans = method_state["short_centers"], method_state["trans"]
 
+        key = prng.fold_in(prng.PRNGKey(center_seed), int(step))
+
         def target(centers):
-            tie = tie_vector(center_seed, int(step), centers.shape[1], labels.device)
+            tie = tie_vector(key, centers.shape[1], labels.device)
             return hash_convert(hash_center_multilabels(labels, centers, tie))
 
         t_long = target(long_center)
@@ -117,7 +120,7 @@ class TwDHMethod(Method):
     def short_dims(self):
         return sorted(int(k) for k in self._short_centers)
 
-    def init_method_state(self, seed: int = 0):
+    def init_method_state(self):
         return {"long_center": _f32(self._long_center),
                 "short_centers": {k: _f32(v) for k, v in self._short_centers.items()},
                 "trans": {k: v.clone() for k, v in self._trans.items()}}

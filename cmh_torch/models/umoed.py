@@ -29,7 +29,6 @@ reference does.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -41,22 +40,11 @@ from ..ops.hashing import linear_subspace_hash, softmax_hash, tanh_hash
 from ..ops.metrics import calc_label_sim, euclidean_similarity, full_fp32
 from ..parallel import tp
 from ..registry import registry
-from . import convert
+from . import convert, flax_init
 from .base import Method, resolve_clip_cfg
 from .clip.model import CLIP, CLIPConfig, LayerNormFp32, MultiHeadAttention
 from .common import Dropout
 from .dimch import config_section
-
-
-def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
-    t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
-
-
-def _lecun_(lin: nn.Linear, generator: torch.Generator) -> None:
-    """flax Dense's init: lecun-normal kernel, zero bias."""
-    lin.weight.copy_(torch.randn(lin.weight.shape, generator=generator)
-                     * lin.in_features**-0.5)
-    lin.bias.zero_()
 
 
 class SoftMoE(nn.Module):
@@ -104,18 +92,6 @@ class SoftMoE(nn.Module):
             num = tp.sum_shards(torch.einsum("bnpe,bmnp->bme", ys, e), sh)
             return num / tp.sum_shards(e.sum(dim=(2, 3)), sh)[..., None]
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """torch's kaiming-uniform(a=√5) bound 1/√fan_in, with torch's fan_in
-        of a 3-D tensor (shape[1]·shape[2]); the bias takes the expert
-        weight's."""
-        _uniform_(self.phi, 1.0 / math.sqrt(self.phi.shape[1] * self.phi.shape[2]), generator)
-        w = self.experts.weight
-        bound = 1.0 / math.sqrt(w.shape[1] * w.shape[2])
-        _uniform_(w, bound, generator)
-        _uniform_(self.experts.bias, bound, generator)
-
-
 class SoftMoEEncoderLayer(nn.Module):
     """Post-norm transformer encoder layer with a Soft-MoE FFN (cmh_tpu's
     ``SoftMoEEncoderLayer``; the shipped UMoED head uses the decoder only)."""
@@ -134,13 +110,6 @@ class SoftMoEEncoderLayer(nn.Module):
         x = self.norm1(src + self.drop1(sa))
         h = self.moe(self.drop_ff(torch.relu(self.linear(x))))
         return self.norm2(x + self.drop2(h))
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        self.self_attn.init_torch_(generator)
-        _lecun_(self.linear, generator)
-        self.moe.init_weights(generator)
-
 
 class DecoderLayer(nn.Module):
     """Post-norm transformer decoder layer (torch's
@@ -172,18 +141,6 @@ class DecoderLayer(nn.Module):
         h = self.drop_ff(torch.relu(first(x)))
         h = self.moe(h) if self.is_moe else self.linear2(h)
         return self.norm3(x + self.drop3(h))
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        self.self_attn.init_torch_(generator)
-        self.multihead_attn.init_torch_(generator)
-        if self.is_moe:
-            _lecun_(self.linear, generator)
-            self.moe.init_weights(generator)
-        else:
-            _lecun_(self.linear1, generator)
-            _lecun_(self.linear2, generator)
-
 
 class UMoEDTokenHash(nn.Module):
     """Learned slots → decoder over a modality's tokens → per-slot classifier
@@ -218,22 +175,6 @@ class UMoEDTokenHash(nn.Module):
         h = embeds.mean(dim=1) if self.merge_func == "mean" else embeds.reshape(
             embeds.shape[0], -1)
         return embeds, softmax_hash(h) if self.hash_func == "softmax" else tanh_hash(h)
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """Slots ~ N(0, 1), flax's Dense init for the linear layers, torch's
-        for the attention and the Soft-MoE, unit LayerNorms."""
-        if hasattr(self, "first_layer"):
-            _lecun_(self.first_layer, generator)
-        self.decoder_learned_parameters.copy_(
-            torch.randn(self.decoder_learned_parameters.shape, generator=generator))
-        for layer in self.decoder.layers:
-            layer.init_weights(generator)
-            for ln in (layer.norm1, layer.norm2, layer.norm3):
-                ln.weight.fill_(1.0)
-                ln.bias.zero_()
-        _lecun_(self.classifier, generator)
-
 
 class UMoEDModel(nn.Module):
     def __init__(self, clip_cfg: CLIPConfig, output_dim: int = 64, set_dim: int = 64,
@@ -300,12 +241,9 @@ class UMoEDModel(nn.Module):
         txt_embeds, txt_hash = self.encode_text(text, key_padding_mask, with_embeds=True)
         return img_embeds, img_hash, txt_embeds, txt_hash
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> "UMoEDModel":
-        self.backbone.init_weights(generator)
-        for head in self.hash.values():
-            head.init_weights(generator)
-        return self
+    def init_weights(self, key, device=None) -> "UMoEDModel":
+        """cmh_tpu's init from ``key`` (``models/flax_init.py``)."""
+        return flax_init.init_(self, key, "UMoED", device)
 
 
 def pairwise_set_distance(img, txt, extreme: bool = False, t: float = 0.01,

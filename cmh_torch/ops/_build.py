@@ -27,7 +27,7 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cmh_torch"
-KERNELS = ("layernorm", "attention", "attention_tiled", "hamming", "map")
+KERNELS = ("layernorm", "attention", "attention_tiled", "hamming", "map", "threefry")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 

@@ -7,9 +7,8 @@
   tensors, when their paths exist.
 - ``hash_center_multilabels``: a sample's target is the sign of the sum of
   its classes' centers; an exact zero takes the bit of one ±1 ``tie``
-  vector, shared by the batch. cmh_tpu draws that vector from a JAX key;
-  the port draws it with ``tie_vector`` from a ``torch.Generator`` seeded by
-  (``center_seed``, step), so a resumed run draws it again.
+  vector, shared by the batch, drawn by ``tie_vector`` from cmh_tpu's key
+  ``fold_in(PRNGKey(center_seed), step)``, so a resumed run draws it again.
 - ``hash_convert``: ±1 codes → softmax-pair one-hot targets.
 - ``bce_probs``: ``torch.nn.BCELoss`` on probabilities with cmh_tpu's
   custom VJP: the forward clamps each log at −100, the backward is aten's
@@ -21,11 +20,12 @@
 from __future__ import annotations
 
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..utils.seed import derived_seed
+from ..utils import prng
 
 
 def hadamard_matrix(n: int) -> np.ndarray:
@@ -60,12 +60,12 @@ def load_center_file(path: str) -> np.ndarray:
     return np.asarray(t.float().numpy(), dtype=np.float32)
 
 
-def tie_vector(center_seed: int, step: int, n_bits: int, device=None) -> torch.Tensor:
-    """The step's (n_bits,) ±1 float32 tie vector, drawn on the CPU from a
-    generator seeded by (``center_seed``, step)."""
-    gen = torch.Generator().manual_seed(derived_seed(center_seed, step))
-    bits = torch.randint(0, 2, (n_bits,), generator=gen, dtype=torch.int64)
-    return (bits.float() * 2.0 - 1.0).to(device)
+def tie_vector(key: Optional[prng.Key], n_bits: int, device=None) -> torch.Tensor:
+    """The (n_bits,) ±1 float32 tie vector of cmh_tpu's
+    ``hash_center_multilabels``: ``randint(key, (n_bits,), 0, 2)``, with
+    ``PRNGKey(0)`` when no key is given, drawn on ``device``."""
+    key = prng.PRNGKey(0) if key is None else key
+    return prng.randint(key, (n_bits,), 0, 2, device).float() * 2.0 - 1.0
 
 
 def hash_center_multilabels(labels: torch.Tensor, centers: torch.Tensor,

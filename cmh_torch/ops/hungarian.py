@@ -22,6 +22,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils import prng
+
 
 def solve_assignment(cost: np.ndarray) -> np.ndarray:
     """Column assigned to each row minimizing the total cost, (B, B) → (B,)."""
@@ -58,10 +60,8 @@ assign_noise.host_seconds = 0.0
 assign_noise.solve_seconds = 0.0
 
 
-def rand_unit_rect(generator: torch.Generator, npoints: int, ndim: int) -> torch.Tensor:
+def rand_unit_rect(key, npoints: int, ndim: int, device=None) -> torch.Tensor:
     """Random ±1 (Rademacher) vectors (reference ``rand_unit_rect``, which
-    despite its name draws corners, not unit-norm points), fp32 on the
-    generator's device."""
-    bits = torch.rand((npoints, ndim), generator=generator,
-                      device=generator.device) < 0.5
-    return bits.float() * 2.0 - 1.0
+    despite its name draws corners, not unit-norm points): cmh_tpu's
+    ``bernoulli(key, 0.5, (npoints, ndim))``, fp32 on ``device``."""
+    return prng.bernoulli(key, 0.5, (npoints, ndim), device).float() * 2.0 - 1.0

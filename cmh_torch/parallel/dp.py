@@ -11,7 +11,8 @@ group (NCCL between cards, gloo on the CPU):
 - the towers' outputs are gathered (``gathered_towers``) into the global
   batch, so the heads, BatchNorm, head dropout, the method state and
   DNPH's assignment see what a single process sees, and every rank computes
-  the same global loss;
+  the same global loss (no dropout site sees a rank's rows alone, so each
+  draws the whole batch's mask on its card, at row offset 0);
 - the gather's backward hands each rank the gradient of its own rows, times
   W, and ``average_gradients`` averages every gradient over the ranks: the
   towers' gradients become the sum of the ranks' parts, the heads' (the

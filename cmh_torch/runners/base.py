@@ -5,7 +5,7 @@ build dataset → loaders → model (the method's, from the registry; its
 backbone read from ``model.clip_path`` when that file exists) → optimizers
 (BertAdam, and SGD for the parameters a method keeps apart, such as DSPH's
 and DNPH's proxies); then per epoch ``train_epoch`` (one step per batch:
-forward in train mode with dropout masks drawn from (``run.seed``, step),
+forward in train mode with cmh_tpu's dropout masks from ``run.seed``,
 the method's loss, backward through kernels K1-bwd and K2-bwd on the card,
 every optimizer) and
 ``valid`` (±1 codes for the query and retrieval sets, 4-direction mAP
@@ -86,6 +86,7 @@ from ..optim.bert_adam import BertAdam
 from ..optim.partition import param_groups
 from ..parallel import dp, tp
 from ..registry import load_components, registry
+from ..utils import prng
 from ..utils.logger import get_color_logger
 from ..utils.seed import set_seed
 from . import checkpoint, jax_checkpoint
@@ -107,7 +108,7 @@ class BaseTrainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.seed = int(cfg.run.get("seed", 1814))
-        self.generator = set_seed(self.seed)
+        self.rng = set_seed(self.seed)
         self.dp = dp.current()
         if self.dp is None and cfg.run.get("distribute", False):
             raise ValueError("run.distribute needs a data-parallel group: run the config "
@@ -238,8 +239,12 @@ class BaseTrainer:
         # methods with train-set-sized state (MITH's memory banks) need the
         # label matrix before init_method_state (cmh_tpu runners/base.py:217-219)
         self.method.train_labels = self.train_labels
-        self.method_state = _tree_to(self.method.init_method_state(self.seed), self.device)
-        self.model.init_weights(self.generator)
+        self.method_state = _tree_to(self.method.init_method_state(), self.device)
+        # cmh_tpu's key chain (runners/base.py:222, :300): the init key, then
+        # the dropout key that each step folds its step number into
+        self.rng, init_key = prng.split(self.rng)
+        self.rng, self.dropout_base = prng.split(self.rng)
+        self.model.init_weights(init_key, self.device)
         if sd is not None:
             self.method.load_pretrained_backbone(sd)
             self.logger.info(f"backbone: loaded {clip_path}")
@@ -486,9 +491,10 @@ class BaseTrainer:
 
     def train_step(self, batch):
         """One step of every optimizer on a host batch; returns (loss,
-        loss_dict) as device tensors. Dropout masks and a method's per-step
-        randomness are functions of (``run.seed``, step), where step is the
-        optimizer step count (cmh_tpu's ``state.step``). Under data
+        loss_dict) as device tensors. Dropout masks come from cmh_tpu's key
+        ``fold_in(dropout_base, step)`` and a method's per-step randomness
+        from its own keys folded with step, the optimizer step count
+        (cmh_tpu's ``state.step``). Under data
         parallelism the towers take this rank's rows of the batch and
         everything after them the gathered global batch."""
         self.model.train()
@@ -502,8 +508,10 @@ class BaseTrainer:
                                                     self.dp)))
             towers = lambda: dp.gathered_towers(self.model.backbone, self.dp)  # noqa: E731
 
+        step_key = prng.fold_in(self.dropout_base, step)
+
         def forward_and_loss(image, text, kpm):
-            with dropout_rng(self.seed, step), towers():
+            with dropout_rng(step_key), towers():
                 outputs = self.model(image, text, kpm)
             return self.method.loss(outputs, b, self.method_state, step)
 

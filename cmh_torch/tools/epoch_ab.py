@@ -80,12 +80,14 @@ def make_dataset(root: str, n_items: int, n_classes: int, res: int) -> str:
     return root
 
 
-def write_clip(path: str, scale: str, res: int) -> None:
+def write_clip(path: str, scale: str, res: int, device=None) -> None:
     """A seeded CLIP state dict in OpenAI's layout (fp32 tensors and the
-    three integer entries): cmh_tpu's tool's tiny geometry, or ViT-B/32."""
+    three integer entries): cmh_tpu's tool's tiny geometry, or ViT-B/32,
+    with cmh_tpu's init from ``PRNGKey(0)`` drawn on ``device``."""
     import torch
 
     from ..models.clip.model import CLIP, CLIPConfig
+    from ..utils import prng
 
     if scale == "tiny":
         cfg = CLIPConfig(embed_dim=32, image_resolution=res, vision_layers=2, vision_width=64,
@@ -94,7 +96,7 @@ def write_clip(path: str, scale: str, res: int) -> None:
     else:
         cfg = CLIPConfig()
     clip = CLIP(cfg)
-    clip.init_weights(torch.Generator().manual_seed(0))
+    clip.init_weights(prng.PRNGKey(0), device)
     ints = {"input_resolution": cfg.image_resolution, "context_length": cfg.context_length,
             "vocab_size": cfg.vocab_size}
     torch.save({**{k: v.detach().float() for k, v in clip.state_dict().items()},
@@ -207,7 +209,7 @@ def main(argv: Optional[list] = None) -> dict:
         t0 = time.perf_counter()
         make_dataset(root, n_items, 4, res)
         clip_path = os.path.join(root, "clip.pt")
-        write_clip(clip_path, args.scale, res)
+        write_clip(clip_path, args.scale, res, device)
         setup_s = time.perf_counter() - t0
         our_times = time_ours(cfg_dict(root, clip_path, os.path.join(root, "ours"), **common,
                                        scan_steps=scan_steps), args.epochs, device)

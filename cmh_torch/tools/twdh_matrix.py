@@ -12,10 +12,9 @@ stops the training early.
 
 The loss reads only labels and centers, so no image or caption is needed:
 batches are drawn from the label matrix (``--label-file``) or synthesized
-as multi-hot rows over the classes. Every draw comes from one
-``torch.Generator`` seeded by ``--seed`` (cmh_tpu draws from a JAX key,
-whose values the port cannot reproduce); ``train_step`` takes a step's
-labels and tie vectors as arguments, so a test can feed JAX's draws.
+as multi-hot rows over the classes. Every draw comes from cmh_tpu's key
+chain (``cmh_tpu/tools/twdh_matrix.py:83-131``) off ``PRNGKey(--seed)``
+(``utils/prng.py``), so both tools find the same matrix from one seed.
 
     python -m cmh_torch.tools.twdh_matrix --long-dim 512 --output-dim 16 \
         --long-center-path .../512.pkl --short-center-path .../16.pkl \
@@ -32,8 +31,9 @@ import numpy as np
 import torch
 
 from ..ops.hash_centers import (bce_probs, generate_hash_centers, hash_center_multilabels,
-                                hash_convert, load_center_file)
+                                hash_convert, load_center_file, tie_vector)
 from ..optim.bert_adam import BertAdam
+from ..utils import prng
 
 
 def soft_argmax_hash_loss_pairs(code: torch.Tensor) -> torch.Tensor:
@@ -89,10 +89,6 @@ def make_optimizer(matrix: torch.Tensor, lr: float, warmup: float, t_total: int,
                     weight_decay=weight_decay, max_grad_norm=1.0)
 
 
-def _signs(gen: torch.Generator, n: int) -> torch.Tensor:
-    return torch.randint(0, 2, (n,), generator=gen).float() * 2.0 - 1.0
-
-
 def train_transform_matrix(long_center: np.ndarray, short_center: np.ndarray,
                            labels: Optional[np.ndarray] = None, epochs: int = 100,
                            steps_per_epoch: int = 50, batch_size: int = 200,
@@ -102,28 +98,29 @@ def train_transform_matrix(long_center: np.ndarray, short_center: np.ndarray,
     """Returns (matrix (2·long, 2·short) float32, lossless, epochs run)."""
     long_dim, short_dim = long_center.shape[1], short_center.shape[1]
     n_class = long_center.shape[0]
-    gen = torch.Generator().manual_seed(seed)
-    init = torch.rand((2 * long_dim, 2 * short_dim), generator=gen) * 2.0 - 1.0
-    matrix = init.to(device).requires_grad_(True)
+    key, mk = prng.split(prng.PRNGKey(seed))
+    matrix = prng.uniform(mk, (2 * long_dim, 2 * short_dim), -1.0, 1.0,
+                          device).requires_grad_(True)
     lc = torch.as_tensor(long_center, dtype=torch.float32, device=device)
     sc = torch.as_tensor(short_center, dtype=torch.float32, device=device)
     optimizer = make_optimizer(matrix, lr, warmup, steps_per_epoch * epochs, weight_decay)
     if labels is not None:
-        labels = torch.as_tensor(np.asarray(labels), dtype=torch.float32)
+        labels = torch.as_tensor(np.asarray(labels), dtype=torch.float32, device=device)
 
     for epoch in range(epochs):
         for _ in range(steps_per_epoch):
+            key, bk, tk = prng.split(key, 3)
             if labels is not None:
-                batch = labels[torch.randint(0, labels.shape[0], (batch_size,), generator=gen)]
+                batch = labels[prng.randint(bk, (batch_size,), 0, labels.shape[0], device).long()]
             else:
                 # multi-hot rows over the center classes, one class sure
-                batch = (torch.rand((batch_size, n_class), generator=gen)
-                         < 2.0 / n_class).float()
-                batch[torch.arange(batch_size),
-                      torch.randint(0, n_class, (batch_size,), generator=gen)] = 1.0
-            tie_long, tie_short = _signs(gen, long_dim), _signs(gen, short_dim)
-            loss, parts = train_step(matrix, optimizer, batch.to(device), lc, sc,
-                                     tie_long.to(device), tie_short.to(device), alpha)
+                rare = torch.tensor(2.0 / n_class, dtype=torch.float32, device=device)
+                batch = (prng.uniform(bk, (batch_size, n_class), device=device) < rare).float()
+                batch[torch.arange(batch_size, device=device),
+                      prng.randint(tk, (batch_size,), 0, n_class, device).long()] = 1.0
+            loss, parts = train_step(matrix, optimizer, batch, lc, sc,
+                                     tie_vector(tk, long_dim, device),
+                                     tie_vector(tk, short_dim, device), alpha)
         logger(f"epoch {epoch}: loss={float(loss):.4f} (hash={float(parts[0]):.4f}, "
                f"bce={float(parts[1]):.4f}, lasso={float(parts[2]):.4f})")
         m_np = matrix.detach().cpu().numpy()

@@ -25,6 +25,7 @@ from cmh_torch.models.clip import api
 from cmh_torch.models.clip.loader import save_torchscript_archive
 from cmh_torch.models.clip.model import CLIP, CLIPConfig
 from cmh_torch.models.convert import clip_state_from_jax, clip_state_to_jax
+from cmh_torch.utils import prng
 from cmh_tpu.models.clip import api as jax_api
 from cmh_tpu.models.clip.model import CLIP as JaxCLIP
 from cmh_tpu.models.clip.model import CLIPConfig as JaxCLIPConfig
@@ -59,18 +60,18 @@ def test_available_models_and_configs_match_cmh_tpu():
 def test_load_by_name_builds_the_named_config():
     """ViT-B/16 on the CPU, as asked: the named geometry in the asked dtype,
     its 197 vision positions, eval mode, the weights of ``CLIP.init_weights``
-    with the given generator."""
-    model, cfg = api.load("ViT-B/16", dtype=torch.float32, device="cpu",
-                          generator=torch.Generator().manual_seed(4))
+    from the given key."""
+    model, cfg = api.load("ViT-B/16", dtype=torch.float32, device="cpu", key=prng.PRNGKey(4))
     assert cfg == dataclasses.replace(api._MODEL_CONFIGS["ViT-B/16"], dtype=torch.float32)
     assert _fields(cfg) == _fields(jax_api._MODEL_CONFIGS["ViT-B/16"])
     sd = model.state_dict()
     assert sd["visual.conv1.weight"].shape == (768, 3, 16, 16)
     assert sd["visual.positional_embedding"].shape == (197, 768)
     assert not model.training and sd["visual.proj"].device.type == "cpu"
-    gen = torch.Generator().manual_seed(4)
-    first = torch.randn(sd["visual.conv1.weight"].shape, generator=gen)    # init's first draw
-    torch.testing.assert_close(sd["visual.conv1.weight"], first * (16 * 16 * 3) ** -0.5,
+    # cmh_tpu's patch kernel: lecun-normal under flax's key for visual/conv1 (HWIO)
+    kernel = prng.lecun_normal(prng.flax_key(prng.PRNGKey(4), "visual", "conv1", 1),
+                               (16, 16, 3, 768))
+    torch.testing.assert_close(sd["visual.conv1.weight"], kernel.permute(3, 2, 0, 1),
                                rtol=0, atol=0)
 
 
@@ -89,7 +90,7 @@ def test_load_from_a_local_archive_matches_cmh_tpu(tmp_path):
     integer entries): the geometry is inferred as cmh_tpu infers it, every
     weight is the file's, and the image and text encodings agree."""
     src = CLIP(CLIPConfig.tiny())
-    src.init_weights(torch.Generator().manual_seed(21))
+    src.init_weights(prng.PRNGKey(21))
     ints = {"input_resolution": torch.tensor(32), "context_length": torch.tensor(16),
             "vocab_size": torch.tensor(49408)}
     path = str(tmp_path / "tiny.pt")
@@ -154,7 +155,7 @@ def test_narrow_clip_at_vit_b16_length_matches_pallas(monkeypatch):
     cfg = CLIPConfig(**NARROW, dtype=torch.float32)
     assert cfg.num_patches + 1 == 197
     model = CLIP(cfg)
-    model.init_weights(torch.Generator().manual_seed(5))
+    model.init_weights(prng.PRNGKey(5))
     params = clip_state_to_jax({f"b.{k}": v for k, v in model.state_dict().items()}, "b")
     jmodel = JaxCLIP(JaxCLIPConfig(**NARROW, dtype=jnp.float32))
     rng = np.random.RandomState(6)

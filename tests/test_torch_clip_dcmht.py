@@ -14,6 +14,7 @@ import torch
 from cmh_torch.models.clip.model import CLIPConfig
 from cmh_torch.models.convert import dcmht_state_from_jax
 from cmh_torch.models.dcmht import DCMHTModel
+from cmh_torch.utils import prng
 from cmh_tpu.config import config_from_dict
 from cmh_tpu.models.dcmht import DCMHTMethod
 from cmh_tpu.models.torch_import import dcmht_from_torch_state
@@ -129,8 +130,8 @@ def test_weights_round_trip_bit_for_bit(models):
 
 
 def test_random_init_is_seeded_and_finite():
-    a = DCMHTModel(CLIPConfig.tiny(), BITS).init_weights(torch.Generator().manual_seed(3))
-    b = DCMHTModel(CLIPConfig.tiny(), BITS).init_weights(torch.Generator().manual_seed(3))
+    a = DCMHTModel(CLIPConfig.tiny(), BITS).init_weights(prng.PRNGKey(3))
+    b = DCMHTModel(CLIPConfig.tiny(), BITS).init_weights(prng.PRNGKey(3))
     for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(x, y), k
     img = torch.from_numpy(np.random.RandomState(0).randn(2, 32, 32, 3).astype(np.float32))

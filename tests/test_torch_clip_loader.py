@@ -27,6 +27,7 @@ from cmh_torch.models.clip.loader import (NON_PARAMETER_KEYS, infer_config,
 from cmh_torch.models.clip.model import CLIP, CLIPConfig
 from cmh_torch.models.convert import clip_state_from_jax
 from cmh_torch.runners.dcmht import DCMHTTrainer
+from cmh_torch.utils import prng
 from cmh_tpu.models.clip import loader as jax_loader
 
 REL = 1e-5
@@ -35,7 +36,7 @@ FORMATS = ("fp32", "fp16", "torchscript")
 
 def _weights():
     model = CLIP(CLIPConfig.tiny())
-    model.init_weights(torch.Generator().manual_seed(11))
+    model.init_weights(prng.PRNGKey(11))
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 

@@ -129,9 +129,10 @@ def test_token_mixer_is_the_conv1d():
     from cmh_torch.models.dimch import TokenHash
 
     head = TokenHash(7, 8, 16, 5)
-    head.init_weights(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
-        head.token_layer.bias.normal_()
+        for p in head.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
         x = torch.from_numpy(np.random.RandomState(1).randn(3, 7, 16).astype(np.float32))
         want = torch.relu(head.token_layer(x))                  # (B, M, D)
         assert _rel(head.mix(x), want) <= 1e-6

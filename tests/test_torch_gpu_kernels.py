@@ -769,3 +769,38 @@ def test_map_4dir_kernel_matches_numpy(cuda):
     want = [calc_map_k_numpy(a, b, ql, rl)
             for a, b in ((qi, rt), (qt, ri), (qi, ri), (qt, rt))]
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("n,offset", [(1, 0), (255, 0), (257, 7), (100_003, 0),
+                                      (4096, 2**32 - 1000)])
+def test_threefry_bits_kernel_matches_plain(cuda, n, offset):
+    from cmh_torch.ops.random import random_bits
+    from cmh_torch.utils import prng
+
+    key = prng.fold_in(prng.PRNGKey(1814), n)
+    before = random_bits.launches
+    got = random_bits(key, (n,), cuda, offset=offset)
+    torch.cuda.synchronize()
+    assert random_bits.launches == before + 1
+    assert torch.equal(got.cpu(), prng.random_bits(key, (n,), offset))
+
+
+@pytest.mark.parametrize("shape,part", [((3, 7), None), ((4, 6, 5, 9), None),
+                                        ((4, 3, 5, 9), (1, 3, 6)), ((2, 6, 33), (0, 5, 9))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernels_match_plain(cuda, shape, part, dtype):
+    """Forward and backward, whole or a part of a larger array (a head shard,
+    a block of rows), bit for bit against the plain dropout on the CPU."""
+    from cmh_torch.ops.random import dropout, dropout_bwd, dropout_plain
+    from cmh_torch.utils import prng
+
+    key = prng.flax_key(prng.PRNGKey(5), "hash_img", "drop", 1)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(2)).to(dtype)
+    xc = x.to(cuda).requires_grad_(True)
+    fwd, bwd = dropout.launches, dropout_bwd.launches
+    y = dropout(xc, key, 0.3, part)
+    y.backward(torch.ones_like(y))
+    torch.cuda.synchronize()
+    assert (dropout.launches, dropout_bwd.launches) == (fwd + 1, bwd + 1)
+    assert torch.equal(y.detach().cpu(), dropout_plain(x, key, 0.3, part))
+    assert torch.equal(xc.grad.cpu(), dropout_plain(torch.ones_like(x), key, 0.3, part))

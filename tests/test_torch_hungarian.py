@@ -13,6 +13,7 @@ import torch
 
 from cmh_torch.models.dnph import noise_vectors
 from cmh_torch.ops.hungarian import assign_noise, noise_cost, rand_unit_rect, solve_assignment
+from cmh_torch.utils import prng
 from cmh_tpu.ops import hungarian as jax_hungarian
 
 
@@ -50,7 +51,7 @@ def test_assign_noise_equals_cmh_tpus(b, k, seed):
 def test_assign_noise_counts_its_host_solves():
     calls, secs = assign_noise.calls, assign_noise.host_seconds
     x = torch.randn(5, 4)
-    out = assign_noise(x, rand_unit_rect(torch.Generator().manual_seed(0), 5, 4))
+    out = assign_noise(x, rand_unit_rect(prng.PRNGKey(0), 5, 4))
     assert assign_noise.calls == calls + 1 and assign_noise.host_seconds > secs
     assert out.shape == (5, 4) and not out.requires_grad
 

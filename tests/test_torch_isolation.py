@@ -42,6 +42,9 @@ TRAINING_MODULES = {
     "cmh_torch.runners.umoed", "cmh_torch.ops.distances", "cmh_torch.server",
     "cmh_torch.models.clip.api", "cmh_torch.models.clip.resnet", "cmh_torch.parallel.dp",
     "cmh_torch.runners.jax_checkpoint"}
+# the random streams: JAX's threefry keys, flax's per-parameter init, the
+# dropout kernel's wrapper
+RANDOM_MODULES = {"cmh_torch.utils.prng", "cmh_torch.ops.random", "cmh_torch.models.flax_init"}
 # the tools and the native image preprocessing
 TOOL_MODULES = {
     "cmh_torch.native.image_ops", "cmh_torch.data.transforms",
@@ -56,7 +59,7 @@ def test_import_pulls_in_no_jax_and_no_cmh_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     names, bad = out.stdout.strip().splitlines()
-    assert TRAINING_MODULES | TOOL_MODULES <= set(names.split()), out.stdout
+    assert TRAINING_MODULES | TOOL_MODULES | RANDOM_MODULES <= set(names.split()), out.stdout
     assert len(names.split()) >= 30 and bad == "[]", out.stdout
 
 
@@ -161,9 +164,10 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
     from cmh_torch.ops.attention import attention_bwd
     from cmh_torch.ops.layernorm import layernorm_bwd
     from cmh_torch.ops.map_kernel import map_ap, map_hist
+    from cmh_torch.ops.random import dropout, dropout_bwd, random_bits
 
     wrappers = (fused_layernorm, fused_attention, hamming_packed, layernorm_bwd,
-                attention_bwd, map_hist, map_ap)
+                attention_bwd, map_hist, map_ap, random_bits, dropout, dropout_bwd)
     before = [w.launches for w in wrappers]
     x = torch.randn(2, 4, 8, requires_grad=True)
     fused_layernorm(x, torch.ones(8), torch.zeros(8)).sum().backward()
@@ -175,8 +179,14 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
     hist, rhist = map_hist(words, 1)
     map_ap(words, torch.zeros_like(hist), torch.zeros_like(rhist),
            torch.ones(1, dtype=torch.int32))
+    random_bits((0, 1), (5,))
+    dropout(torch.randn(3, 4, requires_grad=True), (0, 1), 0.5).sum().backward()
     # plain versions on the CPU, forward and backward: no launch is counted
     assert [w.launches for w in wrappers] == before
     with pytest.raises(ValueError, match="no layernorm kernel"):
         fused_layernorm(x.to("meta"), torch.ones(8, device="meta"),
                         torch.zeros(8, device="meta"))
+    with pytest.raises(ValueError, match="no dropout kernel"):
+        dropout(torch.zeros(3, device="meta"), (0, 1), 0.5)
+    with pytest.raises(ValueError, match="no threefry kernel"):
+        random_bits((0, 1), (5,), device="meta")

@@ -15,9 +15,10 @@ state) for DCMHT. The port resumes each through
   own ``_FlatSpec.unflatten`` of its vector, the SGD momentum, the method
   state, the step and the best tracking;
 - the next step matches cmh_tpu's next step on the same batch (loss 1e-5
-  relative; parameters within 1e-5). Both sides run with dropout 0 (the
-  frameworks' masks cannot match), TwDH with cmh_tpu's tie vector, DNPH
-  with one fixed noise matrix on both sides, DIMCH and UMoED with
+  relative; parameters within 1e-5), with each method's dropout, DNPH's
+  noise and TwDH's tie vector drawn on each side from its own keys at the
+  resumed step (the port's from ``run.seed`` and the step count it
+  resumed, ``utils/prng.py``), DIMCH and UMoED with
   cmh_tpu's fused kernels in interpret mode (``CMH_TPU_FUSED=1``, as
   ``test_torch_train_dimch_umoed.py``), a constant schedule (the warmup would
   make the lr 0) and BertAdam's ε at 1e-3: at 1e-6 an element whose
@@ -44,8 +45,8 @@ import numpy as np
 import pytest
 import torch
 
-import cmh_tpu.models.dnph as jax_dnph
-import cmh_tpu.models.dsph  # noqa: F401  (registers cmh_tpu's methods)
+import cmh_tpu.models.dnph  # noqa: F401  (registers cmh_tpu's methods)
+import cmh_tpu.models.dsph  # noqa: F401
 import cmh_tpu.models.mith  # noqa: F401
 import cmh_tpu.models.twdh  # noqa: F401
 import cmh_tpu.runners.baseline  # noqa: F401
@@ -55,8 +56,6 @@ import cmh_tpu.runners.dsph  # noqa: F401
 import cmh_tpu.runners.mith  # noqa: F401
 import cmh_tpu.runners.twdh  # noqa: F401
 import cmh_tpu.runners.umoed  # noqa: F401
-import cmh_torch.models.dnph as port_dnph
-import cmh_torch.models.twdh as port_twdh
 from cmh_torch.config import config_from_dict as port_config
 from cmh_torch.registry import load_components
 from cmh_torch.runners import jax_checkpoint
@@ -70,21 +69,20 @@ from tests.test_torch_umoed import FUSION
 
 port_registry = load_components()
 MODEL = {"DCMHT": {"hash_func": "softmax"},
-         "DSPH": {"hash_func": "tanh", "numclass": 4, "dropout": 0.0},
+         "DSPH": {"hash_func": "tanh", "numclass": 4},
          "MITH": {"hash_func": "tanh", "top_k_label": 4, "drop_out": 0.0},
          "TwDH": {"hash_func": "softmax", "long_dim": 16, "short_dims": [8], "numclass": 4,
                   "long_center": "/nonexistent", "short_center": "/nonexistent",
                   "trans_matrix": "/nonexistent"},
-         "DNPH": {"hash_func": "tanh", "numclass": 4, "dropout": 0.0, "noise_alpha": 0.1},
-         "Baseline": {"hash_func": "tanh", "dropout": 0.0},
-         "DIMCH": {k: v for k, v in dimch_cfg().items() if k not in ("arch", "clip_variant")},
-         "UMoED": {k: v for k, v in dict(FUSION, decoder_layers=1).items()
+         "DNPH": {"hash_func": "tanh", "numclass": 4, "noise_alpha": 0.1},
+         "Baseline": {"hash_func": "tanh"},
+         "DIMCH": {k: v for k, v in dimch_cfg(dropout=0.3).items()
+                   if k not in ("arch", "clip_variant")},
+         "UMoED": {k: v for k, v in dict(FUSION, decoder_layers=1, dropout=0.3).items()
                    if k not in ("arch", "clip_variant")}}
 CASES = [("DCMHT", "flat"), ("DCMHT", "tree"), ("DSPH", "flat"), ("MITH", "flat"),
          ("TwDH", "flat"), ("DNPH", "flat"), ("Baseline", "flat"), ("DIMCH", "flat"),
          ("UMoED", "flat")]
-# DNPH's ±1 noise matrix of a step, the same on both sides
-NOISE = np.random.RandomState(7).choice([-1.0, 1.0], (16, 8)).astype(np.float32)
 
 
 def _cfg(root, arch, mesh):
@@ -139,7 +137,6 @@ def saved(request, tmp_path_factory):
     root = tmp_path_factory.mktemp(f"{arch}_{fmt}")
     cfg = _cfg(root, arch, fmt == "tree")
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_dnph, "rand_unit_rect", lambda key, n, d: jnp.asarray(NOISE))
         if arch in ("DIMCH", "UMoED"):
             mp.setenv("CMH_TPU_FUSED", "1")
         tr = _jax_trainer(cfg, fmt == "tree")
@@ -159,16 +156,6 @@ def saved(request, tmp_path_factory):
 
 def test_resume_holds_the_state_and_takes_cmh_tpus_next_step(saved, monkeypatch):
     arch, st = saved["arch"], saved["state"]
-    if arch == "TwDH":
-        # the tie vector of the step, which cmh_tpu draws from a JAX key
-        # (test_torch_twdh.py:jax_tie)
-        def jax_tie(seed, step, n, device=None):
-            key = jax.random.fold_in(jax.random.PRNGKey(seed), step)
-            bits = np.asarray(jax.random.randint(key, (n,), 0, 2), np.float32)
-            return torch.from_numpy(bits * 2.0 - 1.0).to(device)
-
-        monkeypatch.setattr(port_twdh, "tie_vector", jax_tie)
-    monkeypatch.setattr(port_dnph, "rand_unit_rect", lambda gen, n, d: torch.from_numpy(NOISE))
     ptr = _port_trainer(saved["cfg"], saved["root"], "port", resume_checkpoint=saved["path"])
     assert ptr.optimizer.flat                 # off a mesh, whatever the file's format
     assert ptr._resume() == 1

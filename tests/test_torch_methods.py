@@ -8,9 +8,9 @@ largest magnitude of the reference; fp32 on both sides, only the order of
 sums differs); one train step's parameter update 1e-4 relative (per
 tensor, to the largest update of cmh_tpu's); the SGD on the proxies 1e-6
 relative (the same fp32 ops); codes, weights carried across and the
-threshold table exact. Dropout is pinned to 0 on both sides wherever the
-two are compared: the two frameworks' masks cannot match. DNPH's noise
-vectors are fed to both sides, since JAX's and torch's generators differ.
+threshold table exact. The eval forward runs without dropout; the train
+step keeps each method's dropout and DNPH's noise, which the port draws
+from cmh_tpu's keys (``utils/prng.py``).
 """
 
 import dataclasses
@@ -21,8 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-import cmh_torch.models.dnph as port_dnph
-import cmh_tpu.models.dnph as jax_dnph
 from cmh_torch.config import config_from_dict as port_config
 from cmh_torch.models import convert
 from cmh_torch.models.clip.model import CLIPConfig
@@ -40,6 +38,7 @@ import cmh_tpu.runners.baseline  # noqa: E402,F401
 import cmh_tpu.runners.dnph  # noqa: E402,F401
 import cmh_tpu.runners.dsph  # noqa: E402,F401
 from cmh_torch.registry import registry as port_registry  # noqa: E402
+from cmh_torch.utils import prng
 
 METHODS = ("Baseline", "DSPH", "DNPH")
 TO_PORT = {"Baseline": convert.baseline_state_from_jax, "DSPH": convert.dsph_state_from_jax,
@@ -149,16 +148,6 @@ def _outputs(arch, seed):
     return out, _labels(rng, b, CLASSES)
 
 
-@pytest.fixture
-def fixed_noise(monkeypatch):
-    """DNPH's ±1 vectors, the same on both sides."""
-    def install(b, k, seed=7):
-        s = np.random.RandomState(seed).choice([-1.0, 1.0], (b, k)).astype(np.float32)
-        monkeypatch.setattr(jax_dnph, "rand_unit_rect", lambda key, n, d: jnp.asarray(s))
-        monkeypatch.setattr(port_dnph, "rand_unit_rect", lambda gen, n, d: torch.from_numpy(s))
-    return install
-
-
 def _flat(tree, prefix=""):
     out = {}
     for k, v in tree.items():
@@ -167,10 +156,9 @@ def _flat(tree, prefix=""):
     return out
 
 
-def test_loss_and_gradients_match(pair, fixed_noise):
+def test_loss_and_gradients_match(pair):
     arch, jmethod, _, pmethod = pair
     outs, labels = _outputs(arch, 3)
-    fixed_noise(12, BITS)
 
     def jloss(*o):
         total, ld, _ = jmethod.loss(tuple(o), {"label": jnp.asarray(labels)}, {}, 5)
@@ -192,7 +180,7 @@ def test_loss_and_gradients_match(pair, fixed_noise):
         assert _rel(t.grad.numpy(), g) <= 1e-5
 
 
-def test_one_train_step_matches(pair, fixed_noise, tmp_path, monkeypatch):
+def test_one_train_step_matches(pair, tmp_path, monkeypatch):
     """One step of both trainers from the same weights on the same batch:
     the loss, and every tensor's update (BertAdam on the backbone and heads,
     SGD on the proxies). BertAdam's ε is 1e-3 here: at its default 1e-6 an
@@ -203,9 +191,8 @@ def test_one_train_step_matches(pair, fixed_noise, tmp_path, monkeypatch):
     large gradients are still normalized by √v."""
     arch = pair[0]
     monkeypatch.setenv("CMH_TPU_FUSED", "1")
-    fixed_noise(16, BITS)
     jtr = tiny_trainer(tmp_path / "jax", arch, arch + "Trainer",
-                       model_extra={"dropout": 0.0, "noise_alpha": 0.1, "numclass": CLASSES},
+                       model_extra={"noise_alpha": 0.1, "numclass": CLASSES},
                        # full lr from the first step (warmup would make it 0)
                        optimizer_extra={"schedule": "warmup_constant", "warmup_proportion": 0.0,
                                         "e": 1e-3,
@@ -291,7 +278,7 @@ def test_init_scales_in_law(arch):
     clip = dataclasses.replace(CLIPConfig.tiny(), embed_dim=512)
     method = port_registry.require_model_class(arch).from_config(
         {"numclass": 80}, output_dim=64, clip_cfg=clip)
-    method.model.init_weights(torch.Generator().manual_seed(0))
+    method.model.init_weights(prng.PRNGKey(0))
     sd = method.model.state_dict()
     for name, std in _std_formulas(arch, 64, 80).items():
         assert abs(float(sd[name].std()) / std - 1) < 0.1, name

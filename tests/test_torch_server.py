@@ -25,6 +25,7 @@ from cmh_torch.models.convert import dcmht_state_from_jax
 from cmh_torch.models.dcmht import DCMHTModel
 from cmh_torch.server import RetrievalApp, make_server
 from cmh_torch.serving import RetrievalIndex
+from cmh_torch.utils import prng
 from cmh_tpu.config import config_from_dict as jax_config_from_dict
 from cmh_tpu.models.dcmht import DCMHTMethod
 from cmh_tpu.serving import RetrievalIndex as JaxIndex
@@ -224,7 +225,7 @@ def test_export_cli_fills_the_backbone_from_clip_path(tmp_path):
     from cmh_torch.models.clip.model import CLIP, CLIPConfig
 
     clip = CLIP(CLIPConfig.tiny())
-    clip.init_weights(torch.Generator().manual_seed(21))
+    clip.init_weights(prng.PRNGKey(21))
     ckpt = str(tmp_path / "clip.pt")
     save_torchscript_archive({k: v.half() for k, v in clip.state_dict().items()}, ckpt)
     cfg = tmp_path / "dsph.yaml"

@@ -20,7 +20,6 @@ import threading
 
 import numpy as np
 import pytest
-import torch
 
 import cmh_torch.native._build as native_build
 import cmh_torch.ops._build as cuda_build
@@ -32,6 +31,7 @@ from cmh_torch.models.clip.tokenizer import SimpleTokenizer, tokenize_caption
 from cmh_torch.registry import load_components
 from cmh_torch.server import RetrievalApp, make_server
 from cmh_torch.serving import RetrievalIndex
+from cmh_torch.utils import prng
 from cmh_tpu.server import RetrievalApp as JaxApp
 from cmh_tpu.serving import RetrievalIndex as JaxIndex
 
@@ -120,7 +120,7 @@ def test_cpu_backend_on_the_cpu_builds_no_cuda_library(gallery, tmp_path, monkey
         monkeypatch.setattr(cuda_build, name, refuse)
     method = load_components().require_model_class("DCMHT").from_config(
         {"clip_variant": "tiny", "hash_func": "softmax"}, output_dim=BITS)
-    method.model.init_weights(torch.Generator().manual_seed(0))
+    method.model.init_weights(prng.PRNGKey(0))
     enc = str(tmp_path / "enc.pt")
     save_encoders(method.model, config_from_dict(
         {"model": {"arch": "DCMHT", "clip_variant": "tiny", "hash_func": "softmax"},
@@ -166,7 +166,7 @@ def test_a_failed_host_build_raises(gallery, monkeypatch):
 def test_twdh_encoders_search_their_long_codes(tmp_path):
     method = load_components().require_model_class("TwDH").from_config(
         config_from_dict({"model": TWDH}).model, output_dim=8)
-    method.model.init_weights(torch.Generator().manual_seed(1))
+    method.model.init_weights(prng.PRNGKey(1))
     path = str(tmp_path / "twdh.pt")
     save_encoders(method.model, config_from_dict({"model": TWDH, "run": {"output_dim": 8}}),
                   path, method.eval_method_state())

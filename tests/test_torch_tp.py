@@ -94,9 +94,10 @@ def write_clip(path):
     """A seeded CLIP at ``GEOMETRY`` as OpenAI writes its files: the state
     dict with the three integer entries."""
     from cmh_torch.models.clip.model import CLIP, CLIPConfig
+    from cmh_torch.utils import prng
 
     model = CLIP(CLIPConfig(**GEOMETRY, dtype=torch.float32))
-    model.init_weights(torch.Generator().manual_seed(16))
+    model.init_weights(prng.PRNGKey(16))
     sd = {k: v.detach() for k, v in model.state_dict().items()}
     sd.update(input_resolution=torch.tensor(32), context_length=torch.tensor(16),
               vocab_size=torch.tensor(49408))
@@ -584,6 +585,16 @@ def test_nccl_ranks_sharing_a_card_raise():
 
 
 # ------------------------------------------------------------------ worker
+@torch.no_grad()
+def _seeded_(module, seed):
+    """Uniform ±0.2 weights from a seeded generator, for units whose init
+    is not under test."""
+    gen = torch.Generator().manual_seed(seed)
+    for p in module.parameters():
+        p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * 0.2)
+    return module
+
+
 def _units(group):
     """Each sharded module against the whole one on the same seeded inputs."""
     from torch import nn
@@ -593,6 +604,7 @@ def _units(group):
     from cmh_torch.models.umoed import SoftMoE
     from cmh_torch.optim.bert_adam import BertAdam
     from cmh_torch.parallel import tp
+    from cmh_torch.utils import prng
 
     sh = group.shards
     gen = torch.Generator().manual_seed(7)
@@ -620,7 +632,8 @@ def _units(group):
         def __init__(self, p):
             super().__init__()
             self.attn = MultiHeadAttention(64, 4, torch.float32, attn_dropout=p)
-            self.attn.init_torch_(torch.Generator().manual_seed(3))
+            self.attn.attn_drop.path = ("attn", "attn_drop")
+            _seeded_(self.attn, 3)
 
     x = torch.randn(3, 5, 64, generator=gen)
     kv = torch.randn(3, 7, 64, generator=gen)
@@ -632,7 +645,7 @@ def _units(group):
         for m in (whole, part):
             m.train(train)
             xi = x.clone().requires_grad_()
-            with dropout_rng(11, 2):
+            with dropout_rng(prng.fold_in(prng.PRNGKey(11), 2)):
                 y, w = m.attn(xi, **kw)
             (y * r).sum().backward()
             res.append((y.detach(), w, xi.grad))
@@ -644,9 +657,7 @@ def _units(group):
 
     # the Soft-MoE over sharded experts
     def moe():
-        m = SoftMoE(16, 8, 4, 3)
-        m.init_weights(torch.Generator().manual_seed(4))
-        return m
+        return _seeded_(SoftMoE(16, 8, 4, 3), 4)
 
     whole, part = whole_and_sharded(moe)
     h = torch.randn(2, 6, 16, generator=gen)

@@ -8,9 +8,8 @@ and their gradients 1e-5 relative (to the largest magnitude of the
 reference); one train step's parameter update 1e-4 relative; the hash
 centers, the transforms, ``hash_convert``'s targets and codes exact;
 ``bce_probs``' gradient at saturated probabilities finite and equal to
-cmh_tpu's. The tie vector that cmh_tpu draws from a JAX key is fed to the
-port (``tie_vector`` patched to return JAX's draw), since the port draws
-its own from a torch generator.
+cmh_tpu's. The port draws cmh_tpu's tie vectors from the same key
+(``fold_in(PRNGKey(center_seed), step)``), bit for bit.
 """
 
 import os
@@ -24,13 +23,13 @@ import yaml
 
 import cmh_tpu.ops.hash_centers as jax_hc
 import cmh_tpu.runners.twdh  # noqa: F401  (registers cmh_tpu's TwDH)
-import cmh_torch.models.twdh as port_twdh
 import cmh_torch.ops.hash_centers as port_hc
 from cmh_torch.config import config_from_dict as port_config
 from cmh_torch.export import load_encoders, save_encoders
 from cmh_torch.main import main as port_main
 from cmh_torch.models import convert
 from cmh_torch.registry import load_components
+from cmh_torch.utils import prng
 from cmh_tpu.config import config_from_dict
 from cmh_tpu.models import torch_import
 from cmh_tpu.registry import registry as jax_registry
@@ -78,18 +77,6 @@ def pair():
     return jmethod, variables, pmethod
 
 
-def jax_tie(seed, step, n):
-    """The ±1 vector cmh_tpu's ``hash_center_multilabels`` draws at a step."""
-    key = jax.random.fold_in(jax.random.PRNGKey(seed), step)
-    return np.asarray(jax.random.randint(key, (n,), 0, 2), np.float32) * 2.0 - 1.0
-
-
-@pytest.fixture
-def jax_ties(monkeypatch):
-    monkeypatch.setattr(port_twdh, "tie_vector", lambda seed, step, n, device=None:
-                        torch.from_numpy(jax_tie(seed, step, n)).to(device))
-
-
 def test_weights_cross_both_ways(pair):
     _, variables, pmethod = pair
     back, model_state = torch_import.twdh_from_torch_state(pmethod.model.state_dict())
@@ -114,7 +101,7 @@ def test_weights_cross_both_ways(pair):
 def test_centers_and_transforms_are_bit_equal(pair):
     jmethod, _, pmethod = pair
     jstate = jax.tree_util.tree_map(np.asarray, jmethod.init_method_state())
-    pstate = pmethod.init_method_state(0)
+    pstate = pmethod.init_method_state()
     np.testing.assert_array_equal(pstate["long_center"].numpy(), jstate["long_center"])
     assert sorted(pstate["short_centers"]) == sorted(jstate["short_centers"]) == ["16", "8"]
     for k in ("8", "16"):
@@ -139,8 +126,9 @@ def test_targets_and_pair_conversion_exact():
     centers = port_hc.generate_hash_centers(CLASSES, 16, seed=13)
     key = jax.random.fold_in(jax.random.PRNGKey(3), 7)
     want = jax_hc.hash_center_multilabels(jnp.asarray(labels), jnp.asarray(centers), key)
+    tie = port_hc.tie_vector(prng.fold_in(prng.PRNGKey(3), 7), 16)
     got = port_hc.hash_center_multilabels(torch.from_numpy(labels), torch.from_numpy(centers),
-                                          torch.from_numpy(jax_tie(3, 7, 16)))
+                                          tie)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (labels @ centers == 0).any()
     np.testing.assert_array_equal(port_hc.hash_convert(got).numpy(),
@@ -148,7 +136,7 @@ def test_targets_and_pair_conversion_exact():
 
 
 def test_tie_vector_is_a_function_of_seed_and_step():
-    a, b, c = (port_hc.tie_vector(3, s, 32) for s in (5, 5, 6))
+    a, b, c = (port_hc.tie_vector(prng.fold_in(prng.PRNGKey(3), s), 32) for s in (5, 5, 6))
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert set(a.tolist()) == {-1.0, 1.0}
 
@@ -219,7 +207,7 @@ def _flat(tree, prefix=""):
     return out
 
 
-def test_loss_and_gradients_match(pair, jax_ties):
+def test_loss_and_gradients_match(pair):
     jmethod, _, pmethod = pair
     outs, labels = _outputs(5)
     jstate = jmethod.init_method_state()
@@ -232,7 +220,7 @@ def test_loss_and_gradients_match(pair, jax_ties):
         *map(jnp.asarray, outs))
     touts = [torch.from_numpy(o).requires_grad_() for o in outs]
     total, ld, state = pmethod.loss(tuple(touts), {"label": torch.from_numpy(labels)},
-                                    pmethod.init_method_state(0), 7)
+                                    pmethod.init_method_state(), 7)
     total.backward()
     assert _rel(float(total.detach()), float(jtotal)) <= 1e-5
     want = _flat(jax.tree_util.tree_map(float, jld))
@@ -245,7 +233,7 @@ def test_loss_and_gradients_match(pair, jax_ties):
         assert _rel(t.grad.numpy(), g) <= 1e-5
 
 
-def test_one_train_step_matches(tmp_path, monkeypatch, jax_ties):
+def test_one_train_step_matches(tmp_path, monkeypatch):
     """One step of both trainers from the same weights on the same batch
     (the loss and every tensor's update, BertAdam's ε 1e-3 as in
     ``test_torch_methods.py``; the tensors whose gradient the image

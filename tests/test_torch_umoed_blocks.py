@@ -25,8 +25,9 @@ import cmh_tpu.ops.hashing as jax_hashing
 import cmh_torch.models.clip.model as port_clip
 import cmh_torch.models.umoed as port_umoed
 import cmh_torch.ops.hashing as port_hashing
-from cmh_torch.models import convert
+from cmh_torch.models import convert, flax_init
 from cmh_torch.models.common import dropout_rng
+from cmh_torch.utils import prng
 from cmh_tpu.models.clip.model import MultiHeadAttention as JaxMHA
 from tests.test_torch_umoed import _assert_codes, _rel
 
@@ -107,10 +108,15 @@ def test_cross_attention_matches_cmh_tpu_and_torch():
 
 
 def test_torch_init_and_the_attention_paths(monkeypatch):
+    """cmh_tpu's torch-default init of the attention (the port draws the same
+    leaves: ``tests/test_torch_seed_parity.py``) within its bounds; the paths
+    K2 takes and the explicit ones, dropout on the probabilities under one
+    step key drawing the same mask again."""
     d = 64
-    mha = port_clip.MultiHeadAttention(d, 4, torch.float32, attn_dropout=0.5)
-    mha.init_torch_(torch.Generator().manual_seed(0))
     _, params, _, _, _ = _mha_pair(width=d, heads=4)
+    mha = port_clip.MultiHeadAttention(d, 4, torch.float32, attn_dropout=0.5)
+    mha.load_state_dict({k[1:]: v for k, v in convert._attention(params, "").items()})
+    mha.attn_drop.path = ("self_attn", "attn_drop")
     for w, jw, bound in ((mha.in_proj_weight, params["in_proj_kernel"], (6 / (4 * d)) ** 0.5),
                          (mha.out_proj.weight, params["out_proj_kernel"], d**-0.5)):
         for a in (w.detach().numpy(), np.asarray(jw)):
@@ -128,10 +134,10 @@ def test_torch_init_and_the_attention_paths(monkeypatch):
     mha(x, need_weights=False, kv=x)
     assert len(calls) == 1
     mha.train()
-    with dropout_rng(0, 0):
+    with dropout_rng(prng.PRNGKey(0)):
         dropped, _ = mha(x, need_weights=False)
     assert len(calls) == 1 and not torch.allclose(dropped, quiet)
-    with dropout_rng(0, 0):
+    with dropout_rng(prng.PRNGKey(0)):
         again, _ = mha(x, need_weights=False)
     assert torch.equal(dropped, again)
 
@@ -151,8 +157,10 @@ def test_soft_moe_blocks_match():
     jg = jax.grad(lambda a: jnp.sum(jm.apply(p, a) ** 2))(jnp.asarray(x))
     (out**2).sum().backward()
     assert _rel(tx.grad.numpy(), jg) <= 1e-5
-    pm.init_weights(torch.Generator().manual_seed(0))
-    assert float(pm.experts.weight.abs().max()) <= 1 / 48**0.5
+    # the port draws cmh_tpu's init of the Soft-MoE from the same key
+    drawn = flax_init.draw(prng.PRNGKey(0), p["params"], flax_init.HEAD_RULES["UMoED"])
+    for name, leaf in p["params"].items():
+        np.testing.assert_array_equal(drawn[name].numpy(), leaf, err_msg=name)
     # the encoder layer (self-attention with a key-padding mask, Soft-MoE FFN)
     src = rng.randn(2, 5, 16).astype(np.float32)
     kpm = np.zeros((2, 5), bool)
