@@ -181,8 +181,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
       port's K1 and K2 kernels each way among its profiled kernels (their
       ranks printed), and its launches a step those of a DCMHT step
       (``pair_launches``); ``profile_encode`` at its defaults;
-   d. ``twdh_matrix`` at its defaults (512 → 16 bits, 80 classes): lossless
-      or the epochs it ran, and its saved matrix checked again;
+   d. ``twdh_matrix`` at its default widths (512 → 16 bits, 80 classes), 40
+      epochs: lossless or the epochs it ran, and its saved matrix checked
+      again;
    e. ``epoch_ab --scale full`` with ``tools/artifacts/ref_epoch_full.json``:
       1,000 train items at 224 px, batch 100, 2 timed epochs after the warm
       one, read from JPEG files through the native transforms;
@@ -191,12 +192,17 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    g. ``chip_microbench --quick``.
 
 18. the random streams (``csrc/threefry.cu``): ``threefry_bits`` bit-equal
-   to the plain threefry at three keys, 1 to 2^28 words and an offset
+   to the plain threefry at three keys, 1 to 2^28 words and offsets
    across the counters' hi word; ``dropout_fwd`` and ``dropout_bwd``
-   bit-equal to the plain dropout in fp32 and bf16, whole, as a tp shard
-   and at a data-parallel row offset; their times at UMoED's largest mask
-   and a hash head's beside the plain version's, ``F.dropout``'s and the
-   bound; their launches on phase 13's main paths (the init drawn on the
+   bit-equal to the plain dropout in fp32 and bf16, whole, as a tp shard,
+   at a data-parallel row offset, at n = 1, 2, 3 modulo the vector and on
+   a view off a 16-byte boundary; the reciprocal quotient against IEEE
+   division at every float32 and bfloat16 input for each rate the configs
+   use; their times (hot and cold L2) at UMoED's largest mask and a hash
+   head's beside the plain version's, ``F.dropout``'s and the bound (32-bit
+   integer work at the issue rate, 128 thread-instructions a clock an SM at
+   ``clocks.max.sm``); UMoED's dropout launches of a step by size, each
+   timed; their launches on phase 13's main paths (the init drawn on the
    card, the masks of every step); UMoED's steady step. No dropout mask is
    drawn on the host in any phase (``Dropout.host_seconds`` stays 0, in
    phase 16's workers too).
@@ -226,6 +232,7 @@ import importlib.util
 import io
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -240,7 +247,11 @@ import traceback
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12,      # dense tensor-core bf16
             "tf32": 495e12,      # dense tensor-core TF32
-            "fp32": 67e12}       # fp32 (and 32-bit integer) outside the tensor cores
+            "fp32": 67e12}       # fp32 FLOPs outside the tensor cores, an FMA counted as two
+# 32-bit integer work: an SM sub-partition issues one warp instruction a clock,
+# 4 x 32 thread-instructions a clock an SM, at the card's clocks.max.sm
+# (int32_ops_per_s); an integer add, rotate or xor is one instruction
+INT32_OPS_PER_CLOCK_PER_SM = 128
 B = 256                          # serving batch
 TRAIN_B = 100                    # configs/DCMHT/synthetic_tpu.yaml batch
 MAX_WORDS, CODE_BITS = 32, 16    # configs/DCMHT/config.yaml
@@ -370,9 +381,16 @@ def bf16_steps_checked(got, want, what: str) -> str:
     return f"{differ} of {steps.numel()} bf16 elements differ from plain"
 
 
+def int32_ops_per_s() -> float:
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_OPS_PER_CLOCK_PER_SM * sm_clock_hz()
+
+
 def bound(nbytes: float, ops: float, kind: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[kind] * 1e3
+    t_ops = ops / (int32_ops_per_s() if kind == "int32" else PEAK_OPS[kind]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2269,6 +2287,7 @@ def train_dimch_umoed(torch, counters):
             del again
             RANDOM_STATS[f"{arch} steady ms"] = steady_steps(torch, tr, arch)
             if arch == "UMoED":
+                RANDOM_STATS["UMoED masks"] = mask_sizes(torch, tr)
                 decoder_time(torch, tr)
                 by_path["UMoED serving"] = serve_backends(torch, counters, tr)
             del tr
@@ -3512,15 +3531,16 @@ def tool_profiles(torch, counters):
 
 
 def tool_twdh_matrix():
-    """17d: ``tools/twdh_matrix`` at its defaults (512 → 16 bits, 80
-    classes) on the card."""
+    """17d: ``tools/twdh_matrix`` at its default widths (512 → 16 bits, 80
+    classes) on the card, 40 of its 100 default epochs (cut to keep the
+    script inside its time limit)."""
     from cmh_torch.ops.hash_centers import generate_hash_centers, load_center_file
     from cmh_torch.tools import twdh_matrix
 
     work = tempfile.mkdtemp(prefix="cmh_smoke_twdh_")
     try:
         t0 = time.perf_counter()
-        out = twdh_matrix.main(["--device", "cuda", "--save-dir", work])
+        out = twdh_matrix.main(["--device", "cuda", "--save-dir", work, "--post-epochs", "40"])
         seconds = time.perf_counter() - t0
         matrix = load_center_file(out["path"])
     finally:
@@ -3610,13 +3630,16 @@ def random_counters():
 
 def check_threefry(torch):
     """18a: ``threefry_bits`` against the plain threefry at three keys, sizes
-    from 1 to 2^28 and an offset across the counters' hi word, bit for bit;
-    its time at 2^26 words beside the plain version's and its bound."""
+    from 1 to 2^28 (n = 1, 2, 3 modulo the vector of 4 words among them) and
+    offsets across the counters' hi word (the launch cut there, the second
+    starting off a 16-byte boundary), bit for bit; its time at 2^26 words
+    beside the plain version's and its bound."""
     from cmh_torch.ops import random as R
     from cmh_torch.utils import prng
 
     keys = (prng.PRNGKey(0), prng.PRNGKey(1814), prng.fold_in(prng.PRNGKey(-3), 2**32 - 1))
-    cases = ((1, 0), (7, 0), (1000, 0), ((1 << 20) + 3, 0), (4096, 2**32 - 1000), (1 << 28, 0))
+    cases = ((1, 0), (7, 0), (1000, 0), ((1 << 20) + 3, 0), (4096, 2**32 - 1000),
+             (4099, 2**32 - 1001), (33, 3 * 2**32 - 6), (1 << 28, 0))
     for key in keys:
         for n, off in cases:
             got = R.random_bits(key, (n,), "cuda", offset=off)
@@ -3626,27 +3649,60 @@ def check_threefry(torch):
                                      f"{int((got != want).sum())} words differ")
             del got, want
     print(f"[random] threefry_bits equals the plain threefry at {len(keys)} keys, "
-          f"{len(cases)} sizes (1 to 2^28, one at offset 2^32 - 1000)", flush=True)
+          f"{len(cases)} sizes (1 to 2^28, three across the hi word)", flush=True)
     n = 1 << 26
     out = torch.empty(n, dtype=torch.int32, device="cuda")
     lib, key = R._lib(), keys[1]
     stream = torch.cuda.current_stream().cuda_stream
-    ms = cuda_ms(lambda: lib.cmh_threefry_bits(key[0], key[1], 0, n, out.data_ptr(), stream),
-                 iters=20)
+
+    def bits(o):
+        return lib.cmh_threefry_bits(key[0], key[1], 0, 0, o.data_ptr(), n, stream)
+
+    ms = cuda_ms(lambda: bits(out), iters=20)
     plain_ms = cuda_ms(lambda: prng.random_bits(key, (n,), device="cuda"), iters=3, warmup=1)
     row = entry("threefry_bits", "cmh_torch/csrc/threefry.cu",
                 "no Pallas counterpart: XLA's threefry2x32 in cmh_tpu "
                 "(cmh_tpu/models/mith.py:418, cmh_tpu/runners/base.py:222)",
-                [n], 0.0, ms, plain_ms, None, 4 * n, THREEFRY_OPS * n, "fp32")
+                [n], 0.0, ms, plain_ms, None, 4 * n, THREEFRY_OPS * n, "int32")
+    row["cold_ms"] = cold_ms(bits, (out,), iters=20)
     return [row]
+
+
+# the configs' dropout rates (configs/*/config.yaml: 0.3; the DSPH and DNPH
+# heads' default 0.2; UMoED's blocks' default 0.1)
+DROPOUT_RATES = (0.3, 0.2, 0.1)
+
+
+def prove_division(torch):
+    """18c: the dropout kernels' reciprocal quotient against IEEE division at
+    every input of each dtype (all 2^32 float32 bit patterns, all 2^16
+    bfloat16), for each rate the configs use; the wrapper proves the same at
+    its first call for a divisor and takes ``__fdiv_rn`` where it fails."""
+    from cmh_torch.ops import random as R
+
+    proofs = {}
+    for rate in DROPOUT_RATES:
+        for dt in (torch.float32, torch.bfloat16):
+            scale = R._scale(rate, dt)[1].float().item()
+            t0 = time.perf_counter()
+            bad, least, most = R.division_mismatches(scale, dt, "cuda")
+            proofs[f"{1 - rate:.1f} {str(dt).split('.')[-1]}"] = bad
+            print(f"[random] keep_prob {1 - rate:.1f} in {dt}, divisor {scale!r}: the reciprocal "
+                  f"path differs from IEEE division at {bad} of "
+                  f"{2**32 if dt == torch.float32 else 2**16} inputs, |x| from {least!r} to "
+                  f"{most!r} ({(time.perf_counter() - t0) * 1e3:.1f} ms host clock); the "
+                  f"kernels take {'it' if bad == 0 else '__fdiv_rn'}", flush=True)
+    return proofs
 
 
 def check_dropout(torch):
     """18b: ``dropout_fwd`` and ``dropout_bwd`` against the plain dropout, bit
-    for bit, in fp32 and bf16: whole, as rank 1's heads of a tp=2 split and
-    at a data-parallel row offset; their times at UMoED's largest mask and
-    at a hash head's, beside the plain version's and ``F.dropout``'s (Philox,
-    another function: a yardstick only)."""
+    for bit, in fp32 and bf16: whole, as rank 1's heads of a tp=2 split
+    (a last dim of 82, not a multiple of the vector) and at a data-parallel
+    row offset, at n = 1, 2, 3 modulo the vector and on a view that starts
+    off a 16-byte boundary; their times (hot and cold L2) at UMoED's largest
+    mask and at a hash head's, beside the plain version's and
+    ``F.dropout``'s (Philox, another function: a yardstick only)."""
     from cmh_torch.ops import random as R
     from cmh_torch.utils import prng
 
@@ -3657,12 +3713,15 @@ def check_dropout(torch):
     for dt in (torch.float32, torch.bfloat16):
         probs = torch.rand((TRAIN_B, 8, UMOED_SLOTS, 82), generator=gen, device="cuda").to(dt)
         ffn = torch.randn((TRAIN_B, UMOED_SLOTS, 2048), generator=gen, device="cuda").to(dt)
-        for what, x, part, sl in (
-                ("whole", ffn, None, slice(None)),
-                ("tp shard", probs[:, 4:].contiguous(), (1, 4, 8), (slice(None), slice(4, 8))),
-                ("dp rows", ffn[TRAIN_B // 2:].contiguous(), (0, TRAIN_B // 2, TRAIN_B),
-                 slice(TRAIN_B // 2, None))):
-            whole = probs if what == "tp shard" else ffn
+        flat = torch.randn(4099, generator=gen, device="cuda").to(dt)
+        for what, x, part, whole, sl in (
+                ("whole", ffn, None, ffn, slice(None)),
+                ("tp shard", probs[:, 4:].contiguous(), (1, 4, 8), probs,
+                 (slice(None), slice(4, 8))),
+                ("dp rows", ffn[TRAIN_B // 2:].contiguous(), (0, TRAIN_B // 2, TRAIN_B), ffn,
+                 slice(TRAIN_B // 2, None)),
+                *((f"n = {n}", flat[:n], None, flat[:n], slice(None)) for n in (4097, 4098, 4099)),
+                ("a view 3 elements in", flat[3:], None, flat[3:], slice(None))):
             for fn in (R.dropout, R.dropout_bwd):
                 got = fn(x, key, 0.3, part)
                 want = R.dropout_plain(whole, key, 0.3)[sl]
@@ -3670,28 +3729,78 @@ def check_dropout(torch):
                     raise AssertionError(f"{fn.__name__} {what} {dt}: "
                                          f"{int((got != want).sum())} elements differ")
     print("[random] dropout_fwd and dropout_bwd equal the plain dropout, fp32 and bf16, "
-          "whole, as a tp shard and at a dp row offset", flush=True)
+          "whole, as a tp shard, at a dp row offset, at n = 1, 2, 3 modulo the vector and "
+          "on a view off a 16-byte boundary", flush=True)
     for what, shape in DROPOUT_CASES:
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=gen, device="cuda").to(dt)
             n, size = x.numel(), x.element_size()
             plain_ms = cuda_ms(lambda: R.dropout_plain(x, key, 0.3), iters=5, warmup=2)
             lib_ms = cuda_ms(lambda: torch.nn.functional.dropout(x, 0.3, training=True))
-            for name, fn in (("dropout_fwd", "cmh_dropout_fwd"), ("dropout_bwd", "cmh_dropout_bwd")):
+            for name, fn in (("dropout_fwd", R.dropout), ("dropout_bwd", R.dropout_bwd)):
                 ms = cuda_ms(lambda: R._launch(fn, x, key, 0.3, None))
                 rows.append(entry(name, "cmh_torch/csrc/threefry.cu",
                                   "no Pallas counterpart: XLA's threefry2x32 in cmh_tpu "
                                   "(flax.linen.Dropout)", f"{what} {list(shape)} "
                                   f"{str(dt).split('.')[-1]}", 0.0, ms, plain_ms, lib_ms,
-                                  2 * n * size, DROPOUT_OPS * n, "fp32"))
+                                  2 * n * size, DROPOUT_OPS * n, "int32"))
+                rows[-1]["cold_ms"] = cold_ms(lambda a: R._launch(fn, a, key, 0.3, None), (x,))
     return rows
 
 
+def mask_sizes(torch, tr):
+    """The dropout launches of one UMoED train step by kernel, shape, dtype
+    and part, on a batch made on the card (after its steady steps; outside
+    the main path's counts)."""
+    from cmh_torch.ops import random as R
+
+    seen, launch = {}, R._launch
+
+    def tally(counter, x, key, rate, part):
+        k = (counter.kernel.replace("cmh_", ""), tuple(x.shape), str(x.dtype).split(".")[-1],
+             rate, part)
+        seen[k] = seen.get(k, 0) + 1
+        return launch(counter, x, key, rate, part)
+
+    batch = device_batch(torch, torch.Generator(device="cuda").manual_seed(10), TRAIN_B)
+    R._launch = tally
+    try:
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+    finally:
+        R._launch = launch
+    return seen
+
+
+def time_mask_sizes(torch, seen):
+    """Each kind of UMoED's dropout launches timed alone (``cuda_ms``), its
+    count a step, and the sum: what a step spends in the dropout kernels."""
+    from cmh_torch.ops import random as R
+    from cmh_torch.utils import prng
+
+    kernels = {"dropout_fwd": R.dropout, "dropout_bwd": R.dropout_bwd}
+    key, total, lines = prng.PRNGKey(3), 0.0, []
+    for (name, shape, dt, rate, part), count in sorted(seen.items(), key=lambda kv: -math.prod(kv[0][1])):
+        x = torch.randn(shape, device="cuda").to(getattr(torch, dt))
+        ms = cuda_ms(lambda: R._launch(kernels[name], x, key, rate, part), iters=20)
+        total += ms * count
+        lines.append(f"{count} x {name} {list(shape)} {dt} rate {rate}"
+                     f"{' part ' + str(part) if part else ''}: {ms:.5f} ms")
+    print(f"[random] UMoED's dropout launches a step by size ({sum(seen.values())} in "
+          f"{len(seen)} kinds), each kind timed alone: " + "; ".join(lines)
+          + f"; {total:.4f} ms a step in all", flush=True)
+    return total
+
+
 def phase18(torch, rand_by_path):
-    """Phase 18: the threefry kernels against their plain versions, their
-    times, and their launches on the training paths; UMoED's steady step."""
+    """Phase 18: the threefry kernels against their plain versions, the
+    division's proof, their times, UMoED's dropout launches by size, and
+    their launches on the training paths; UMoED's steady step."""
     t0 = time.perf_counter()
     rows = check_threefry(torch) + check_dropout(torch)
+    RANDOM_STATS["division"] = prove_division(torch)
+    if "UMoED masks" in RANDOM_STATS:
+        RANDOM_STATS["UMoED dropout ms a step"] = time_mask_sizes(torch, RANDOM_STATS["UMoED masks"])
     for path, need in (("UMoED", ("threefry_bits", "dropout_fwd", "dropout_bwd")),
                        ("DIMCH", ("threefry_bits", "dropout_fwd", "dropout_bwd"))):
         idle = [k for k in need if rand_by_path[path][k] == 0]
@@ -3700,8 +3809,9 @@ def phase18(torch, rand_by_path):
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in rand_by_path.values())
         r["launches_by_path"] = {p: c[r["name"]] for p, c in rand_by_path.items()}
-        print(f"[kernel] {r['name']} {r['shape']}: ms {r['ms']:.5f} plain {r['plain_ms']:.4f} "
-              f"library {r['library_ms']} bound {r['bound_ms']:.5f} ({r['bound_by']}); "
+        print(f"[kernel] {r['name']} {r['shape']}: ms {r['ms']:.5f} cold {r['cold_ms']:.5f} "
+              f"plain {r['plain_ms']:.4f} library {r['library_ms']} bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it); "
               f"launches {r['launches_by_path']}", flush=True)
     print(f"[random] UMoED steady steps at batch {TRAIN_B}, host clock: "
           f"{RANDOM_STATS.get('UMoED steady ms')} ms, its masks drawn on the card; phase 18 "
@@ -3878,8 +3988,8 @@ def main() -> int:
         for r in random_rows:   # phase 18's, their launches counted there
             if r["name"] in seen:
                 seen[r["name"]].setdefault("shapes", []).append(
-                    {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                                       "library_ms")})
+                    {k: r[k] for k in ("shape", "ms", "cold_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")})
             else:
                 seen[r["name"]] = r
                 kernels.append(r)

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.ops.attention import (_AttentionFn, attention_bwd_plain, fused_attention,

@@ -22,6 +22,7 @@ import time
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.config import config_from_dict

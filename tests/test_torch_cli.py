@@ -16,6 +16,7 @@ import sys
 import numpy as np
 import pytest
 import scipy.io as scio
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.main import main

@@ -5,6 +5,7 @@ import os
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (before any torch work)
 from cmh_torch.config import load_config
 from cmh_torch.data.transforms import eval_transform, normalize
 from cmh_torch.models.clip.tokenizer import SimpleTokenizer, tokenize_caption

@@ -44,6 +44,7 @@ import sys
 
 import numpy as np
 import pytest
+from tests import torch_threads  # noqa: F401  (before any torch work)
 import torch
 import yaml
 

@@ -10,6 +10,7 @@ and PyTorch may lack, so run these there with:
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.ops.attention import fused_attention, kpm_bias
@@ -771,9 +772,12 @@ def test_map_4dir_kernel_matches_numpy(cuda):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
 
 
-@pytest.mark.parametrize("n,offset", [(1, 0), (255, 0), (257, 7), (100_003, 0),
-                                      (4096, 2**32 - 1000)])
+@pytest.mark.parametrize("n,offset", [(1, 0), (255, 0), (257, 7), (4098, 0), (100_003, 0),
+                                      (4096, 2**32 - 1000), (4099, 2**32 - 1001),
+                                      (33, 3 * 2**32 - 6)])
 def test_threefry_bits_kernel_matches_plain(cuda, n, offset):
+    """Bit for bit, with one launch a hi word of the counters (two where
+    the offset takes them across 2^32, the second off a 16-byte boundary)."""
     from cmh_torch.ops.random import random_bits
     from cmh_torch.utils import prng
 
@@ -781,7 +785,7 @@ def test_threefry_bits_kernel_matches_plain(cuda, n, offset):
     before = random_bits.launches
     got = random_bits(key, (n,), cuda, offset=offset)
     torch.cuda.synchronize()
-    assert random_bits.launches == before + 1
+    assert random_bits.launches == before + 1 + ((offset + n - 1) >> 32) - (offset >> 32)
     assert torch.equal(got.cpu(), prng.random_bits(key, (n,), offset))
 
 
@@ -804,3 +808,77 @@ def test_dropout_kernels_match_plain(cuda, shape, part, dtype):
     assert (dropout.launches, dropout_bwd.launches) == (fwd + 1, bwd + 1)
     assert torch.equal(y.detach().cpu(), dropout_plain(x, key, 0.3, part))
     assert torch.equal(xc.grad.cpu(), dropout_plain(torch.ones_like(x), key, 0.3, part))
+
+
+def _dropout_both_ways(cuda, x, key, part=None):
+    """The kernels' forward and backward on ``x`` (a CUDA tensor, maybe a
+    view), each bit for bit against the plain dropout on the CPU."""
+    from cmh_torch.ops.random import dropout, dropout_bwd, dropout_plain
+
+    fwd, bwd = dropout.launches, dropout_bwd.launches
+    y, g = dropout(x, key, 0.3, part), dropout_bwd(x, key, 0.3, part)
+    torch.cuda.synchronize()
+    assert (dropout.launches, dropout_bwd.launches) == (fwd + 1, bwd + 1)
+    want = dropout_plain(x.cpu(), key, 0.3, part)
+    assert torch.equal(y.cpu(), want) and torch.equal(g.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("extra", [1, 2, 3, 5, 7])
+def test_dropout_vectors_with_a_ragged_tail(cuda, dtype, extra):
+    """n = 1, 2, 3 … past a whole number of 16-byte vectors (4 fp32, 8 bf16)."""
+    from cmh_torch.utils import prng
+
+    n = 8 * 1000 + extra
+    x = torch.randn(n, generator=torch.Generator().manual_seed(extra)).to(dtype).to(cuda)
+    _dropout_both_ways(cuda, x, prng.PRNGKey(extra))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("skew", [1, 2, 3, 5])
+def test_dropout_of_a_view_off_a_16_byte_boundary(cuda, dtype, skew):
+    """A contiguous view at an odd storage offset: the head elements one a
+    thread, then vectors (the output aligned as the input)."""
+    from cmh_torch.utils import prng
+
+    buf = torch.randn(5000, generator=torch.Generator().manual_seed(skew)).to(dtype).to(cuda)
+    x = buf[skew:skew + 4321]
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _dropout_both_ways(cuda, x, prng.PRNGKey(skew))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_part_whose_inner_is_not_a_vector(cuda, dtype):
+    """Rank 1's heads of UMoED's attention probabilities at tp=2: a last dim
+    of 82, so the part map's jumps fall inside the threads' vectors."""
+    from cmh_torch.ops.random import dropout_plain
+    from cmh_torch.utils import prng
+
+    key = prng.flax_key(prng.PRNGKey(5), "hash_module", "layer_0", "drop1", 1)
+    whole = torch.rand((10, 8, 7, 82), generator=torch.Generator().manual_seed(3)).to(dtype)
+    _dropout_both_ways(cuda, whole[:, 4:].contiguous().to(cuda), key, (1, 4, 8))
+    y = dropout_plain(whole, key, 0.3)[:, 4:]
+    assert torch.equal(y, dropout_plain(whole[:, 4:].contiguous(), key, 0.3, (1, 4, 8)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.1, 0.2, 0.3])
+def test_dropout_quotients_at_extreme_inputs(cuda, dtype, rate):
+    """The reciprocal quotient where the proof allows it and IEEE division
+    elsewhere: the largest finite values, subnormals, zeros and infinities
+    divide as the plain version divides them, bit for bit (signed zeros too)."""
+    from cmh_torch.ops import random as R
+    from cmh_torch.utils import prng
+
+    info = torch.finfo(dtype)
+    special = torch.tensor([info.max, -info.max, info.max / 2, info.tiny, info.tiny / 4,
+                            -info.tiny / 8, 0.0, -0.0, float("inf"), float("-inf"), 1.0, -3.5],
+                           dtype=torch.float32)
+    x = torch.cat([special.repeat(200), torch.randn(4000, generator=torch.Generator().manual_seed(1))
+                   * 2.0 ** torch.randint(-140, 125, (4000,), generator=torch.Generator().manual_seed(2))])
+    x = x.to(dtype)
+    key = prng.PRNGKey(int(rate * 10))
+    got = R.dropout(x.to(cuda), key, rate).cpu()
+    want = R.dropout_plain(x, key, rate)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))

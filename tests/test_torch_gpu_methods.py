@@ -27,6 +27,7 @@ the server's two backends answer alike from a CUDA index.
 """
 
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.config import config_from_dict

@@ -13,6 +13,7 @@ plain distances at every alignment. The wrapper's own arithmetic
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.ops import hamming as H

@@ -9,6 +9,7 @@ function of (seed, step).
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.models.dnph import noise_vectors

@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import torch_threads  # noqa: F401  (before any torch work)
 from cmh_torch.data import transforms
 from cmh_torch.native import _build, image_ops
 from cmh_tpu import native as jax_native

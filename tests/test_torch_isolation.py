@@ -8,6 +8,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

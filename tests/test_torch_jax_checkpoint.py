@@ -43,6 +43,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 import cmh_tpu.models.dnph  # noqa: F401  (registers cmh_tpu's methods)

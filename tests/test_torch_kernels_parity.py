@@ -8,6 +8,7 @@ made with numpy from a seed and handed to both as the same arrays.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.ops.attention import fused_attention

@@ -13,6 +13,7 @@ in fp64, so they agree to PALLAS_TOL.
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.ops.map_bucketed import calc_map_k_4dir, calc_map_k_4dir_auto

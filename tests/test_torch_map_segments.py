@@ -12,6 +12,7 @@ kernels in interpret mode (PALLAS_TOL: cmh_tpu sums in fp32).
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.ops import map_kernel

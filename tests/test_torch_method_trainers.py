@@ -14,6 +14,7 @@ import logging
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 import yaml
 

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.io as scio
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 import cmh_tpu.models.mith  # noqa: F401  (registers cmh_tpu's methods)

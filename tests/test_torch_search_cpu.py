@@ -10,6 +10,7 @@ library that fails its self-test, raises; nothing falls back.
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.native import _build, hash_ops

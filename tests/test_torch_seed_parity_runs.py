@@ -15,6 +15,7 @@ import socket
 
 import jax.numpy as jnp
 import numpy as np
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp

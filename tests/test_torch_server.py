@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (before any torch work)
 from cmh_torch.config import config_from_dict
 from cmh_torch.data.transforms import eval_transform
 from cmh_torch.export import load_encoders, save_encoders

@@ -21,6 +21,7 @@ import threading
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (before any torch work)
 import cmh_torch.native._build as native_build
 import cmh_torch.ops._build as cuda_build
 import cmh_torch.server as port_server

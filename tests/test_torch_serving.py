@@ -7,6 +7,7 @@ and their tie order, and the npz files each package writes.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.ops import hashing as th

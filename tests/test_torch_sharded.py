@@ -18,6 +18,7 @@
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.ops.map_bucketed import calc_map_k_4dir, calc_map_k_4dir_sharded, map_sums_4dir

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import yaml
 
+import torch_threads  # noqa: F401  (before any torch work)
 from cmh_torch.config import config_from_dict
 from cmh_torch.export import load_encoders
 from cmh_torch.ops.hashing import as_uint32, pack_bits

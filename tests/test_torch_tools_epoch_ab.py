@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import scipy.io as scio
 
+import torch_threads  # noqa: F401  (before any torch work)
 from cmh_torch.tools import epoch_ab
 from cmh_tpu.tools import epoch_ab as jax_epoch_ab
 

@@ -5,6 +5,7 @@ plumbing."""
 
 import os
 
+import torch_threads  # noqa: F401  (before any torch work)
 from cmh_torch.tools import chip_microbench, profile_encode, profile_train
 
 

@@ -12,6 +12,7 @@ import pytest
 import scipy.io as scio
 from PIL import Image
 
+import torch_threads  # noqa: F401  (before any torch work)
 from cmh_torch.tools import real_parity
 from cmh_tpu.tools import real_parity as jax_parity
 

@@ -7,6 +7,7 @@ import math
 
 import pytest
 
+import torch_threads  # noqa: F401  (before any torch work)
 from cmh_torch.tools import all_methods_smoke
 from cmh_tpu.tools import all_methods_smoke as jax_smoke
 

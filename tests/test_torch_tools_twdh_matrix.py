@@ -5,6 +5,7 @@ seed, and the tiny problem of ``tests/test_twdh_matrix_tool.py``."""
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (before any torch work)
 from cmh_torch.ops import hash_centers
 from cmh_torch.tools import twdh_matrix
 from cmh_tpu.ops import hash_centers as jax_centers

@@ -59,6 +59,7 @@ import time
 
 import numpy as np
 import pytest
+from tests import torch_threads  # noqa: F401  (before any torch work)
 import torch
 import yaml
 

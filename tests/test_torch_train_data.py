@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import scipy.io as scio
 
+import torch_threads  # noqa: F401  (before any torch work)
 from cmh_torch.data import builder as port_builder
 from cmh_torch.data.loader import HostDataLoader as PortLoader
 from cmh_torch.models.clip.tokenizer import SimpleTokenizer

@@ -17,6 +17,7 @@ import pytest
 
 import cmh_tpu.runners.dimch  # noqa: F401  (registers cmh_tpu's trainers)
 import cmh_tpu.runners.umoed  # noqa: F401
+import torch_threads  # noqa: F401  (before any torch work)
 from cmh_torch.config import config_from_dict as port_config
 from cmh_torch.models import convert
 from cmh_torch.registry import load_components

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (before any torch work)
 import torch
 
 from cmh_torch.config import config_from_dict as port_config

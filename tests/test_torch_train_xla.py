@@ -9,6 +9,7 @@ Same trajectory otherwise (``tests/test_torch_train_fused.py``).
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (before any torch work)
 from tests.test_torch_train_fused import FUSED_TOL, STEPS, check_params, check_valid, run_pair
 
 FLAG = "0"
