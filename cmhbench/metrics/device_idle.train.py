@@ -1,0 +1,2 @@
+"""Share of the traced training window with no kernel on the card, %."""
+from cmhbench.layer import idle_pct as read  # noqa: F401
