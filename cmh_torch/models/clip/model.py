@@ -29,6 +29,7 @@ from torch import nn
 from ...ops.attention import fused_attention
 from ...ops.layernorm import fused_layernorm
 from ...parallel import tp
+from ...utils import trace
 from .. import flax_init
 from ..common import Dropout
 
@@ -336,7 +337,9 @@ class CLIP(nn.Module):
         eos_idx = torch.argmax(text, dim=-1)
         rows = torch.arange(b, device=x.device)
         eos_attn = attn_weight[rows, eos_idx].clone()
-        eos_attn[rows, eos_idx] = 0.0
+        # the 0.0 goes to the card as a host tensor: the host waits for the card
+        with trace.wait("eos_attn_zero"):
+            eos_attn[rows, eos_idx] = 0.0
 
         new_kpm = None
         if key_padding_mask is not None:

@@ -54,6 +54,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import trace
 from . import _build
 
 _MAX_SMEM = 227 * 1024   # dynamic shared memory a block can have on sm_90
@@ -339,10 +340,17 @@ def _launch_bwd(q, k, v, scale, mask, bias, dout):
     return dq, dk, dv
 
 
+def _shapes(q, mask, bias):
+    """What the spans ``cmh.k2_fwd`` and ``cmh.k2_bwd`` carry: (B, H, S, hd),
+    the element size, whether a mask and a key-padding bias are read."""
+    return (*q.shape, q.element_size(), mask is not None, bias is not None)
+
+
 def _forward(q, k, v, scale, mask, bias):
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale, mask, bias)
-    return _launch(q, k, v, scale, mask, bias)
+    with trace.span("k2_fwd", _shapes(q, mask, bias)):
+        if q.device.type == "cpu":
+            return attention_plain(q, k, v, scale, mask, bias)
+        return _launch(q, k, v, scale, mask, bias)
 
 
 def attention_bwd(q, k, v, scale: float, mask, bias, dout):
@@ -350,10 +358,13 @@ def attention_bwd(q, k, v, scale: float, mask, bias, dout):
     launches the backward kernel (counted in ``attention_bwd.launches``, the
     fp32 ones also in ``launches_fp32``, the row-tiled ones in
     ``launches_tiled`` and of those the fp32 (3xTF32) ones in
-    ``launches_tiled_tf32``); on a CPU tensor it runs ``attention_bwd_plain``."""
-    if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, scale, mask, bias, dout)
-    return _launch_bwd(q, k, v, scale, mask, bias, dout)
+    ``launches_tiled_tf32``); on a CPU tensor it runs ``attention_bwd_plain``.
+    Under a profiler both ways are the spans ``cmh.k2_fwd`` and
+    ``cmh.k2_bwd`` (``_shapes``)."""
+    with trace.span("k2_bwd", _shapes(q, mask, bias)):
+        if q.device.type == "cpu":
+            return attention_bwd_plain(q, k, v, scale, mask, bias, dout)
+        return _launch_bwd(q, k, v, scale, mask, bias, dout)
 
 
 class _AttentionFn(torch.autograd.Function):

@@ -20,6 +20,7 @@ import functools
 
 import torch
 
+from ..utils import trace
 from . import _build
 
 _MAX_WORDS = 384
@@ -126,7 +127,8 @@ def hamming_packed(q_packed: torch.Tensor, g_packed: torch.Tensor,
     picks the output type. Pad bits must be 0 in both operands, as
     ``pack_bits`` leaves them. On a CUDA tensor this launches the kernel
     (counted in ``hamming_packed.launches``); on a CPU tensor it runs
-    ``hamming_plain``."""
+    ``hamming_plain``. Under a profiler either is the span ``cmh.k4`` with
+    (Q, N, words, the distances' element size)."""
     if q_packed.dim() != 2 or g_packed.dim() != 2:
         raise ValueError("packed codes must be 2-D (rows, words)")
     if q_packed.shape[1] != g_packed.shape[1]:
@@ -136,11 +138,13 @@ def hamming_packed(q_packed: torch.Tensor, g_packed: torch.Tensor,
         raise TypeError("packed codes are int32 bit patterns (ops/hashing.py)")
     if q_packed.device != g_packed.device:
         raise ValueError("queries and gallery must be on one device")
-    if q_packed.device.type == "cpu":
-        return hamming_plain(q_packed, g_packed, bits)
-    if q_packed.device.type != "cuda":
-        raise ValueError(f"no hamming kernel for device {q_packed.device}")
-    return _launch(q_packed, g_packed, bits)
+    (nq, w), ng = q_packed.shape, g_packed.shape[0]
+    with trace.span("k4", (nq, ng, w, out_dtype(bits, w).itemsize)):
+        if q_packed.device.type == "cpu":
+            return hamming_plain(q_packed, g_packed, bits)
+        if q_packed.device.type != "cuda":
+            raise ValueError(f"no hamming kernel for device {q_packed.device}")
+        return _launch(q_packed, g_packed, bits)
 
 
 hamming_packed.launches = 0

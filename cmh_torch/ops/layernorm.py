@@ -16,6 +16,7 @@ import functools
 
 import torch
 
+from ..utils import trace
 from . import _build
 
 EPS = 1e-5
@@ -156,19 +157,23 @@ def _launch_bwd(x2d: torch.Tensor, gamma: torch.Tensor, dout: torch.Tensor):
 
 
 def _forward(x2d, gamma, beta):
-    if x2d.device.type == "cpu":
-        return layernorm_plain(x2d, gamma, beta)
-    return _launch(x2d, gamma, beta)
+    with trace.span("k1_fwd", (*x2d.shape, x2d.element_size())):
+        if x2d.device.type == "cpu":
+            return layernorm_plain(x2d, gamma, beta)
+        return _launch(x2d, gamma, beta)
 
 
 def layernorm_bwd(x2d: torch.Tensor, gamma: torch.Tensor, dout: torch.Tensor):
     """(dx, dγ, dβ) of the LayerNorm at (rows, d) ``x2d``. On a CUDA tensor
     this launches the backward kernel, one cooperative launch that also sums
     dγ/dβ over the card (counted in ``layernorm_bwd.launches``); on a CPU
-    tensor it runs ``layernorm_bwd_plain``."""
-    if x2d.device.type == "cpu":
-        return layernorm_bwd_plain(x2d, gamma, dout)
-    return _launch_bwd(x2d, gamma, dout)
+    tensor it runs ``layernorm_bwd_plain``. Under a profiler both ways are
+    the spans ``cmh.k1_fwd`` and ``cmh.k1_bwd`` with (rows, d, element
+    size)."""
+    with trace.span("k1_bwd", (*x2d.shape, x2d.element_size())):
+        if x2d.device.type == "cpu":
+            return layernorm_bwd_plain(x2d, gamma, dout)
+        return _launch_bwd(x2d, gamma, dout)
 
 
 class _LayerNormFn(torch.autograd.Function):

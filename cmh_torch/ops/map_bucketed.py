@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import trace
 from .map_kernel import MAX_KERNEL_BITS, average_precision, pack_words, query_chunk
 from .metrics import calc_label_sim, calc_map_k
 
@@ -67,7 +68,8 @@ def calc_map_k_4dir(q_img, q_txt, r_img, r_txt, query_labels, retrieval_labels,
     """(i→t, t→i, i→i, t→t) mAP@k by counting ranks, on the codes' device."""
     sums = map_sums_4dir(q_img, q_txt, r_img, r_txt, query_labels, retrieval_labels, k,
                          chunk=chunk)
-    return tuple(float(m) for m in (sums / len(q_img)).cpu())
+    with trace.wait("map_read"):
+        return tuple(float(m) for m in (sums / len(q_img)).cpu())
 
 
 def calc_map_k_4dir_sharded(q_img, q_txt, r_img, r_txt, query_labels, retrieval_labels,
@@ -89,7 +91,8 @@ def calc_map_k_4dir_sharded(q_img, q_txt, r_img, r_txt, query_labels, retrieval_
     sums = map_sums_4dir(q_img, q_txt, r_img, r_txt, query_labels, retrieval_labels, k,
                          shard=group.rank, n_shards=group.world)
     dist.all_reduce(sums, group=group.pg)
-    return tuple(float(m) for m in (sums / len(q_img)).cpu())
+    with trace.wait("map_read"):
+        return tuple(float(m) for m in (sums / len(q_img)).cpu())
 
 
 def calc_map_k_4dir_auto(q_img, q_txt, r_img, r_txt, query_labels,

@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import trace
 from . import _build
 from .metrics import calc_hamming_dist
 
@@ -243,9 +244,16 @@ def rank_counts(seg_hist: torch.Tensor, seg_rhist: torch.Tensor, k: Optional[int
 
 
 def average_precision(words: torch.Tensor, bits: int, k: Optional[int]) -> torch.Tensor:
-    """(Q,) fp64 AP of each query row of a word matrix; 0 where total is 0."""
+    """(Q,) fp64 AP of each query row of a word matrix; 0 where total is 0.
+    Under a profiler the two passes are the spans ``cmh.k3_hist`` and
+    ``cmh.k3_ap`` with (Q, N, word size, bits + 1, segments)."""
     seg_len = segment_len(bits)
-    start, start_r, total = rank_counts(*map_hist(words, bits, seg_len), k)
-    ap = map_ap(words, start, start_r, total, seg_len)
+    nq, n = words.shape
+    shapes = (nq, n, words.element_size(), bits + 1, _segments(n, seg_len))
+    with trace.span("k3_hist", shapes):
+        hist = map_hist(words, bits, seg_len)
+    start, start_r, total = rank_counts(*hist, k)
+    with trace.span("k3_ap", shapes):
+        ap = map_ap(words, start, start_r, total, seg_len)
     t = total.double()
     return torch.where(total > 0, ap / torch.clamp(t, min=1.0), torch.zeros_like(ap))

@@ -24,7 +24,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ..utils import prng
+from ..utils import prng, trace
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -116,19 +116,21 @@ def _device(device) -> torch.device:
 def random_bits(key: prng.Key, shape: Sequence[int], device=None,
                 offset: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` at the flat indices plus
-    ``offset``, as an int64 tensor of uint32 values on ``device``."""
+    ``offset``, as an int64 tensor of uint32 values on ``device``. Under a
+    profiler it is the span ``cmh.t`` with (elements, 4, False)."""
     device = _device(device)
-    if device.type == "cpu":
-        return prng.random_bits(key, shape, offset)
     n = math.prod(shape)
-    out = torch.empty(n, dtype=torch.int32, device=device)
-    lib, stream = _lib(), _stream(out)
-    for ln in launches(n, base=int(offset)):
-        rc = lib.cmh_threefry_bits(key[0], key[1], ln.hi, ln.lo, out.data_ptr() + 4 * ln.start,
-                                   ln.n, stream)
-        _build.check(rc, "threefry_bits")
-        random_bits.launches += 1
-    return (out.to(torch.int64) & prng.MASK).reshape(tuple(shape))
+    with trace.span("t", (n, 4, False)):
+        if device.type == "cpu":
+            return prng.random_bits(key, shape, offset)
+        out = torch.empty(n, dtype=torch.int32, device=device)
+        lib, stream = _lib(), _stream(out)
+        for ln in launches(n, base=int(offset)):
+            rc = lib.cmh_threefry_bits(key[0], key[1], ln.hi, ln.lo,
+                                       out.data_ptr() + 4 * ln.start, ln.n, stream)
+            _build.check(rc, "threefry_bits")
+            random_bits.launches += 1
+        return (out.to(torch.int64) & prng.MASK).reshape(tuple(shape))
 
 
 def _part(shape: Sequence[int], part: Optional[Part]) -> Tuple[int, int, int, int]:
@@ -249,11 +251,14 @@ def _launch(counter, x: torch.Tensor, key: prng.Key, rate: float,
 
 
 def _apply(x, key, rate, part, counter):
-    if x.device.type == "cpu":
-        return dropout_plain(x, key, rate, part)
-    if x.device.type != "cuda":
-        raise ValueError(f"no dropout kernel for device {x.device}")
-    return _launch(counter, x, key, rate, part)
+    """Either way of dropout; under a profiler the span ``cmh.t`` with
+    (elements, element size, True)."""
+    with trace.span("t", (x.numel(), x.element_size(), True)):
+        if x.device.type == "cpu":
+            return dropout_plain(x, key, rate, part)
+        if x.device.type != "cuda":
+            raise ValueError(f"no dropout kernel for device {x.device}")
+        return _launch(counter, x, key, rate, part)
 
 
 def dropout_bwd(grad: torch.Tensor, key: prng.Key, rate: float,

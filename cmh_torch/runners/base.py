@@ -86,7 +86,7 @@ from ..optim.bert_adam import BertAdam
 from ..optim.partition import param_groups
 from ..parallel import dp, tp
 from ..registry import load_components, registry
-from ..utils import prng
+from ..utils import prng, trace
 from ..utils.logger import get_color_logger
 from ..utils.seed import set_seed
 from . import checkpoint, jax_checkpoint
@@ -496,45 +496,54 @@ class BaseTrainer:
         from its own keys folded with step, the optimizer step count
         (cmh_tpu's ``state.step``). Under data
         parallelism the towers take this rank's rows of the batch and
-        everything after them the gathered global batch."""
-        self.model.train()
-        step = self.optimizer.step_count
-        if self.dp is None:
-            b = self._to_device(batch)
-            towers = contextlib.nullcontext
-        else:
-            b = self._to_device({k: v for k, v in batch.items() if k != "image"})
-            b.update(self._to_device(dp.shard_batch({k: batch[k] for k in dp.ROW_KEYS},
-                                                    self.dp)))
-            towers = lambda: dp.gathered_towers(self.model.backbone, self.dp)  # noqa: E731
+        everything after them the gathered global batch. Under a profiler
+        the step is the span ``cmh.train_step`` over its phases
+        (``utils/trace.py``)."""
+        with trace.span("train_step"):
+            self.model.train()
+            step = self.optimizer.step_count
+            with trace.span("to_device"):
+                if self.dp is None:
+                    b = self._to_device(batch)
+                    towers = contextlib.nullcontext
+                else:
+                    b = self._to_device({k: v for k, v in batch.items() if k != "image"})
+                    b.update(self._to_device(dp.shard_batch({k: batch[k] for k in dp.ROW_KEYS},
+                                                            self.dp)))
+                    towers = lambda: dp.gathered_towers(self.model.backbone, self.dp)  # noqa: E731
 
-        step_key = prng.fold_in(self.dropout_base, step)
+            step_key = prng.fold_in(self.dropout_base, step)
 
-        def forward_and_loss(image, text, kpm):
-            with dropout_rng(step_key), towers():
-                outputs = self.model(image, text, kpm)
-            return self.method.loss(outputs, b, self.method_state, step)
+            def forward_and_loss(image, text, kpm):
+                with trace.span("forward"), dropout_rng(step_key), towers():
+                    outputs = self.model(image, text, kpm)
+                with trace.span("loss"):
+                    return self.method.loss(outputs, b, self.method_state, step)
 
-        args = (b["image"], b["text"], b["key_padding_mask"])
-        if self.remat:
-            loss, loss_dict, method_state = torch.utils.checkpoint.checkpoint(
-                forward_and_loss, *args, use_reentrant=False)
-        else:
-            loss, loss_dict, method_state = forward_and_loss(*args)
-        for opt in self._optimizers():
-            opt.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.dp is not None:
-            dp.average_gradients(self.model.parameters(), self.dp)
-        for opt in self._optimizers():
-            opt.step()
-        self.method_state = method_state
-        return loss.detach(), loss_dict
+            args = (b["image"], b["text"], b["key_padding_mask"])
+            if self.remat:
+                loss, loss_dict, method_state = torch.utils.checkpoint.checkpoint(
+                    forward_and_loss, *args, use_reentrant=False)
+            else:
+                loss, loss_dict, method_state = forward_and_loss(*args)
+            with trace.span("zero_grad"):
+                for opt in self._optimizers():
+                    opt.zero_grad(set_to_none=True)
+            with trace.span("backward"):
+                loss.backward()
+            if self.dp is not None:
+                with trace.span("grad_allreduce"):
+                    dp.average_gradients(self.model.parameters(), self.dp)
+            with trace.span("optimizer"):
+                for opt in self._optimizers():
+                    opt.step()
+            self.method_state = method_state
+            return loss.detach(), loss_dict
 
     def train_epoch(self, epoch: int):
         self.logger.info(">>>>>> epochs: %d/%d" % (epoch, self.epochs))
         all_loss, times, examples, wait = None, 0, 0, [0.0]
-        t0 = time.time()
+        t0 = time.perf_counter()
         for batch in _waited(self.train_loader, wait):
             self.global_step += 1
             times += 1
@@ -548,12 +557,14 @@ class BaseTrainer:
             if self._profiler is not None and self.global_step >= 1 + self.profile_steps:
                 self._stop_profiler()
             if self.global_step % self.display_step == 0:
-                self.print_loss_dict(_floats(loss_dict), bits=self.output_dim,
-                                     epoch=epoch, times=times)
+                with trace.wait("display_loss"):
+                    shown = _floats(loss_dict)
+                self.print_loss_dict(shown, bits=self.output_dim, epoch=epoch, times=times)
         self._stop_profiler()   # an epoch shorter than the window
         # the host read of the loss waits for the card: take it before the clock
-        epoch_loss = float(all_loss) / max(times, 1) if all_loss is not None else 0.0
-        dt = time.time() - t0
+        with trace.wait("epoch_loss"):
+            epoch_loss = float(all_loss) / max(times, 1) if all_loss is not None else 0.0
+        dt = time.perf_counter() - t0
         self.history.append({"epoch": epoch, "loss": epoch_loss, "steps": times,
                              "pairs": examples, "seconds": dt, "data_wait_s": wait[0]})
         self.logger.info(
@@ -597,8 +608,11 @@ class BaseTrainer:
         """Continuous (image, text) codes for one host batch, eval mode."""
         self.model.eval()
         b = self._to_device(batch)
-        return (self.model.encode_image(b["image"]),
-                self.model.encode_text(b["text"], b["key_padding_mask"]))
+        with trace.span("encode_image"):
+            image = self.model.encode_image(b["image"])
+        with trace.span("encode_text"):
+            text = self.model.encode_text(b["text"], b["key_padding_mask"])
+        return image, text
 
     @torch.no_grad()
     def get_code(self, data_loader, length: int, wait=None):
@@ -606,17 +620,26 @@ class BaseTrainer:
         ``index``; ``wait``, a one-element list, gathers the seconds spent
         waiting for the loader. Under data parallelism each rank encodes its
         rows of every batch (``eval_rows``) and ``join_codes`` sums the
-        buffers over the ranks."""
-        k = self.method.eval_code_dims()
-        bufs = (torch.zeros((length, k), dtype=torch.float32, device=self.device),
-                torch.zeros((length, k), dtype=torch.float32, device=self.device))
-        for batch in _waited(data_loader, [0.0] if wait is None else wait):
-            batch = self.eval_rows(batch)
-            valid = torch.as_tensor(batch["valid"], device=self.device)
-            idx = torch.as_tensor(batch["index"], device=self.device).long()[valid]
-            for buf, h in zip(bufs, self.generate_hash(batch)):
-                buf[idx] = self.method.make_hash_code(h)[valid].to(buf.dtype)
-        return self.join_codes(bufs)
+        buffers over the ranks. Under a profiler: the span ``cmh.get_code``,
+        in each batch ``cmh.encode_image``, ``cmh.encode_text`` and
+        ``cmh.make_code``, and a ``cmh.wait.*`` span at each of the batch's
+        three boolean indexings, where the host waits for the card."""
+        with trace.span("get_code"):
+            k = self.method.eval_code_dims()
+            bufs = (torch.zeros((length, k), dtype=torch.float32, device=self.device),
+                    torch.zeros((length, k), dtype=torch.float32, device=self.device))
+            for batch in _waited(data_loader, [0.0] if wait is None else wait):
+                batch = self.eval_rows(batch)
+                valid = torch.as_tensor(batch["valid"], device=self.device)
+                with trace.wait("get_code_index"):
+                    idx = torch.as_tensor(batch["index"], device=self.device).long()[valid]
+                for buf, h in zip(bufs, self.generate_hash(batch)):
+                    with trace.span("make_code"):
+                        code = self.method.make_hash_code(h)
+                        with trace.wait("get_code_rows"):
+                            code = code[valid]
+                        buf[idx] = code.to(buf.dtype)
+            return self.join_codes(bufs)
 
     def eval_rows(self, batch):
         """This rank's rows of an eval batch (all of it off data parallelism)."""
@@ -633,18 +656,24 @@ class BaseTrainer:
         """``valid``'s common part: the ±1 codes of the query and retrieval
         sets, the four mAPs (i→t, t→i, i→i, t→t), their timing logged and
         kept in the epoch's ``history`` entry; returns ((query_img,
-        query_txt, retrieval_img, retrieval_txt), maps)."""
+        query_txt, retrieval_img, retrieval_txt), maps). Under a profiler
+        the span ``cmh.valid`` over ``cmh.get_code`` (twice) and
+        ``cmh.map_4dir``."""
         self.logger.info("Valid.")
-        t0, wait = time.time(), [0.0]
-        query_img, query_txt = self.get_code(self.query_loader, self.query_num, wait)
-        retrieval_img, retrieval_txt = self.get_code(self.retrieval_loader,
-                                                     self.retrieval_num, wait)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t_code = time.time() - t0
-        t0 = time.time()
-        maps = self.calc_map_4dir(query_img, query_txt, retrieval_img, retrieval_txt, k)
-        t_map = time.time() - t0
+        with trace.span("valid"):
+            t0, wait = time.perf_counter(), [0.0]
+            query_img, query_txt = self.get_code(self.query_loader, self.query_num, wait)
+            retrieval_img, retrieval_txt = self.get_code(self.retrieval_loader,
+                                                         self.retrieval_num, wait)
+            if self.device.type == "cuda":
+                with trace.wait("code_sync"):
+                    torch.cuda.synchronize(self.device)
+            t_code = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with trace.span("map_4dir"):
+                maps = self.calc_map_4dir(query_img, query_txt, retrieval_img, retrieval_txt,
+                                          k)
+            t_map = time.perf_counter() - t0
         self.logger.info(f"eval timing: code generation {t_code:.2f}s "
                          f"(waited {wait[0]:.2f}s for data), 4×mAP {t_map:.2f}s")
         if self.history and self.history[-1]["epoch"] == epoch:

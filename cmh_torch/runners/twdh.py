@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from ..registry import registry
+from ..utils import trace
 from .base import BaseTrainer, _waited
 
 
@@ -53,45 +54,62 @@ class TwDHTrainer(BaseTrainer):
     def get_code(self, data_loader, length: int, wait=None):
         """±1 codes of every item: (long image, long text, {width: short
         image}, {width: short text}); under data parallelism each rank's rows
-        of every batch, summed over the ranks, as the base ``get_code``."""
+        of every batch, summed over the ranks, as the base ``get_code``, and
+        with its spans."""
         self.model.eval()
         dev = self.device
 
         def zeros(k):
             return torch.zeros((length, k), dtype=torch.float32, device=dev)
 
-        widths = [str(d) for d in self.method.short_dims]
-        bufs = (zeros(self.long_dim), zeros(self.long_dim),
-                {w: zeros(int(w)) for w in widths}, {w: zeros(int(w)) for w in widths})
-        for batch in _waited(data_loader, [0.0] if wait is None else wait):
-            b = self._to_device(self.eval_rows(batch))
-            valid = b["valid"].bool()
-            idx = b["index"].long()[valid]
-            il, ish = self.method.encode_image(b["image"])
-            tl, tsh = self.method.encode_text(b["text"], b["key_padding_mask"])
+        with trace.span("get_code"):
+            widths = [str(d) for d in self.method.short_dims]
+            bufs = (zeros(self.long_dim), zeros(self.long_dim),
+                    {w: zeros(int(w)) for w in widths}, {w: zeros(int(w)) for w in widths})
             make = self.method.make_hash_code
-            bufs[0][idx] = make(il)[valid]
-            bufs[1][idx] = make(tl)[valid]
-            for w in widths:
-                bufs[2][w][idx] = make(ish[w])[valid]
-                bufs[3][w][idx] = make(tsh[w])[valid]
-        return self.join_codes(bufs)
+
+            def put(buf, h):     # this batch's rows of one buffer
+                with trace.span("make_code"):
+                    code = make(h)
+                    with trace.wait("get_code_rows"):
+                        code = code[valid]
+                    buf[idx] = code
+
+            for batch in _waited(data_loader, [0.0] if wait is None else wait):
+                b = self._to_device(self.eval_rows(batch))
+                valid = b["valid"].bool()
+                with trace.wait("get_code_index"):
+                    idx = b["index"].long()[valid]
+                with trace.span("encode_image"):
+                    il, ish = self.method.encode_image(b["image"])
+                with trace.span("encode_text"):
+                    tl, tsh = self.method.encode_text(b["text"], b["key_padding_mask"])
+                put(bufs[0], il)
+                put(bufs[1], tl)
+                for w in widths:
+                    put(bufs[2][w], ish[w])
+                    put(bufs[3][w], tsh[w])
+            return self.join_codes(bufs)
 
     def valid(self, epoch: int, k: Optional[int] = None):
         save_dir = self.mat_dir()
         self.logger.info("Valid.")
-        t0, wait = time.time(), [0.0]
-        q_li, q_lt, q_si, q_st = self.get_code(self.query_loader, self.query_num, wait)
-        r_li, r_lt, r_si, r_st = self.get_code(self.retrieval_loader, self.retrieval_num, wait)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t_code = time.time() - t0
-        t0 = time.time()
-        by_width = {"long": self.valid_each(epoch, q_li, q_lt, r_li, r_lt, k, save_dir)}
-        for key in q_si:
-            by_width[key] = self.valid_each(epoch, q_si[key], q_st[key], r_si[key], r_st[key],
-                                            k, save_dir, short=key)
-        t_map = time.time() - t0
+        with trace.span("valid"):
+            t0, wait = time.perf_counter(), [0.0]
+            q_li, q_lt, q_si, q_st = self.get_code(self.query_loader, self.query_num, wait)
+            r_li, r_lt, r_si, r_st = self.get_code(self.retrieval_loader, self.retrieval_num,
+                                                   wait)
+            if self.device.type == "cuda":
+                with trace.wait("code_sync"):
+                    torch.cuda.synchronize(self.device)
+            t_code = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with trace.span("map_4dir"):
+                by_width = {"long": self.valid_each(epoch, q_li, q_lt, r_li, r_lt, k, save_dir)}
+                for key in q_si:
+                    by_width[key] = self.valid_each(epoch, q_si[key], q_st[key], r_si[key],
+                                                    r_st[key], k, save_dir, short=key)
+            t_map = time.perf_counter() - t0
         self.logger.info(f"eval timing: code generation {t_code:.2f}s "
                          f"(waited {wait[0]:.2f}s for data), {len(by_width)}×4×mAP {t_map:.2f}s")
         if self.history and self.history[-1]["epoch"] == epoch:

@@ -13,20 +13,28 @@ synchronized, and prints ``train step: … ms (… pairs/s)``. One more window
 of ``--steps`` steps runs under ``torch.profiler``: on the card it prints
 the device kernels summed by name (ms a step, share of the kernel time,
 calls a step), the most expensive first; on the CPU the host operators by
-self time. With ``--outdir`` the window's Chrome trace is written there.
-The launches a step of the port's kernels (K1 and K2, each way) come from
-their wrappers' counters. ``main`` returns these numbers as a dict.
+self time. Beside it, the step by the program's phases, read from its spans
+(``cmh.forward``, ``cmh.backward``, ... of ``utils/trace.py``) in the
+window's Chrome trace: on the card the device ms a step of what was launched,
+on any thread, inside each phase; on the CPU each phase's host ms. With
+``--outdir`` the window's Chrome trace is written there. The launches a step
+of the port's kernels (K1 and K2, each way) come from their wrappers'
+counters. ``main`` returns these numbers as a dict.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import json
 import os
 import tempfile
 import time
 from typing import Optional
 
 TOP = 40   # rows of the breakdown printed
+# train_step's phases, in order (runners/base.py)
+PHASES = ("to_device", "forward", "loss", "zero_grad", "backward", "grad_allreduce", "optimizer")
 
 
 def kernel_launches() -> dict:
@@ -131,6 +139,40 @@ def op_table(prof, device, per: int) -> dict:
                      "calls": c / per} for n, us, c in rows]}
 
 
+def phase_table(path: str, device, per: int) -> dict:
+    """train_step by its phases, from the ``cmh.*`` spans of the Chrome
+    trace at ``path`` over ``per`` steps: on the card the device time of the
+    kernels, copies and sets whose launch, on any thread (the autograd
+    engine's too), lies inside a phase; on the CPU the phase's host time.
+    Returns {"kind", "step_ms", "phases": [{"name", "ms", "share"}, ...]}
+    in the phases' order, ms a step, shares of the step's."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans, launch, device_events = collections.defaultdict(list), {}, []
+    for e in events:
+        cat, args = e.get("cat"), e.get("args", {})
+        if cat == "user_annotation" and e["name"].startswith("cmh."):
+            spans[e["name"].split(" ")[0][4:]].append((e["ts"], e["ts"] + e.get("dur", 0)))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch[args["correlation"]] = e["ts"]
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device_events.append((args.get("correlation"), e.get("dur", 0)))
+
+    def us(name):
+        inside = spans.get(name, ())
+        if device.type != "cuda":
+            return sum(b - a for a, b in inside)
+        return sum(d for c, d in device_events
+                   if c in launch and any(a <= launch[c] <= b for a, b in inside))
+
+    step = us("train_step")
+    rows = [(name, us(name)) for name in PHASES if name in spans]
+    return {"kind": "device ms" if device.type == "cuda" else "host ms",
+            "step_ms": step / 1e3 / per,
+            "phases": [{"name": n, "ms": t / 1e3 / per, "share": t / step if step else 0.0}
+                       for n, t in rows]}
+
+
 def print_table(table: dict, unit: str) -> None:
     print(f"\n=== {table['kind']}: {table['total_ms']:.3f} ms/{unit} ===")
     for op in table["ops"][:TOP]:
@@ -172,12 +214,19 @@ def main(argv: Optional[list] = None) -> dict:
     print(f"train step: {dt * 1e3:.2f} ms  ({args.batch / dt:.0f} pairs/s)")
     print(f"kernel launches a step: {launches}")
 
-    prof, trace = profiled(steps, device, args.outdir, f"train-{args.method}-{args.steps}")
+    with tempfile.TemporaryDirectory(prefix="cmh_prof_trace_") as tmp:
+        prof, trace = profiled(steps, device, args.outdir or tmp,
+                               f"train-{args.method}-{args.steps}")
+        phases = phase_table(trace, device, args.steps)
     table = op_table(prof, device, args.steps)
     print_table(table, "step")
+    print(f"\n=== train_step by phase ({phases['kind']}): {phases['step_ms']:.3f} ms/step ===")
+    for p in phases["phases"]:
+        print(f"{p['ms']:9.3f} ms/step {p['share']:6.1%}  {p['name']}")
     return {"method": args.method, "batch": args.batch, "steps": args.steps,
             "device": device.type, "step_ms": dt * 1e3, "pairs_per_s": args.batch / dt,
-            "launches_per_step": launches, "trace": trace, **table}
+            "launches_per_step": launches, "trace": trace if args.outdir else None,
+            "phases": phases, **table}
 
 
 if __name__ == "__main__":

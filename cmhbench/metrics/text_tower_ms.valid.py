@@ -1,0 +1,7 @@
+"""Device milliseconds a traced ``valid`` of the kernels launched inside the
+program's ``cmh.encode_text`` spans (text tower and hash head)."""
+from cmhbench.program_spans import device_s, per
+
+
+def read(outcome):
+    return per(outcome, "valid", lambda t: 1e3 * device_s(t, "encode_text"))

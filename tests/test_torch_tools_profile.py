@@ -1,7 +1,7 @@
 """``cmh_torch.tools.profile_train`` and ``profile_encode`` on the CPU at the
 tiny CLIP: the dicts ``main`` returns (the step and encode times are the
-CPU's, the op list its host operators), and the chip microbenchmark's
-plumbing."""
+CPU's, the op list its host operators, the phases their host time), and the
+chip microbenchmark's plumbing."""
 
 import os
 
@@ -28,8 +28,16 @@ def test_profile_train_returns_its_numbers(tmp_path, capsys):
     _check_ops(out)
     assert any("mm" in op["name"] for op in out["ops"])
     assert os.path.getsize(out["trace"]) > 0 and out["trace"].startswith(str(tmp_path))
+    # the step by the program's phases, from its spans: on the CPU their host time
+    phases = out["phases"]
+    assert phases["kind"] == "host ms" and phases["step_ms"] > 0
+    assert [p["name"] for p in phases["phases"]] == ["to_device", "forward", "loss",
+                                                      "zero_grad", "backward", "optimizer"]
+    assert all(p["ms"] > 0 for p in phases["phases"])
+    assert 0.9 < sum(p["share"] for p in phases["phases"]) <= 1.0
     printed = capsys.readouterr().out
     assert "train step: " in printed and "pairs/s" in printed and "ms/step" in printed
+    assert "train_step by phase (host ms)" in printed
 
 
 def test_profile_encode_returns_its_numbers(capsys):
@@ -66,3 +74,31 @@ def test_chip_microbench_rate_on_the_host():
     out = chip_microbench.mm_rate(64, 32, 48, 2, torch.device("cpu"), torch.Generator())
     assert out["shape"] == [64, 32, 48] and out["ms"] > 0
     assert out["tflops"] == 2 * 64 * 32 * 48 / (out["ms"] * 1e-3) / 1e12
+
+
+def test_profile_train_phases_on_the_card_count_launches_on_any_thread(tmp_path):
+    """On the card a phase holds the device time of what was launched inside
+    it, the autograd engine's launches inside ``cmh.backward`` included."""
+    import json
+
+    import torch
+
+    def x(cat, name, ts, dur, tid=1, **args):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "tid": tid,
+                "args": args}
+
+    events = [x("user_annotation", "cmh.train_step", 0, 100),
+              x("user_annotation", "cmh.forward", 0, 40),
+              x("user_annotation", "cmh.k1_fwd [10, 64, 2]", 5, 2),
+              x("user_annotation", "cmh.backward", 50, 40),
+              x("cuda_runtime", "cudaLaunchKernel", 5, 1, correlation=1),
+              x("cuda_runtime", "cudaLaunchKernel", 60, 1, tid=2, correlation=2),
+              x("kernel", "a", 10, 30, tid=7, correlation=1),
+              x("kernel", "b", 70, 20, tid=7, correlation=2),
+              x("gpu_memcpy", "Memcpy DtoH", 95, 4, tid=7, correlation=3)]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    out = profile_train.phase_table(str(path), torch.device("cuda"), 2)
+    assert out == {"kind": "device ms", "step_ms": 0.025,
+                   "phases": [{"name": "forward", "ms": 0.015, "share": 0.6},
+                              {"name": "backward", "ms": 0.01, "share": 0.4}]}
